@@ -1,0 +1,17 @@
+"""avsi_torch: the PyTorch / CUDA (NVIDIA Hopper) port of `avsi`.
+
+A second package beside the JAX one.  It imports `torch` and never `jax`,
+and nothing of `avsi`: what it needs from modules there (config parsing,
+the flagship constants, stats loading) it keeps as its own copies.  Module
+paths and names mirror `avsi/` so each port can be read beside its
+reference.
+
+This slice serves the flagship `av-blstm-ssnn-ctc` `/enhance` path
+(`avsi_torch.serve`).  The bidirectional LSTM stack runs two hand-written
+CUDA kernels for sm_90a (`avsi_torch/csrc/lstm_fused.cu`, the ports of the
+Pallas kernels `bilstm_fused_proj` / `bilstm_fused_proj2`), built with
+`nvcc` at first use; on CPU tensors their plain PyTorch versions run.
+
+Entry points run on the GPU unless the caller asks for the CPU
+(`device="cpu"`): see `avsi_torch.device.resolve_device`.
+"""
