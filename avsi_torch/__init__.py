@@ -6,11 +6,15 @@ the flagship constants, stats loading) it keeps as its own copies.  Module
 paths and names mirror `avsi/` so each port can be read beside its
 reference.
 
-This slice serves the flagship `av-blstm-ssnn-ctc` `/enhance` path
-(`avsi_torch.serve`).  The bidirectional LSTM stack runs two hand-written
-CUDA kernels for sm_90a (`avsi_torch/csrc/lstm_fused.cu`, the ports of the
-Pallas kernels `bilstm_fused_proj` / `bilstm_fused_proj2`), built with
-`nvcc` at first use; on CPU tensors their plain PyTorch versions run.
+It serves the flagship `av-blstm-ssnn-ctc` `/enhance` path
+(`avsi_torch.serve`) and trains it (`avsi_torch.train.loop.train`).  The
+bidirectional LSTM runs hand-written CUDA kernels for sm_90a, built with
+`nvcc` at first use: the forward-only stack for serving and validation
+(`avsi_torch/csrc/lstm_fused.cu`, the ports of the Pallas kernels
+`bilstm_fused_proj` / `bilstm_fused_proj2`) and the training forward and
+backward under a `torch.autograd.Function` (`avsi_torch/csrc/lstm_train.cu`,
+the ports of `bilstm_recurrence_train` / `bilstm_recurrence_bwd`).  On CPU
+tensors their plain PyTorch versions run.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (`device="cpu"`): see `avsi_torch.device.resolve_device`.

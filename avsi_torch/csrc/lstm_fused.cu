@@ -31,51 +31,9 @@
 // faster designs (wh split over a thread-block cluster with DSMEM, weights kept
 // in shared memory, wgmma for the batched products) are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "lstm_common.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
-
-// Round through the compute dtype T and back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32<T>(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Dot product of a staged f32 row (smem) with column j of a (rows, g4) matrix.
-template <typename T>
-__device__ __forceinline__ float dot_col(const float* __restrict__ row,
-                                         const T* __restrict__ w, int rows,
-                                         int g4, int j) {
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < rows; ++k) {
-    acc = fmaf(row[k], to_f32<T>(w[(size_t)k * g4 + j]), acc);
-  }
-  return acc;
-}
 
 // T: compute dtype of inputs and weights; O: output dtype.
 // kTwoStreams=false: K1 (input xa, weights wxa); true: K2 (xa|xb, wxa|wxb).
@@ -149,15 +107,10 @@ int launch(const void* xa, const void* xb, const void* wxa, const void* wxb,
            int t_len, int batch, int da, int db, int hidden, cudaStream_t stream) {
   const size_t smem = smem_bytes(da, db, hidden);
   auto kernel = bilstm_fused_kernel<T, O, kTwo>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int threads = ((4 * hidden + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(2, batch);
-  kernel<<<grid, threads, smem, stream>>>(
+  kernel<<<grid, gate_threads(hidden), smem, stream>>>(
       static_cast<const T*>(xa), static_cast<const T*>(xb),
       static_cast<const T*>(wxa), static_cast<const T*>(wxb), bias,
       static_cast<const T*>(wh), static_cast<O*>(out_f), static_cast<O*>(out_b),

@@ -1,0 +1,325 @@
+// Bidirectional LSTM recurrence for training, forward and backward, for Hopper.
+//
+// Replaces two Pallas TPU kernels of avsi/ops/pallas_lstm.py, the pair under
+// the custom VJP of `_layer` (:1236-1326):
+//   K3  bilstm_recurrence_train (_kernel_train, :148-173): the recurrence over a
+//       precomputed gate input xw, writing the h streams and the f32 cell-state
+//       streams (the residual of the backward);
+//   K4  bilstm_recurrence_bwd   (_bwd_kernel :599-656, _bwd_dir :563-596): the
+//       reverse walk that writes dgates as dxw and accumulates dWh.
+//
+// Layouts (the TPU kernels'): xw and dxw are (T, 2, B, 4H) in kernel time, so
+// direction 1 is time-reversed there; h, c and dout are (T, B, H) per direction
+// in ORIGINAL time order.  At kernel step s, direction 0 is at original time s
+// and direction 1 at T-1-s; the previous step (s-1) is at original time s-1 for
+// direction 0 and T-s for direction 1 (zero state at s = 0).
+//
+// Numerics (the TPU kernels' function):
+//   K3:  gates = xw_s + round_cd(h_prev) . wh   (f32 sum, dot_col's order, so
+//        the gates are bit for bit those K1/K2 compute from the same xw)
+//        c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c)     all f32
+//   K4:  the gates are recomputed by the same code as K3, then with
+//        dh = dout_s + dh_rec and the f32 carries dc, dh_rec:
+//        do = dh tanh(c) o(1-o);  dc += dh o (1 - tanh(c)^2)
+//        di = dc g i(1-i);  df = dc c_prev f(1-f);  dg = dc i (1-g^2)
+//        dxw_s = round_cd(dgates);  dh_rec = dxw_s . wh^T;  dc = dc f
+//        dwh[d] = sum over (s, b) of round_cd(h_prev)^T . dxw_s    (f32)
+//
+// Design (first, simple version).  K3 is K1's design without the projection:
+// one block per (direction, batch row), a grid of (2, B); thread j owns gate
+// column j; h is staged in shared memory; wh is read from global memory, where
+// it stays resident in the 50 MB L2.  K4 is split in two launches, because the
+// TPU body's (2, H, 4H) f32 dWh accumulator (2 MB) is carried across the
+// sequential grid in VMEM, which has no Hopper counterpart (an SM has 227 KB,
+// and per-step atomics from 2B blocks onto one accumulator would serialise):
+//   K4a, the walk: one block per (direction, batch row) stepping s = T-1..0.
+//        Thread j recomputes gate column j; thread k (< H) forms the dgates of
+//        unit k and updates the dc carry; then dh_rec = dgates . wh^T contracts
+//        the 4H axis, one warp per output unit reading a row of wh coalesced,
+//        with the rounded dgates staged in shared memory.
+//   K4b, the reduction: a tiled shared-memory product (64 x 64 tiles of dWh,
+//        16 (s, b) rows at a time, 4 x 4 outputs per thread, f32 sums) over the
+//        h streams K3 wrote, shifted by one step, and the dxw K4a wrote.
+//
+// What bounds it: as for K1, not the work.  The bound (bytes once at 3.35 TB/s,
+// or the products at peak) is far below a design whose every step re-reads
+// the (H x 4H) wh from L2 and walks 250 dependent steps on 2B SMs; K4a reads
+// wh twice per step (gates and dh_rec).  K4b is a plain tiled product whose
+// cost is small beside the walk.  Faster designs (wh split over a cluster with
+// DSMEM, wgmma for the batched products, K4b fused as a split-K epilogue) are
+// later work.
+
+#include "lstm_common.cuh"
+
+namespace {
+
+// ------------------------------------------------------------------ K3
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+bilstm_train_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
+                        float* __restrict__ out_f, float* __restrict__ out_b,
+                        float* __restrict__ c_f, float* __restrict__ c_b,
+                        int t_len, int batch, int hidden) {
+  const int dir = blockIdx.x;
+  const int row = blockIdx.y;
+  const int g4 = 4 * hidden;
+  extern __shared__ float smem[];
+  float* hs = smem;          // hidden: h rounded to the compute dtype
+  float* cs = hs + hidden;   // hidden: cell state, f32
+  float* gs = cs + hidden;   // g4: gate pre-activations, f32
+
+  wh += (size_t)dir * hidden * g4;
+  float* out = dir == 0 ? out_f : out_b;
+  float* c_out = dir == 0 ? c_f : c_b;
+
+  for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
+    hs[k] = 0.0f;
+    cs[k] = 0.0f;
+  }
+  __syncthreads();
+  for (int s = 0; s < t_len; ++s) {
+    const int t = dir == 0 ? s : t_len - 1 - s;
+    const size_t pos = (size_t)t * batch + row;
+    const T* xrow = xw + (((size_t)s * 2 + dir) * batch + row) * g4;
+    for (int j = threadIdx.x; j < g4; j += blockDim.x) {
+      gs[j] = to_f32<T>(xrow[j]) + dot_col<T>(hs, wh, hidden, g4, j);
+    }
+    __syncthreads();  // all gates ready; nobody reads hs any more
+    for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
+      const float i = sigmoid(gs[k]);
+      const float f = sigmoid(gs[hidden + k]);
+      const float g = tanhf(gs[2 * hidden + k]);
+      const float o = sigmoid(gs[3 * hidden + k]);
+      const float c = f * cs[k] + i * g;
+      const float h = o * tanhf(c);
+      cs[k] = c;
+      hs[k] = round_to<T>(h);
+      out[pos * hidden + k] = h;
+      c_out[pos * hidden + k] = c;
+    }
+    __syncthreads();  // h and c of this step visible before the next
+  }
+}
+
+// ------------------------------------------------------------------ K4a
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+bilstm_bwd_walk_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
+                       const float* __restrict__ out_f, const float* __restrict__ out_b,
+                       const float* __restrict__ c_f, const float* __restrict__ c_b,
+                       const T* __restrict__ dout_f, const T* __restrict__ dout_b,
+                       T* __restrict__ dxw, int t_len, int batch, int hidden) {
+  const int dir = blockIdx.x;
+  const int row = blockIdx.y;
+  const int g4 = 4 * hidden;
+  extern __shared__ float smem[];
+  float* hs = smem;            // hidden: h_prev rounded to the compute dtype
+  float* dhs = hs + hidden;    // hidden: dh_rec carry, f32
+  float* dcs = dhs + hidden;   // hidden: dc carry, f32
+  float* gs = dcs + hidden;    // g4: recomputed gate pre-activations, f32
+  float* dgs = gs + g4;        // g4: dgates rounded to the compute dtype
+
+  wh += (size_t)dir * hidden * g4;
+  const float* h_src = dir == 0 ? out_f : out_b;
+  const float* c_src = dir == 0 ? c_f : c_b;
+  const T* d_src = dir == 0 ? dout_f : dout_b;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
+    dhs[k] = 0.0f;
+    dcs[k] = 0.0f;
+  }
+  for (int s = t_len - 1; s >= 0; --s) {
+    const size_t pos = (size_t)(dir == 0 ? s : t_len - 1 - s) * batch + row;
+    const size_t pos_prev = (size_t)(dir == 0 ? s - 1 : t_len - s) * batch + row;
+    for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
+      hs[k] = s > 0 ? round_to<T>(h_src[pos_prev * hidden + k]) : 0.0f;
+    }
+    __syncthreads();  // hs staged (and last step's dh_rec written)
+    const T* xrow = xw + (((size_t)s * 2 + dir) * batch + row) * g4;
+    for (int j = threadIdx.x; j < g4; j += blockDim.x) {
+      gs[j] = to_f32<T>(xrow[j]) + dot_col<T>(hs, wh, hidden, g4, j);
+    }
+    __syncthreads();  // gates ready
+    T* dxw_row = dxw + (((size_t)s * 2 + dir) * batch + row) * g4;
+    for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
+      const float i = sigmoid(gs[k]);
+      const float f = sigmoid(gs[hidden + k]);
+      const float g = tanhf(gs[2 * hidden + k]);
+      const float o = sigmoid(gs[3 * hidden + k]);
+      const float c_prev = s > 0 ? c_src[pos_prev * hidden + k] : 0.0f;
+      const float tc = tanhf(c_src[pos * hidden + k]);
+      const float dh = to_f32<T>(d_src[pos * hidden + k]) + dhs[k];
+      const float d_o = dh * tc * o * (1.0f - o);
+      const float dc = dcs[k] + dh * o * (1.0f - tc * tc);
+      const float d_i = dc * g * i * (1.0f - i);
+      const float d_f = dc * c_prev * f * (1.0f - f);
+      const float d_g = dc * i * (1.0f - g * g);
+      dcs[k] = dc * f;
+      const float d[4] = {d_i, d_f, d_g, d_o};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T v = from_f32<T>(d[q]);
+        dgs[q * hidden + k] = to_f32<T>(v);
+        dxw_row[q * hidden + k] = v;
+      }
+    }
+    __syncthreads();  // dgates staged; dhs free to overwrite
+    // dh_rec[k] = sum_j dgates[j] * wh[k, j]: one warp per unit k, lanes
+    // stride the 4H axis of row k (coalesced), then a shuffle reduction.
+    for (int k = warp; k < hidden; k += n_warps) {
+      const T* w_row = wh + (size_t)k * g4;
+      float acc = 0.0f;
+      for (int j = lane; j < g4; j += 32) acc = fmaf(dgs[j], to_f32<T>(w_row[j]), acc);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) dhs[k] = acc;
+    }
+    __syncthreads();  // dh_rec of this step visible before the next
+  }
+}
+
+// ------------------------------------------------------------------ K4b
+
+constexpr int kTile = 64;     // dWh tile: kTile units x kTile gate columns
+constexpr int kDepth = 16;    // (s, b) rows per shared-memory stage
+constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bilstm_bwd_dwh_kernel(const float* __restrict__ out_f, const float* __restrict__ out_b,
+                      const T* __restrict__ dxw, float* __restrict__ dwh,
+                      int t_len, int batch, int hidden) {
+  const int dir = blockIdx.z;
+  const int k0 = blockIdx.y * kTile;  // unit (row of dWh)
+  const int j0 = blockIdx.x * kTile;  // gate column
+  const int g4 = 4 * hidden;
+  const float* h_src = dir == 0 ? out_f : out_b;
+  __shared__ float a_s[kDepth][kTile];  // round_cd(h_prev) rows
+  __shared__ float b_s[kDepth][kTile];  // dxw rows
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  const int n_rows = t_len * batch;  // reduction over (s, b), r = s * B + b
+
+  for (int r0 = 0; r0 < n_rows; r0 += kDepth) {
+    for (int e = threadIdx.x; e < kDepth * kTile; e += kThreads) {
+      const int rr = e / kTile;
+      const int cc = e % kTile;
+      const int r = r0 + rr;
+      float a = 0.0f, b = 0.0f;
+      if (r < n_rows) {
+        const int s = r / batch;
+        const int bi = r % batch;
+        const int k = k0 + cc;
+        if (s > 0 && k < hidden) {
+          const size_t tp = (size_t)(dir == 0 ? s - 1 : t_len - s);
+          a = round_to<T>(h_src[(tp * batch + bi) * hidden + k]);
+        }
+        const int j = j0 + cc;
+        if (j < g4) b = to_f32<T>(dxw[(((size_t)s * 2 + dir) * batch + bi) * g4 + j]);
+      }
+      a_s[rr][cc] = a;
+      b_s[rr][cc] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q] = a_s[kk][ty * 4 + q];
+        b[q] = b_s[kk][tx * 4 + q];
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int k = k0 + ty * 4 + p;
+    if (k >= hidden) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + tx * 4 + q;
+      if (j < g4) dwh[((size_t)dir * hidden + k) * g4 + j] = acc[p][q];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launchers
+
+template <typename T>
+int launch_train(const void* xw, const void* wh, float* out_f, float* out_b,
+                 float* c_f, float* c_b, int t_len, int batch, int hidden,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 6 * (size_t)hidden;
+  auto kernel = bilstm_train_fwd_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(2, batch), gate_threads(hidden), smem, stream>>>(
+      static_cast<const T*>(xw), static_cast<const T*>(wh), out_f, out_b, c_f, c_b,
+      t_len, batch, hidden);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* xw, const void* wh, const float* out_f, const float* out_b,
+               const float* c_f, const float* c_b, const void* dout_f,
+               const void* dout_b, void* dxw, float* dwh, int t_len, int batch,
+               int hidden, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 11 * (size_t)hidden;
+  auto walk = bilstm_bwd_walk_kernel<T>;
+  cudaError_t err = allow_smem(walk, smem);
+  if (err != cudaSuccess) return (int)err;
+  walk<<<dim3(2, batch), gate_threads(hidden), smem, stream>>>(
+      static_cast<const T*>(xw), static_cast<const T*>(wh), out_f, out_b, c_f, c_b,
+      static_cast<const T*>(dout_f), static_cast<const T*>(dout_b),
+      static_cast<T*>(dxw), t_len, batch, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((4 * hidden + kTile - 1) / kTile, (hidden + kTile - 1) / kTile, 2);
+  bilstm_bwd_dwh_kernel<T><<<grid, kThreads, 0, stream>>>(
+      out_f, out_b, static_cast<const T*>(dxw), dwh, t_len, batch, hidden);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3: xw (T,2,B,4H) and wh (2,H,4H) at the compute dtype; out_f/out_b and
+// c_f/c_b (T,B,H) f32.  Returns the launch's CUDA error.
+int avsi_bilstm_recurrence_train(const void* xw, const void* wh, float* out_f,
+                                 float* out_b, float* c_f, float* c_b, int t_len,
+                                 int batch, int hidden, int in_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_bf16)
+    return launch_train<__nv_bfloat16>(xw, wh, out_f, out_b, c_f, c_b, t_len, batch,
+                                       hidden, s);
+  return launch_train<float>(xw, wh, out_f, out_b, c_f, c_b, t_len, batch, hidden, s);
+}
+
+// K4 (K4a walk, then K4b dWh): xw, wh, dout_f/dout_b and dxw at the compute
+// dtype; out_f/out_b and c_f/c_b f32; dwh (2,H,4H) f32.
+int avsi_bilstm_recurrence_bwd(const void* xw, const void* wh, const float* out_f,
+                               const float* out_b, const float* c_f,
+                               const float* c_b, const void* dout_f,
+                               const void* dout_b, void* dxw, float* dwh, int t_len,
+                               int batch, int hidden, int in_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_bf16)
+    return launch_bwd<__nv_bfloat16>(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b,
+                                     dxw, dwh, t_len, batch, hidden, s);
+  return launch_bwd<float>(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b, dxw, dwh,
+                           t_len, batch, hidden, s);
+}
+
+}  // extern "C"

@@ -8,8 +8,8 @@ embedding); stacked BLSTM; dense heads 2H -> 257 (inpainting) and
 2H -> num_asr_labels (CTC).  See the reference module for the per-variant
 semantics, which are reproduced here unchanged.
 
-Not in this slice: training (dropout, gradients) and the latency-controlled
-(LC) branch, which wait for the training and streaming slices.
+Not ported yet: the latency-controlled (LC) branch, which waits for the
+streaming slice.
 """
 
 from __future__ import annotations
@@ -182,10 +182,13 @@ def forward(
     spec: BLSTMSpec | None = None,
     train: bool = False,
     audio_features=None,
+    gen: torch.Generator | None = None,
 ) -> dict:
-    """Forward pass (inference). Returns feats + prediction (+ asr logits)."""
-    if train:
-        raise NotImplementedError("training is not ported yet")
+    """Forward pass. Returns feats + prediction (+ asr logits).
+
+    train=True runs the differentiated BLSTM layers (K3/K4 under autograd)
+    and dropout after the stack, drawn from `gen`; train=False the fused
+    forward-only stack (K1/K2) and no dropout."""
     if int(config.get("lc_chunk", 0) or 0) > 0:
         raise NotImplementedError("the latency-controlled (LC) branch is not ported yet")
     spec = spec or parse_model_name(config["model"])
@@ -197,7 +200,8 @@ def forward(
     int_layer = int(config.get("integration_layer", 0)) if spec.conditioning else 0
 
     def stack(layers, x):
-        return core.blstm_stack(layers, x, compute_dtype, gate_dtype, impl=impl)
+        return core.blstm_stack(layers, x, compute_dtype, gate_dtype, impl=impl,
+                                forward_only=not train)
 
     emb = None
     if spec.conditioning == "ssnn":
@@ -214,6 +218,8 @@ def forward(
     else:
         rnn_out = stack(params["blstm"], net_in)
 
+    rnn_out = core.dropout(gen, rnn_out, float(config.get("dropout_rate", 0.0)),
+                           deterministic=not train)
     inference = core.dense(params["head_ipt"], rnn_out).float()
     seq_mask = sequence_mask(batch["sequence_lengths"], t)[:, :, None]
     if spec.restore_unmasked:
@@ -247,6 +253,7 @@ def losses(outputs: dict, batch: dict, config: dict, spec: BLSTMSpec | None = No
             batch["sequence_lengths"],
             batch["labels"],
             batch["labels_lengths"],
+            infeasible=batch.get("ctc_infeasible"),
         )
         loss_func = loss_func + float(config["ctc_loss"]) * out["ctc_loss"]
     out["loss"] = loss_func

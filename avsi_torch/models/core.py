@@ -1,15 +1,19 @@
 """Model building blocks: dense layers and the bidirectional LSTM stack.
 
-Port of `avsi/models/core.py` for the forward-only slice.  Parameters are
+Port of `avsi/models/core.py` (dense, dropout, the BLSTM stack; the LC
+window recursion waits for the streaming slice).  Parameters are
 plain nested dicts/lists of tensors with the reference's layout: a BLSTM
 layer is {"wx": (2, D, 4H), "wh": (2, H, 4H), "b": (2, 4H)}, leading axis
 (forward, backward), gate order i, f, g, o.
 
 `bilstm_layer` is the eager, per-step twin of the reference's `lax.scan`
 layer, including its `gate_dtype` rule (gate nonlinearities evaluated in
-`gate_dtype`, h/c kept f32).  `blstm_stack` dispatches on `impl`:
-"kernel"/"plain" take the fused stack (`avsi_torch.ops.lstm_fused`),
-"scan" this eager twin.
+`gate_dtype`, h/c kept f32).  `blstm_stack` dispatches on `impl` and on
+`forward_only`: "kernel"/"plain" take the fused forward-only stack
+(`avsi_torch.ops.lstm_fused`, K1/K2) when no gradient will flow, and the
+differentiated layer (`avsi_torch.ops.lstm_train.BiLSTMLayer`, K3/K4) per
+layer when one will; "scan" takes this eager twin, which autograd
+differentiates.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import math
 
 import torch
 
-from avsi_torch.ops import lstm_fused
+from avsi_torch.ops import lstm_fused, lstm_train
 
 
 def truncated_normal_init(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
@@ -118,19 +122,37 @@ def bilstm_layer(params: dict, x: torch.Tensor, compute_dtype=torch.float32,
 
 
 def blstm_stack(layers: list[dict], x: torch.Tensor, compute_dtype=torch.float32,
-                gate_dtype=None, impl: str = "scan") -> torch.Tensor:
+                gate_dtype=None, impl: str = "scan", forward_only: bool = True) -> torch.Tensor:
     """Stacked bidirectional LSTM: (B, T, D) -> (B, T, 2*H_last).
 
-    impl "kernel" (CUDA) / "plain" (CPU): the fused stack, whose gates are
-    f32 whatever `gate_dtype` says (the TPU kernels' function); "scan":
-    per-layer `bilstm_layer`."""
+    impl "kernel" (CUDA) / "plain" (CPU): with `forward_only` the fused
+    stack (K1 + K2 per further layer), else `BiLSTMLayer` per layer (K3 +
+    K4 under autograd); the gates are f32 whatever `gate_dtype` says (the
+    TPU kernels' function).  "scan": per-layer `bilstm_layer`."""
     if impl in ("kernel", "plain"):
         if (impl == "kernel") != x.is_cuda:
             raise ValueError(f"lstm_impl={impl!r} does not match the device {x.device}")
-        return lstm_fused.blstm_stack_fused(layers, x, compute_dtype)
-    if impl != "scan":
+        if forward_only:
+            return lstm_fused.blstm_stack_fused(layers, x, compute_dtype)
+        layer_fn = lstm_train.bilstm_layer_train
+    elif impl == "scan":
+        def layer_fn(layer, out, cd):
+            return bilstm_layer(layer, out, cd, gate_dtype)
+    else:
         raise ValueError(f"unknown lstm impl {impl!r}")
     out = x
     for layer in layers:
-        out = bilstm_layer(layer, out, compute_dtype, gate_dtype)
+        out = layer_fn(layer, out, compute_dtype)
     return out
+
+
+def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (`avsi/models/core.py:420-425`): keep each element
+    with probability 1 - rate and scale it by 1 / (1 - rate).  `gen` draws
+    the keep mask on x's device."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -25,6 +25,7 @@ class ModelDef:
     enhanced_sources: Callable | None = None
     needs_embeddings: bool = False
     needs_labels: bool = False
+    spec: blstm.BLSTMSpec | None = None
     # STFT geometry of the model's front end (frame_length, frame_step, fft_length)
     frame_length: int = 384
     frame_step: int = 192
@@ -56,4 +57,5 @@ def get_model(name: str) -> ModelDef:
         blstm.enhanced_sources,
         needs_embeddings=spec.conditioning == "emb",
         needs_labels=spec.ctc,
+        spec=spec,
     )

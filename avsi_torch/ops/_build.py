@@ -1,11 +1,16 @@
 """Build and load the port's CUDA kernels at first use.
 
-`nvcc` compiles `avsi_torch/csrc/*.cu` for sm_90a into a shared library
-with a plain C interface, which `ctypes` loads: no PyTorch headers, so a
-build takes seconds.  The library lands in `build/avsi_torch/` beside the
-package (listed in `.gitignore`), named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing is built at import time: the first kernel launch builds.
+`nvcc` compiles each `avsi_torch/csrc/*.cu` for sm_90a into an object,
+all sources at once in parallel processes, then links them into one shared
+library with a plain C interface, which `ctypes` loads: no PyTorch headers,
+so a build takes seconds.  The library lands in `build/avsi_torch/` beside
+the package (listed in `.gitignore`), named by a hash of the sources,
+headers and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing is built at import time: the first kernel launch builds.
+
+`launch` calls a kernel's C launcher on the current stream and counts the
+launch in `launch_counts`, so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -18,11 +23,14 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "lstm_fused.cu",)
+SOURCES = (_PKG / "csrc" / "lstm_fused.cu", _PKG / "csrc" / "lstm_train.cu")
+HEADERS = (_PKG / "csrc" / "lstm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 BUILD_DIR = _PKG.parent / "build" / "avsi_torch"
 
@@ -34,7 +42,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "avsi_bilstm_fused_proj": [_P] * 6 + [_I] * 6 + [_P],
     "avsi_bilstm_fused_proj2": [_P] * 8 + [_I] * 6 + [_P],
+    "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 4 + [_P],
+    "avsi_bilstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
 }
+# launches per kernel wrapper (K4's walk and dWh launches count as one)
+launch_counts = {name[len("avsi_"):]: 0 for name in _SIGNATURES}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -50,7 +67,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libavsi_kernels_{h.hexdigest()[:16]}.so"
 
@@ -61,12 +78,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    errors = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}: nvcc failed ({proc.returncode}):\n{err[-4000:]}")
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -82,3 +118,15 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call `avsi_<name>(*args, stream)` on `device`'s current stream; raise
+    on the CUDA error it returns, else count the launch."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, "avsi_" + name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    launch_counts[name] += 1

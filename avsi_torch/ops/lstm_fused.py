@@ -14,8 +14,9 @@ stack (`blstm_stack_pallas`, `:933-994`):
 Each wrapper launches its CUDA kernel (`avsi_torch/csrc/lstm_fused.cu`)
 for CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only because its tensors lie on the CPU.  There is no fallback from a
-failed launch to the plain version.  `launch_counts` counts kernel
-launches per wrapper, so a run can show that it went through the kernels.
+failed launch to the plain version.  `avsi_torch.ops._build.launch_counts`
+counts kernel launches per wrapper, so a run can show that it went through
+the kernels.
 
 Numerics (the TPU kernels' function, `pallas_lstm.py:100-118,213-221`):
 the projection plus bias is accumulated in f32 and rounded to the compute
@@ -34,35 +35,33 @@ import torch
 
 from avsi_torch.ops import _build
 
-launch_counts = {"bilstm_fused_proj": 0, "bilstm_fused_proj2": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
 
 # ---------------------------------------------------------------- plain
 
-def _recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtype):
-    """Both directions' recurrence over projected gates.
+def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtype):
+    """Both directions' recurrence over projected gates (`_cell`,
+    `pallas_lstm.py:100-118`).
 
     xw: (2, T, B, 4H) f32 after the parity cast, direction 1 already in
-    walk order (time-reversed); wh: (2, H, 4H).  Returns (out_f, out_b) in
-    original time order."""
+    walk order (time-reversed); wh: (2, H, 4H).  Returns (out_f, out_b,
+    c_f, c_b), each (T, B, H) in original time order: h in `out_dtype`,
+    the cell state c in f32."""
     _, t_len, b_sz, g4 = xw.shape
     hidden = g4 // 4
     wh32 = wh.float()
     h = xw.new_zeros(2, b_sz, hidden)
     c = xw.new_zeros(2, b_sz, hidden)
     out = xw.new_empty(2, t_len, b_sz, hidden)
+    cell = xw.new_empty(2, t_len, b_sz, hidden)
     for s in range(t_len):
         gates = xw[:, s] + torch.bmm(h.to(compute_dtype).float(), wh32)
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         out[:, s] = h
-    return out[0].to(out_dtype), out[1].flip(0).to(out_dtype)
+        cell[:, s] = c
+    return (out[0].to(out_dtype), out[1].flip(0).to(out_dtype),
+            cell[0], cell[1].flip(0))
 
 
 def _parity_cast(xw: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -75,7 +74,7 @@ def bilstm_fused_proj_plain(xt, wx, b, wh, out_dtype=torch.float32):
     x32 = xt.float()
     proj = torch.stack([x32 @ wx[0].float(), x32.flip(0) @ wx[1].float()])
     xw = _parity_cast(proj + b.float()[:, None, None, :], cd)
-    return _recurrence_plain(xw, wh, cd, out_dtype)
+    return recurrence_plain(xw, wh, cd, out_dtype)[:2]
 
 
 def bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
@@ -87,7 +86,7 @@ def bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
         a32.flip(0) @ wxa[1].float() + b32.flip(0) @ wxb[1].float(),
     ])
     xw = _parity_cast(proj + b.float()[:, None, None, :], cd)
-    return _recurrence_plain(xw, wh, cd, out_dtype)
+    return recurrence_plain(xw, wh, cd, out_dtype)[:2]
 
 
 # ---------------------------------------------------------------- kernels
@@ -95,32 +94,25 @@ def bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(name: str, compute_dtype, out_dtype, **tensors) -> torch.device:
-    """Raise on anything the kernel does not take."""
+def check_inputs(name: str, compute_dtype, out_dtype, **specs) -> torch.device:
+    """Raise on anything a kernel does not take.  `specs` maps each input's
+    name to (tensor, expected dtype, expected shape); all must be
+    contiguous CUDA tensors on one device, which is returned."""
     if compute_dtype not in _DTYPES:
         raise ValueError(f"{name}: compute dtype {compute_dtype} not in {_DTYPES}")
     if out_dtype not in (torch.float32, compute_dtype):
         raise ValueError(f"{name}: out dtype must be float32 or the compute dtype")
-    device = next(iter(tensors.values())).device
-    for key, t in tensors.items():
-        want = torch.float32 if key == "b" else compute_dtype
+    device = next(iter(specs.values()))[0].device
+    for key, (t, dtype, shape) in specs.items():
         if t.device != device or not t.is_cuda:
             raise ValueError(f"{name}: {key} must be on {device} (CUDA)")
-        if t.dtype != want:
-            raise ValueError(f"{name}: {key} is {t.dtype}, expected {want}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {key} is {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     return device
-
-
-def _launch(name: str, device, *args) -> None:
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, "avsi_" + name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    launch_counts[name] += 1
 
 
 def bilstm_fused_proj(xt, wx, b, wh, out_dtype=torch.float32):
@@ -133,20 +125,17 @@ def bilstm_fused_proj(xt, wx, b, wh, out_dtype=torch.float32):
         return bilstm_fused_proj_plain(xt, wx, b, wh, out_dtype)
     t_len, b_sz, d_in = xt.shape
     hidden = wh.shape[1]
-    if wx.shape != (2, d_in, 4 * hidden) or wh.shape != (2, hidden, 4 * hidden) \
-            or b.shape != (2, 4 * hidden):
-        raise ValueError(
-            f"bilstm_fused_proj: shapes x{tuple(xt.shape)} wx{tuple(wx.shape)} "
-            f"b{tuple(b.shape)} wh{tuple(wh.shape)} do not agree"
-        )
-    device = _check("bilstm_fused_proj", xt.dtype, out_dtype, xt=xt, wx=wx, b=b, wh=wh)
+    cd, g4 = xt.dtype, 4 * hidden
+    device = check_inputs(
+        "bilstm_fused_proj", cd, out_dtype, xt=(xt, cd, xt.shape), wx=(wx, cd, (2, d_in, g4)),
+        b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
-    _launch(
+    _build.launch(
         "bilstm_fused_proj", device,
         xt.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
         out_f.data_ptr(), out_b.data_ptr(), t_len, b_sz, d_in, hidden,
-        int(xt.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16),
     )
     return out_f, out_b
 
@@ -161,24 +150,19 @@ def bilstm_fused_proj2(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
         return bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype)
     t_len, b_sz, h_in = af.shape
     hidden = wh.shape[1]
-    g = (2, h_in, 4 * hidden)
-    if ab.shape != af.shape or wxa.shape != g or wxb.shape != g \
-            or wh.shape != (2, hidden, 4 * hidden) or b.shape != (2, 4 * hidden):
-        raise ValueError(
-            f"bilstm_fused_proj2: shapes af{tuple(af.shape)} ab{tuple(ab.shape)} "
-            f"wxa{tuple(wxa.shape)} wxb{tuple(wxb.shape)} b{tuple(b.shape)} "
-            f"wh{tuple(wh.shape)} do not agree"
-        )
-    device = _check("bilstm_fused_proj2", af.dtype, out_dtype,
-                    af=af, ab=ab, wxa=wxa, wxb=wxb, b=b, wh=wh)
+    cd, g4 = af.dtype, 4 * hidden
+    device = check_inputs(
+        "bilstm_fused_proj2", cd, out_dtype, af=(af, cd, af.shape), ab=(ab, cd, af.shape),
+        wxa=(wxa, cd, (2, h_in, g4)), wxb=(wxb, cd, (2, h_in, g4)),
+        b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
-    _launch(
+    _build.launch(
         "bilstm_fused_proj2", device,
         af.data_ptr(), ab.data_ptr(), wxa.data_ptr(), wxb.data_ptr(),
         b.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
         t_len, b_sz, h_in, hidden,
-        int(af.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16),
     )
     return out_f, out_b
 

@@ -1,0 +1,199 @@
+"""The differentiated BLSTM layer: the CUDA kernels K3/K4, their plain twins,
+and `BiLSTMLayer`, the `torch.autograd.Function` that joins them.
+
+Counterpart of the custom VJP `_layer` of `avsi/ops/pallas_lstm.py`
+(`:1236-1326`), which the training step runs for every layer:
+
+  * `bilstm_recurrence_train` (K3, TPU kernel `:369-420`): the recurrence
+    over a precomputed gate input xw, returning the h streams and the f32
+    cell-state streams, the residual of the backward;
+  * `bilstm_recurrence_bwd` (K4, TPU kernel `:659-747`): the reverse walk,
+    returning dgates as dxw and dWh.  On the card it is two launches, the
+    walk and a dWh reduction (`avsi_torch/csrc/lstm_train.cu`), counted as
+    one in `launch_counts`;
+  * `BiLSTMLayer`: forward = the hoisted projection (`_project`,
+    `:1208-1220`, a plain large product) then K3; backward = K4 then dWx,
+    db and dx as whole-sequence products (`_layer_bwd`, `:1281-1323`).
+
+It lives beside `lstm_fused` (the forward-only serving stack, K1/K2) rather
+than in it because it is a different path with its own residual layout:
+validation and serving keep the fused stack, training takes this one.
+
+Each wrapper launches its CUDA kernel for CUDA tensors, or raises; it runs
+the plain version only because its tensors lie on the CPU.  The plain
+versions mirror `_cell` and `_bwd_dir` cast for cast: xw is already at the
+compute dtype (the parity cast), h_prev is rounded to the compute dtype
+before both products, dout arrives at the compute dtype, dgates is rounded
+to it for dxw, for dh_rec and for dWh, and the gates and the dh/dc carries
+stay f32.  Under bf16 this is the TPU kernels' function, not autograd of
+the reference's scan (`avsi_torch.models.core.bilstm_layer`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from avsi_torch.ops import _build
+from avsi_torch.ops.lstm_fused import check_inputs, recurrence_plain
+
+
+# ---------------------------------------------------------------- K3
+
+def bilstm_recurrence_train_plain(xw, wh):
+    """Plain PyTorch version of K3 (same inputs and numerics)."""
+    return recurrence_plain(xw.float().transpose(0, 1), wh, xw.dtype, torch.float32)
+
+
+def bilstm_recurrence_train(xw, wh):
+    """K3: the bidirectional recurrence over a precomputed gate input.
+
+    xw: (T, 2, B, 4H) at the compute dtype, projection plus bias already
+    rounded to it, direction 1 in walk (time-reversed) order; wh: (2, H,
+    4H) at the compute dtype.  Returns (out_f, out_b, c_f, c_b), each
+    (T, B, H) in original time order, f32 (the layer's output dtype, as
+    `_layer` asks of the TPU kernel)."""
+    if not xw.is_cuda:
+        return bilstm_recurrence_train_plain(xw, wh)
+    name = "bilstm_recurrence_train"
+    t_len, _, b_sz, _ = xw.shape
+    hidden = wh.shape[1]
+    cd, g4 = xw.dtype, 4 * hidden
+    device = check_inputs(name, cd, torch.float32, xw=(xw, cd, (t_len, 2, b_sz, g4)),
+                          wh=(wh, cd, (2, hidden, g4)))
+    out_f, out_b, c_f, c_b = (
+        torch.empty((t_len, b_sz, hidden), dtype=torch.float32, device=device)
+        for _ in range(4))
+    _build.launch(
+        name, device, xw.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
+        c_f.data_ptr(), c_b.data_ptr(), t_len, b_sz, hidden, int(cd == torch.bfloat16),
+    )
+    return out_f, out_b, c_f, c_b
+
+
+# ---------------------------------------------------------------- K4
+
+def _walk_order(fwd: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
+    """Two (T, B, H) streams in original order -> (T, 2, B, H) in kernel
+    time (direction 1 reversed)."""
+    return torch.stack([fwd, bwd.flip(0)], dim=1)
+
+
+def bilstm_recurrence_bwd_plain(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
+    """Plain PyTorch version of K4 (`_bwd_dir` stepped from s = T-1 to 0)."""
+    cd = xw.dtype
+    t_len, _, b_sz, g4 = xw.shape
+    hidden = g4 // 4
+    wh32 = wh.float()
+    zero = xw.new_zeros((1, 2, b_sz, hidden), dtype=torch.float32)
+    h = _walk_order(out_f, out_b).float()
+    c = _walk_order(c_f, c_b)
+    dout = _walk_order(dout_f, dout_b).float()
+    # state at kernel time s-1 (zero at s = 0); h rounded for both products
+    h_prev = torch.cat([zero, h[:-1]]).to(cd).float()
+    c_prev = torch.cat([zero, c[:-1]])
+    dh_rec = torch.zeros_like(zero[0])
+    dc = torch.zeros_like(zero[0])
+    dxw = torch.empty_like(xw)
+    for s in range(t_len - 1, -1, -1):
+        gates = xw[s].float() + torch.bmm(h_prev[s], wh32)
+        i, f, g, o = gates.split(hidden, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        tc = torch.tanh(c[s])
+        dh = dout[s] + dh_rec
+        do = dh * tc * o * (1.0 - o)
+        dc = dc + dh * o * (1.0 - tc * tc)
+        di = dc * g * i * (1.0 - i)
+        df = dc * c_prev[s] * f * (1.0 - f)
+        dg = dc * i * (1.0 - g * g)
+        dxw[s] = torch.cat([di, df, dg, do], dim=-1).to(cd)
+        dh_rec = torch.bmm(dxw[s].float(), wh32.transpose(1, 2))
+        dc = dc * f
+    dwh = torch.einsum("sdbk,sdbj->dkj", h_prev, dxw.float())
+    return dxw, dwh
+
+
+def bilstm_recurrence_bwd(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
+    """K4: the reverse walk over the recurrence, then the dWh reduction.
+
+    xw, wh: as given to K3; out_f/out_b and c_f/c_b: what K3 returned (f32);
+    dout_f/dout_b: the upstream h gradients, (T, B, H) in original time
+    order at the compute dtype.  Returns (dxw (T, 2, B, 4H) at the compute
+    dtype in kernel time, dwh (2, H, 4H) f32)."""
+    if not xw.is_cuda:
+        return bilstm_recurrence_bwd_plain(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b)
+    name = "bilstm_recurrence_bwd"
+    cd, f32 = xw.dtype, torch.float32
+    t_len, _, b_sz, _ = xw.shape
+    hidden = wh.shape[1]
+    g4, stream = 4 * hidden, (t_len, b_sz, hidden)
+    device = check_inputs(
+        name, cd, f32, xw=(xw, cd, (t_len, 2, b_sz, g4)), wh=(wh, cd, (2, hidden, g4)),
+        out_f=(out_f, f32, stream), out_b=(out_b, f32, stream), c_f=(c_f, f32, stream),
+        c_b=(c_b, f32, stream), dout_f=(dout_f, cd, stream), dout_b=(dout_b, cd, stream))
+    dxw = torch.empty_like(xw)
+    dwh = torch.empty((2, hidden, 4 * hidden), dtype=torch.float32, device=device)
+    _build.launch(
+        name, device, xw.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
+        c_f.data_ptr(), c_b.data_ptr(), dout_f.data_ptr(), dout_b.data_ptr(),
+        dxw.data_ptr(), dwh.data_ptr(), t_len, b_sz, hidden, int(cd == torch.bfloat16),
+    )
+    return dxw, dwh
+
+
+# ---------------------------------------------------------------- the layer
+
+def _directions(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """(B, T, D) -> (2, B, T, D) f32 holding compute-dtype values; direction
+    1 sees reversed time."""
+    xc = x.to(compute_dtype).float()
+    return torch.stack([xc, xc.flip(1)])
+
+
+class BiLSTMLayer(torch.autograd.Function):
+    """One bidirectional layer, (B, T, D) -> (B, T, 2H), through K3 and K4.
+
+    Takes the f32 master params (wx (2, D, 4H), wh (2, H, 4H), b (2, 4H))
+    and casts them to the compute dtype inside, as `_layer` does; returns
+    f32 gradients for wx, wh and b and a gradient for x in x's dtype.
+    Products outside the kernels run in f32 on compute-dtype values (the
+    TPU's f32 accumulation of compute-dtype operands)."""
+
+    @staticmethod
+    def forward(ctx, x, wx, wh, b, compute_dtype):
+        cd = compute_dtype
+        wx_c = wx.to(cd)
+        wh_c = wh.to(cd).contiguous()
+        xw = (
+            torch.einsum("dbti,dig->tdbg", _directions(x, cd), wx_c.float())
+            + b.float()[None, :, None, :]
+        ).to(cd).contiguous()
+        out_f, out_b, c_f, c_b = bilstm_recurrence_train(xw, wh_c)
+        ctx.save_for_backward(x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b)
+        ctx.compute_dtype = cd
+        return torch.cat([out_f, out_b], dim=-1).transpose(0, 1).contiguous().to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        hidden = wh_c.shape[1]
+        dyc = dy.to(cd).transpose(0, 1)  # (T, B, 2H)
+        dxw, dwh = bilstm_recurrence_bwd(
+            xw, wh_c, out_f, out_b, c_f, c_b,
+            dyc[..., :hidden].contiguous(), dyc[..., hidden:].contiguous(),
+        )
+        # dxw is in kernel time, the layout the projection came from, so
+        # the weight and input grads are whole-sequence products
+        dxw32 = dxw.float()
+        dwx = torch.einsum("dbti,tdbg->dig", _directions(x, cd), dxw32)
+        db = dxw32.sum(dim=(0, 2))
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx2 = torch.einsum("tdbg,dig->dbti", dxw32, wx_c.float())
+            dx = (dx2[0] + dx2[1].flip(1)).to(x.dtype)
+        return dx, dwx, dwh, db, None
+
+
+def bilstm_layer_train(params: dict, x: torch.Tensor, compute_dtype=torch.float32):
+    """`BiLSTMLayer` on a layer's params dict (the reference's layout)."""
+    return BiLSTMLayer.apply(x, params["wx"], params["wh"], params["b"], compute_dtype)

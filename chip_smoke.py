@@ -6,20 +6,34 @@
 Phases, in order; any failure exits non-zero:
 
   1. card: torch version, device name, `nvidia-smi` name and power limit;
-  2. build: the CUDA kernels from `avsi_torch/csrc/` (nvcc, sm_90a);
+  2. build: the CUDA kernels from `avsi_torch/csrc/` (nvcc, sm_90a, one
+     process per source, in parallel);
   3. kernels vs their plain PyTorch versions at the flagship shapes, f32
-     and bf16, with stated tolerances;
-  4. times (CUDA events, after a warm-up) at B=8 and B=32: each kernel, its
-     plain version, its bound (the larger of bytes over memory bandwidth and
-     operations over peak rate) and a cuDNN yardstick (`torch.nn.LSTM`,
-     timed here only; the port never calls it), plus the 3-layer stack;
-  5. main path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
+     and bf16, with stated tolerances, at every batch the kernel is timed
+     at (K1/K2 at B=8 and 32, serving and validation; K3/K4 at B=8, 32 and
+     128, 32 being the training path's); and `BiLSTMLayer`'s four
+     gradients on the GPU against the same Function on the CPU, B=8 and 32;
+  4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
+     its plain version, its bound (the larger of bytes over memory
+     bandwidth and operations over peak rate) and a cuDNN yardstick
+     (`torch.nn.LSTM`, timed here only; the port never calls it); plus
+     the 3-layer stack;
+  5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; /enhance requests of 48,000 int16
      samples with a gap at frames 80-146; launch counts of K1 (one per
      device step) and K2 (two per step); the step's output held against
      the same step on the CPU (plain kernel versions);
-  6. one JSON line of kernel figures, the `nvidia-smi` card line, and a last
+  6. training path: a fixed-mode TFRecord corpus written with the port's
+     codec (96 training + 32 validation utterances of 48,000 samples),
+     `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
+     (6 train steps, 2 validation steps); launch counts of K3 and K4 (3 per
+     train step) and K1/K2 (1 and 2 per validation step); finite losses,
+     `sinet.npz` read back by `inpaint.load_model_bundle`; steady-state
+     step time; a profile of one train step; one train step on the GPU
+     held against the same step on the CPU (loss and every gradient), at
+     B=8 and at the training batch of 32;
+  7. one JSON line of kernel figures, the `nvidia-smi` card line, and a last
      line `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, when no CUDA device is available.
@@ -44,12 +58,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from avsi_torch import config as config_lib  # noqa: E402
 from avsi_torch.device import resolve_device  # noqa: E402
-from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config  # noqa: E402
+from avsi_torch.data import tfrecord  # noqa: E402
+from avsi_torch.data.reader import DataManager  # noqa: E402
+from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
 from avsi_torch.infer import inpaint  # noqa: E402
 from avsi_torch.models import registry  # noqa: E402
-from avsi_torch.ops import _build, lstm_fused  # noqa: E402
+from avsi_torch.ops import _build, lstm_fused, lstm_train  # noqa: E402
 from avsi_torch.serve import serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
+from avsi_torch.train import loop as train_loop  # noqa: E402
+from avsi_torch.train import state as train_state  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, and the
 # rate for each operand type (f32 outside the tensor cores; bf16 tensor cores)
@@ -59,10 +77,19 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 T, D1, H = T_FRAMES, 593, 250  # flagship: 257 audio + 136 video + 200 SSNN
 GAP = slice(80, 147)  # frames 80-146: the bench's ~800 ms gap
 N_REQUESTS = 4
-KERNELS = {
-    "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180"),
-    "bilstm_fused_proj2": ("K2", "avsi/ops/pallas_lstm.py:800"),
+TRAIN_BATCH, N_TRAIN, N_VAL, EPOCHS = 32, 96, 32, 2
+KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main path)
+    "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180",
+                          "avsi_torch/csrc/lstm_fused.cu", 8),
+    "bilstm_fused_proj2": ("K2", "avsi/ops/pallas_lstm.py:800",
+                           "avsi_torch/csrc/lstm_fused.cu", 8),
+    "bilstm_recurrence_train": ("K3", "avsi/ops/pallas_lstm.py:148",
+                                "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
+    "bilstm_recurrence_bwd": ("K4", "avsi/ops/pallas_lstm.py:599",
+                              "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
 }
+SERVING, TRAINING = ("bilstm_fused_proj", "bilstm_fused_proj2"), (
+    "bilstm_recurrence_train", "bilstm_recurrence_bwd")
 
 
 def fail(msg: str) -> None:
@@ -82,14 +109,25 @@ def card_line() -> str:
 
 def kernel_inputs(name: str, batch: int, dtype, seed: int = 0) -> dict:
     """Flagship-shaped inputs: K1 reads x (T,B,593); K2 the two 250-wide
-    streams of the previous layer (values of h, in (-1, 1))."""
+    streams of the previous layer (values of h, in (-1, 1)); K3 a gate input
+    xw (T,2,B,4H) of projection-sized values; K4 K3's inputs and outputs and
+    the upstream h gradients."""
     gen = torch.Generator().manual_seed(seed)
 
     def u(*shape, scale):
         return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
 
     w = H ** -0.5
-    common = {"b": u(2, 4 * H, scale=0.1), "wh": u(2, H, 4 * H, scale=w).to(dtype)}
+    wh = u(2, H, 4 * H, scale=w).to(dtype)
+    if name in TRAINING:
+        inp = {"xw": u(T, 2, batch, 4 * H, scale=1.5).to(dtype), "wh": wh}
+        if name == "bilstm_recurrence_bwd":
+            out = lstm_train.bilstm_recurrence_train(inp["xw"], wh)
+            inp.update(zip(("out_f", "out_b", "c_f", "c_b"), out))
+            inp["dout_f"] = u(T, batch, H, scale=1.0).to(dtype)
+            inp["dout_b"] = u(T, batch, H, scale=1.0).to(dtype)
+        return inp
+    common = {"b": u(2, 4 * H, scale=0.1), "wh": wh}
     if name == "bilstm_fused_proj":
         return {"xt": u(T, batch, D1, scale=2.0).to(dtype),
                 "wx": u(2, D1, 4 * H, scale=w).to(dtype), **common}
@@ -100,24 +138,41 @@ def kernel_inputs(name: str, batch: int, dtype, seed: int = 0) -> dict:
 
 
 def run_kernel(name, inp, plain=False):
-    fn = getattr(lstm_fused, name + "_plain" if plain else name)
-    if name == "bilstm_fused_proj":
-        return fn(inp["xt"], inp["wx"], inp["b"], inp["wh"])
-    return fn(inp["af"], inp["ab"], inp["wxa"], inp["wxb"], inp["b"], inp["wh"])
+    module = lstm_train if name in TRAINING else lstm_fused
+    return getattr(module, name + "_plain" if plain else name)(*inp.values())
 
 
-def bound(name: str, inp: dict, dtype) -> tuple[float, str]:
-    """Least time for the work: each input read once, each (f32) output
-    written once, over HBM bandwidth; the two products' multiply-adds over
-    the peak rate of the operand type.  Returns (ms, "bytes"|"operations")."""
-    n_bytes = sum(t.numel() * t.element_size() for t in inp.values())
-    x = inp["xt"] if name == "bilstm_fused_proj" else inp["af"]
-    t_len, batch = x.shape[0], x.shape[1]
-    d_in = inp["wx"].shape[1] if name == "bilstm_fused_proj" else 2 * inp["wxa"].shape[1]
-    n_bytes += 2 * t_len * batch * H * 4
-    ops = 2 * t_len * batch * 2 * (d_in + H) * 4 * H  # 2 dirs, 2 ops per MAC
+def bound(name: str, inp: dict, out, dtype) -> tuple[float, str]:
+    """Least time for the work: each input read once and each output written
+    once, over HBM bandwidth; the products' multiply-adds over the peak rate
+    of the operand type.  K1/K2: the projection and the recurrent product
+    per step and direction; K3: the recurrent product; K4: three products
+    (gate recompute, dh_rec = dgates.wh^T, dWh).  Returns (ms, "bytes" |
+    "operations")."""
+    n_bytes = sum(t.numel() * t.element_size() for t in list(inp.values()) + list(out))
+    if name in TRAINING:
+        t_len, _, batch, _ = inp["xw"].shape
+        products = 1 if name == "bilstm_recurrence_train" else 3
+        ops = products * 2 * t_len * 2 * batch * H * 4 * H  # 2 dirs, 2 ops per MAC
+    else:
+        x = inp["xt"] if name == "bilstm_fused_proj" else inp["af"]
+        t_len, batch = x.shape[0], x.shape[1]
+        d_in = inp["wx"].shape[1] if name == "bilstm_fused_proj" else 2 * inp["wxa"].shape[1]
+        ops = 2 * t_len * batch * 2 * (d_in + H) * 4 * H
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(name: str, got, want) -> float:
+    """Largest abs difference over the outputs; K4's dWh (a sum of T x B
+    products) relative to its own scale."""
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        e = (g.float() - w.float()).abs().max().item()
+        if name == "bilstm_recurrence_bwd" and i == 1:
+            e /= max(1.0, w.abs().max().item())
+        errs.append(e)
+    return max(errs)
 
 
 def cudnn_lstm(layers: list[dict], d_in: int) -> torch.nn.LSTM:
@@ -148,57 +203,96 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cudnn_ms(name: str, inp: dict, batch: int, dtype) -> float:
+    """The yardstick: one bidirectional `torch.nn.LSTM` layer at the
+    kernel's width, in the kernel's dtype.  K1/K2: its forward without
+    grad (K2's input is the two streams side by side).  K3: its forward
+    with grad enabled; K4: its backward (forward + backward minus
+    forward), at a layer-2 input of 2H.  It includes the input projection,
+    which K3/K4 do not: it is not the same function."""
+    gen = torch.Generator().manual_seed(7)
+    if name == "bilstm_fused_proj":
+        wx, d_in, x = inp["wx"], D1, inp["xt"]
+    elif name == "bilstm_fused_proj2":
+        wx, d_in = torch.cat([inp["wxa"], inp["wxb"]], dim=1), 2 * H
+        x = torch.cat([inp["af"], inp["ab"]], dim=-1)
+    else:
+        d_in = 2 * H
+        wx = ((torch.rand(2, d_in, 4 * H, generator=gen) * 2 - 1) * H ** -0.5).cuda()
+        x = torch.tanh(torch.randn(T, batch, d_in, generator=gen)).cuda().to(dtype)
+    b = inp.get("b", torch.zeros(2, 4 * H, device="cuda"))
+    lstm = cudnn_lstm([{"wx": wx, "wh": inp["wh"], "b": b}], d_in).to(dtype)
+    if name in SERVING:
+        with torch.no_grad():
+            return time_ms(lambda: lstm(x), reps=10)
+    x = x.detach().requires_grad_()
+    fwd = time_ms(lambda: lstm(x), reps=10)
+    if name == "bilstm_recurrence_train":
+        return fwd
+    dy = torch.randn(T, batch, 2 * H, generator=gen).cuda().to(dtype)
+    return time_ms(lambda: lstm(x)[0].backward(dy), reps=10) - fwd
+
+
 # ------------------------------------------------------------ phases
 
-def check_kernels() -> dict:
-    """Phase 3: each kernel against its plain version, f32 and bf16."""
-    errs = {}
-    for name, (tag, _) in KERNELS.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            inp = kernel_inputs(name, 8, dtype)
-            got = run_kernel(name, inp)
-            torch.cuda.synchronize()
-            want = run_kernel(name, inp, plain=True)
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            ok = err <= TOL[dtype]
-            print(f"check {tag} {name} {str(dtype)[6:]} B=8: max_abs_err {err:.3e} "
-                  f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'OVER'}", flush=True)
-            if not ok:
-                fail(f"{name} {dtype} disagrees with its plain version: {err} > {TOL[dtype]}")
-            errs[(name, dtype)] = err
-    return errs
+def check_layer_grads(batch: int) -> None:
+    """Phase 3: `BiLSTMLayer` (K3 + K4 + the products around them) on the
+    GPU against the same Function on the CPU (plain versions), f32, layer 1
+    of the flagship: each of the four gradients within relative L2 1e-4
+    (f32 sums in another order over 250 steps)."""
+    gen = torch.Generator().manual_seed(3)
+    p = {"wx": (torch.rand(2, D1, 4 * H, generator=gen) * 2 - 1) * H ** -0.5,
+         "wh": (torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5,
+         "b": 0.1 * torch.randn(2, 4 * H, generator=gen)}
+    x = torch.randn(batch, T, D1, generator=gen)
+    dy = torch.randn(batch, T, 2 * H, generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        (lstm_train.bilstm_layer_train(pd, xd) * dy.to(dev)).sum().backward()
+        grads[dev] = {"x": xd.grad.cpu(), **{k: pd[k].grad.cpu() for k in ("wx", "wh", "b")}}
+    rel = {k: ((grads["cuda"][k] - w).norm() / w.norm()).item() for k, w in grads["cpu"].items()}
+    print(f"check BiLSTMLayer grads, GPU vs CPU (B={batch}, f32): relative L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (tol 1e-4)", flush=True)
+    if max(rel.values()) > 1e-4:
+        fail(f"BiLSTMLayer gradients on the GPU disagree with the CPU at B={batch}: {rel}")
 
 
-def time_kernels() -> dict:
-    """Phase 4: kernel, plain, bound and cuDNN times at B=8 and B=32."""
-    rows = {}
-    for batch in (8, 32):
-        for name, (tag, _) in KERNELS.items():
+def check_and_time_kernels() -> tuple[dict, dict]:
+    """Phases 3 and 4, per kernel, batch and dtype, on one set of inputs:
+    the kernel against its plain version (fails on disagreement), then the
+    kernel, plain, bound and cuDNN times.  Returns (max_abs_err, times),
+    both keyed by (name, dtype, batch)."""
+    errs, rows = {}, {}
+    for name, (tag, *_) in KERNELS.items():
+        for batch in ((8, 32) if name in SERVING else (8, 32, 128)):
             for dtype in (torch.float32, torch.bfloat16):
                 inp = kernel_inputs(name, batch, dtype)
-                ms = time_ms(lambda: run_kernel(name, inp), reps=10)
-                plain_ms = time_ms(lambda: run_kernel(name, inp, plain=True), reps=3, warmup=1)
-                bound_ms, bound_by = bound(name, inp, dtype)
-                library_ms = None
-                if dtype == torch.float32:  # the yardstick runs in f32
-                    if name == "bilstm_fused_proj":
-                        lstm = cudnn_lstm([{"wx": inp["wx"], "wh": inp["wh"], "b": inp["b"]}], D1)
-                        x = inp["xt"]
-                    else:
-                        wx = torch.cat([inp["wxa"], inp["wxb"]], dim=1)
-                        lstm = cudnn_lstm([{"wx": wx, "wh": inp["wh"], "b": inp["b"]}], 2 * H)
-                        x = torch.cat([inp["af"], inp["ab"]], dim=-1)
-                    with torch.no_grad():
-                        library_ms = time_ms(lambda: lstm(x), reps=10)
+                got = run_kernel(name, inp)
+                torch.cuda.synchronize()
+                err = max_err(name, got, run_kernel(name, inp, plain=True))
+                ok = err <= TOL[dtype]
+                print(f"check {tag} {name} {str(dtype)[6:]} B={batch}: max_abs_err {err:.3e} "
+                      f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'OVER'}", flush=True)
+                if not ok:
+                    fail(f"{name} {dtype} B={batch} disagrees with its plain version: "
+                         f"{err} > {TOL[dtype]}")
+                errs[(name, dtype, batch)] = err
+                ms = time_ms(lambda: run_kernel(name, inp), reps=5)
+                plain_ms = time_ms(lambda: run_kernel(name, inp, plain=True), reps=2, warmup=1)
+                bound_ms, bound_by = bound(name, inp, got, dtype)
+                library_ms = cudnn_ms(name, inp, batch, dtype)
                 rows[(name, dtype, batch)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms,
                 )
+                note = " (includes the input projection)" if name in TRAINING else ""
                 print(f"time {tag} {name} {str(dtype)[6:]} B={batch}: kernel {ms:.3f} ms, "
                       f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                      f"cuDNN {library_ms if library_ms is None else round(library_ms, 3)} ms",
-                      flush=True)
-    return rows
+                      f"cuDNN {library_ms:.3f} ms{note}", flush=True)
+                del inp, got
+    return errs, rows
 
 
 def time_stack() -> None:
@@ -252,7 +346,8 @@ def request(rng) -> tuple[np.ndarray, np.ndarray]:
 
 
 def main_path(d: str, device: str = "cuda") -> dict:
-    """Phase 5: serve the flagship on the GPU and answer /enhance requests."""
+    """Phase 5: serve the flagship on the GPU and answer /enhance requests.
+    Returns the launch counts of this path."""
     # defaults: micro_batch 8, phase_recon "gl", gl_iters 30
     server = serve(d, port=0, device=device)
     service = server.service
@@ -265,7 +360,7 @@ def main_path(d: str, device: str = "cuda") -> dict:
     rng = np.random.RandomState(1)
     try:
         steps0 = service.n_device_steps
-        lstm_fused.reset_launch_counts()
+        _build.reset_launch_counts()
         t0 = time.perf_counter()
         replies = []
         for _ in range(N_REQUESTS):
@@ -281,24 +376,27 @@ def main_path(d: str, device: str = "cuda") -> dict:
         t0 = time.perf_counter()
         batch_out = service.enhance_batch(waves.astype(np.float32), masks)
         utt_s = service.micro_batch / (time.perf_counter() - t0)
-        if device == "cuda":
-            profile_step(service, waves.astype(np.float32), masks)
-        counts = dict(lstm_fused.launch_counts)
+        counts = dict(_build.launch_counts)
         steps = service.n_device_steps - steps0
+        if device == "cuda":
+            profile(f"one serving step of {service.micro_batch}",
+                    lambda: service.enhance_batch(waves.astype(np.float32), masks))
 
         for out in replies + list(batch_out):
             if out.shape != (AUDIO_LEN,) or out.dtype != np.int16 or not np.any(out):
                 fail(f"bad /enhance reply: shape {out.shape} dtype {out.dtype}")
-        if counts["bilstm_fused_proj"] != steps or counts["bilstm_fused_proj2"] != 2 * steps:
-            fail(f"launch counts {counts} for {steps} device steps (want 1 and 2 per step)")
+        if (counts["bilstm_fused_proj"] != steps or counts["bilstm_fused_proj2"] != 2 * steps
+                or any(counts[k] for k in TRAINING)):
+            fail(f"launch counts {counts} for {steps} device steps (want K1 1 and K2 2 per "
+                 "step, no K3/K4)")
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             if r.read() != b"ok":
                 fail("/healthz")
         with urllib.request.urlopen(url + "/info", timeout=60) as r:
             info = json.loads(r.read())
-        print(f"main path: {N_REQUESTS} /enhance requests + 1 batch of {service.micro_batch}, "
+        print(f"serving path: {N_REQUESTS} /enhance requests + 1 batch of {service.micro_batch}, "
               f"{steps} device steps; launches {counts}; /info {info}", flush=True)
-        print(f"main path: {req_s:.2f} requests/s (1 utterance each, micro-batch "
+        print(f"serving path: {req_s:.2f} requests/s (1 utterance each, micro-batch "
               f"{service.micro_batch}), {utt_s:.2f} utterances/s at a full micro-batch; "
               f"card {card_line()}", flush=True)
     finally:
@@ -308,22 +406,23 @@ def main_path(d: str, device: str = "cuda") -> dict:
     return counts
 
 
-def profile_step(service, waves: np.ndarray, masks: np.ndarray, top: int = 12) -> None:
-    """Where one full micro-batch step's time goes: torch.profiler's device
-    time per kernel name, and the device's busy share of the step's wall
-    time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(label: str, fn, top: int = 12) -> None:
+    """Where one step's time goes: torch.profiler's device time per kernel
+    name, and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        service.enhance_batch(waves, masks)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile: one step of {service.micro_batch}: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms ({100 * (1 - busy_ms / wall_ms):.0f}% idle), "
+    print(f"profile: {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * (1 - busy_ms / wall_ms):.0f}% idle), "
           f"{sum(r[1] for r in rows)} kernel launches", flush=True)
     for ms, count, key in rows[:top]:
         print(f"profile:   {ms:8.2f} ms {count:6d}x  {key[:100]}", flush=True)
@@ -364,6 +463,131 @@ def reference_check(d: str, devices=("cuda", "cpu")) -> None:
         fail("GPU step disagrees with the CPU step")
 
 
+# ------------------------------------------------------------ training path
+
+def write_corpus(root: str) -> None:
+    """A fixed-mode TFRecord corpus written with the port's codec, one
+    utterance per file: 48,000 int16-valued samples, a gap at frames
+    80-146, 136-d video features, 5 labels; plus feature stats."""
+    rng = np.random.RandomState(4)
+    mask = np.ones((T_FRAMES, 257), np.float32)
+    mask[GAP] = 0.0
+    for split, n in (("training-set", N_TRAIN), ("validation-set", N_VAL)):
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            labels = np.zeros(50, np.float32)
+            labels[:5] = rng.randint(0, 33, 5)
+            record = tfrecord.serialize_sample_fixed(
+                T_FRAMES, 5, request(rng)[0].astype(np.float32),
+                rng.randn(T_FRAMES, 136).astype(np.float32), mask, labels, f"{split}/{i:03d}")
+            with tfrecord.TFRecordWriter(os.path.join(root, split, f"{i:03d}.tfrecord")) as w:
+                w.write(record)
+    np.save(os.path.join(root, "mean.npy"), rng.uniform(0, 5, 257).astype(np.float32))
+    np.save(os.path.join(root, "std.npy"), rng.uniform(0.5, 2, 257).astype(np.float32))
+
+
+def train_config(root: str) -> dict:
+    """The flagship at full width, f32, adam 1e-3, no dropout, batch 32, 2
+    epochs; the NaN check every step, so each step's host time ends with
+    its loss on the host."""
+    cfg = flagship_config(TRAIN_BATCH, "float32")
+    cfg.update(root_folder=root, exp_folder=os.path.join(root, "exp"), num_asr_labels=33,
+               audio_feat_mean=os.path.join(root, "mean.npy"),
+               audio_feat_std=os.path.join(root, "std.npy"),
+               max_n_epochs=EPOCHS, n_earlystop_epochs=EPOCHS, nan_check_every=1)
+    return cfg
+
+
+def train_path(root: str) -> dict:
+    """Phase 6: `avsi_torch.train.loop.train` on the GPU.  Returns the
+    launch counts of this path."""
+    write_corpus(root)
+    config_file = os.path.join(root, "train.config")
+    config_lib.save_configfile(train_config(root), config_file)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_loop.train(config_file)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    steps = EPOCHS * (N_TRAIN // TRAIN_BATCH)
+    val_steps = EPOCHS * -(-N_VAL // TRAIN_BATCH)
+    want = {"bilstm_recurrence_train": 3 * steps, "bilstm_recurrence_bwd": 3 * steps,
+            "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": 2 * val_steps}
+    if summary["steps"] != steps or counts != want:
+        fail(f"training ran {summary['steps']} steps with launches {counts}; want {steps} "
+             f"steps and {want} (K3, K4: 3 per train step; K1 1, K2 2 per validation step)")
+    exp = os.path.join(root, "exp")
+    log = open(os.path.join(exp, "training_log.txt")).read()
+    losses = [float(v) for line in log.splitlines() if line.startswith("epoch ")
+              for v in (f.split("=")[1] for f in line.split("\t") if "loss" in f or "ctc" in f)]
+    if len(losses) < EPOCHS or not np.all(np.isfinite(losses)):
+        fail(f"training_log.txt holds non-finite or missing losses:\n{log}")
+    netmodel = os.path.join(exp, "netmodel")
+    if not os.path.isfile(os.path.join(netmodel, "sinet.npz")):
+        fail("train() wrote no sinet.npz")
+    config, _, _, params = inpaint.load_model_bundle(netmodel, device="cuda")
+    if config["lstm_impl"] != "kernel" or params["blstm"][2]["wh"].shape != (2, H, 4 * H):
+        fail(f"the trained bundle reads back wrongly: lstm_impl {config['lstm_impl']}")
+    steady = summary["step_seconds"][1:]
+    print(f"training path: {summary['steps']} train steps of {TRAIN_BATCH} + {val_steps} "
+          f"validation steps in {wall:.1f} s; launches {counts}; best val {summary['best_val']:.5f}",
+          flush=True)
+    print("training path: log\n" + log.strip(), flush=True)
+    print(f"training path: steady-state {np.mean(steady):.4f} s/step "
+          f"({', '.join(f'{t:.4f}' for t in steady)}), {TRAIN_BATCH / np.mean(steady):.1f} "
+          f"training utterances/s (steps after the first); card {card_line()}", flush=True)
+    profile_train_step(root, train_config(root))
+    return counts
+
+
+def _train_step_setup(config: dict, device: str, params: dict):
+    """A fresh train state on `device` holding a copy of `params`, and the
+    train step; `config` is checked (`check_trainconfiguration`)."""
+    model = registry.get_model(config["model"])
+    config = dict(config, lstm_impl=lstm_fused.resolve_impl(None, device))
+    params = checkpoints.params_from_flat(checkpoints.params_to_flat(params), device)
+    state = train_state.create_train_state(params, config)
+    stats = tuple(np.load(config[k]) for k in ("audio_feat_mean", "audio_feat_std"))
+    return state, train_loop.make_train_step(model, config, stats, device)
+
+
+def profile_train_step(root: str, config: dict) -> None:
+    """Where one train step of 32 goes (after one warm-up step)."""
+    dm = DataManager(seed=0)
+    batch = next(iter(dm.batches(tfrecord.list_tfrecord_files(
+        os.path.join(root, "training-set")), TRAIN_BATCH)))
+    config = config_lib.check_trainconfiguration(config)
+    params = registry.get_model(config["model"]).init(torch.Generator().manual_seed(0), config)
+    state, step = _train_step_setup(config, "cuda", params)
+    step(state, batch, None)
+    profile(f"one train step of {TRAIN_BATCH}", lambda: step(state, batch, None), top=14)
+
+
+def train_reference_check(config: dict, batch_size: int) -> None:
+    """One train step from the same params and batch (full width) on the
+    GPU (kernels) and on the CPU (plain versions).  Tolerances: loss
+    rtol 1e-4; each gradient leaf relative L2 <= 1e-3 (f32 sums in another
+    order through 3 layers x 250 steps forward and back).  Gradients, not
+    updated params: adam's first step is +-lr for tiny gradients."""
+    config = config_lib.check_trainconfiguration(config)
+    batch = synthetic_batch(config, batch_size, seed=5, gap_start=GAP.start,
+                            gap_frames=GAP.stop - GAP.start)
+    params = registry.get_model(config["model"]).init(torch.Generator().manual_seed(1), config)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state, step = _train_step_setup(config, dev, params)
+        loss = float(step(state, batch, None)["loss"])
+        res[dev] = loss, {k: p.grad.cpu() for k, p in checkpoints.named_leaves(state.params).items()}
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    rel = {k: ((gg[k] - w).norm() / max(w.norm(), 1e-30)).item() for k, w in gc.items()}
+    worst = max(rel, key=rel.get)
+    print(f"reference: GPU train step vs CPU train step (B={batch_size}, flagship): loss {lg:.6f} vs "
+          f"{lc:.6f} (rel err {abs(lg / lc - 1):.2e}, tol 1e-4); gradients relative L2 max "
+          f"{rel[worst]:.2e} ({worst}, tol 1e-3) over {len(rel)} leaves", flush=True)
+    if abs(lg / lc - 1) > 1e-4 or rel[worst] > 1e-3:
+        fail(f"GPU train step disagrees with the CPU step at B={batch_size}: {rel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -378,22 +602,26 @@ def main() -> int:
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     resolve_device()  # float32 products in full float32 (no TF32)
-    errs = check_kernels()
-    rows = time_kernels()
+    errs, rows = check_and_time_kernels()
+    for batch in (8, TRAIN_BATCH):
+        check_layer_grads(batch)
     time_stack()
 
     with tempfile.TemporaryDirectory() as d:
         write_checkpoint(d)
         counts = main_path(d)
         reference_check(d)
+    with tempfile.TemporaryDirectory() as d:
+        counts.update({k: v for k, v in train_path(d).items() if k in TRAINING})
+        for batch in (8, TRAIN_BATCH):
+            train_reference_check(train_config(d), batch)
 
     kernels = []
-    for name, (_, replaces) in KERNELS.items():
-        row = rows[(name, torch.float32, 8)]
+    for name, (_, replaces, source, batch) in KERNELS.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": "avsi_torch/csrc/lstm_fused.cu",
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": errs[(name, torch.float32)], **row,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": errs[(name, torch.float32, batch)],
+            **rows[(name, torch.float32, batch)],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

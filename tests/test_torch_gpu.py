@@ -1,4 +1,4 @@
-"""The CUDA kernels K1/K2 against their plain versions, on the card.
+"""The CUDA kernels K1-K4 against their plain versions, on the card.
 
 Marked `gpu`: each test decides inside itself whether CUDA is present and
 skips without it (the CPU runs the plain versions, tested against the JAX
@@ -14,7 +14,7 @@ parity-cast gate input).
 import pytest
 import torch
 
-from avsi_torch.ops import lstm_fused
+from avsi_torch.ops import _build, lstm_fused, lstm_train
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -39,10 +39,10 @@ def test_k1_kernel_matches_plain(dtype, shape):
     wx = _w(gen, 2, d, 4 * h, scale=h ** -0.5).to(dtype)
     wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
     bias = _w(gen, 2, 4 * h, scale=0.1)
-    before = lstm_fused.launch_counts["bilstm_fused_proj"]
+    before = _build.launch_counts["bilstm_fused_proj"]
     got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh, out_dtype=dtype)
     torch.cuda.synchronize()
-    assert lstm_fused.launch_counts["bilstm_fused_proj"] == before + 1
+    assert _build.launch_counts["bilstm_fused_proj"] == before + 1
     want = lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh, out_dtype=dtype)
     for g, w in zip(got, want):
         assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
@@ -77,3 +77,57 @@ def test_kernel_wrapper_rejects_bad_inputs():
         lstm_fused.bilstm_fused_proj(x, wx.bfloat16(), b, wh.bfloat16())
     with pytest.raises(ValueError):  # non-contiguous input
         lstm_fused.bilstm_fused_proj(x.transpose(0, 1), wx, b, wh)
+
+
+def _train_inputs(gen, t, b, h, dtype):
+    """K3/K4 inputs at the compute dtype: a gate input xw (T,2,B,4H) of
+    projection-sized values and wh (2,H,4H)."""
+    xw = _w(gen, t, 2, b, 4 * h, scale=1.5).to(dtype)
+    wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
+    return xw, wh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 2, 24), (250, 8, 250), (250, 32, 250)])
+def test_k3_k4_kernels_match_plain(dtype, shape):
+    _need_cuda()
+    t, b, h = shape
+    gen = torch.Generator().manual_seed(2)
+    xw, wh = _train_inputs(gen, t, b, h, dtype)
+    before = dict(_build.launch_counts)
+    fwd = lstm_train.bilstm_recurrence_train(xw, wh)
+    torch.cuda.synchronize()
+    want = lstm_train.bilstm_recurrence_train_plain(xw, wh)
+    for g, w in zip(fwd, want):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+    dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
+    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bilstm_recurrence_train"] == before["bilstm_recurrence_train"] + 1
+    assert _build.launch_counts["bilstm_recurrence_bwd"] == before["bilstm_recurrence_bwd"] + 1
+    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
+    # dWh sums T x B products: relative to its scale
+    assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
+
+
+@pytest.mark.parametrize("b", [8, 32])  # 32: the training batch of chip_smoke.py
+def test_bilstm_layer_cuda_matches_cpu(b):
+    """`BiLSTMLayer` on the card (K3/K4) against the same Function on the
+    CPU (plain versions), f32: per-leaf relative L2 <= 1e-4."""
+    _need_cuda()
+    t, d, h = 250, 593, 250
+    gen = torch.Generator().manual_seed(3)
+    p = {"wx": (torch.rand(2, d, 4 * h, generator=gen) * 2 - 1) * h ** -0.5,
+         "wh": (torch.rand(2, h, 4 * h, generator=gen) * 2 - 1) * h ** -0.5,
+         "b": 0.1 * torch.randn(2, 4 * h, generator=gen)}
+    x = torch.randn(b, t, d, generator=gen)
+    dy = torch.randn(b, t, 2 * h, generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        (lstm_train.bilstm_layer_train(pd, xd) * dy.to(dev)).sum().backward()
+        grads[dev] = [xd.grad.cpu()] + [pd[k].grad.cpu() for k in ("wx", "wh", "b")]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert (g - w).norm().item() <= 1e-4 * w.norm().item()

@@ -21,7 +21,7 @@ import torch
 from avsi.models import core as jcore
 from avsi.ops import pallas_lstm
 from avsi_torch.models import core as tcore
-from avsi_torch.ops import lstm_fused
+from avsi_torch.ops import _build, lstm_fused
 
 T_LEN, B, D, H = 20, 2, 40, 24
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -72,7 +72,7 @@ def test_k1_plain_matches_pallas_kernel(dtype, out):
         jnp.asarray(x).astype(jd), pp["wx"], pp["b"], pp["wh"],
         block_steps=5, out_dtype=j_out, interpret=True,
     )
-    before = dict(lstm_fused.launch_counts)
+    before = dict(_build.launch_counts)
     got_f, got_b = lstm_fused.bilstm_fused_proj(
         _t(x, td), _t(params["wx"], td), _t(params["b"]), _t(params["wh"], td),
         out_dtype=t_out,
@@ -81,7 +81,7 @@ def test_k1_plain_matches_pallas_kernel(dtype, out):
     np.testing.assert_allclose(_np(got_f), _np(ref_f)[..., :H], atol=ATOL[dtype])
     np.testing.assert_allclose(_np(got_b), _np(ref_b)[..., :H], atol=ATOL[dtype])
     # the plain version ran: no kernel launch was counted
-    assert lstm_fused.launch_counts == before
+    assert _build.launch_counts == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
