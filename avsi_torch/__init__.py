@@ -6,15 +6,18 @@ the flagship constants, stats loading) it keeps as its own copies.  Module
 paths and names mirror `avsi/` so each port can be read beside its
 reference.
 
-It serves the flagship `av-blstm-ssnn-ctc` `/enhance` path
-(`avsi_torch.serve`) and trains it (`avsi_torch.train.loop.train`).  The
-bidirectional LSTM runs hand-written CUDA kernels for sm_90a, built with
-`nvcc` at first use: the forward-only stack for serving and validation
-(`avsi_torch/csrc/lstm_fused.cu`, the ports of the Pallas kernels
-`bilstm_fused_proj` / `bilstm_fused_proj2`) and the training forward and
-backward under a `torch.autograd.Function` (`avsi_torch/csrc/lstm_train.cu`,
-the ports of `bilstm_recurrence_train` / `bilstm_recurrence_bwd`).  On CPU
-tensors their plain PyTorch versions run.
+It serves the flagship `av-blstm-ssnn-ctc` `/enhance` path and live
+LC-BLSTM streams (`avsi_torch.serve`, `avsi_torch.infer.streaming`: one
+stream per session, or a lockstep fleet), and trains it
+(`avsi_torch.train.loop.train`).  The bidirectional LSTM runs hand-written
+CUDA kernels for sm_90a, built with `nvcc` at first use: the forward-only
+stack for serving and validation (`avsi_torch/csrc/lstm_fused.cu`, the
+ports of the Pallas kernels `bilstm_fused_proj` / `bilstm_fused_proj2`),
+the training forward and backward under a `torch.autograd.Function` and
+the streaming window (`avsi_torch/csrc/lstm_train.cu`, the ports of
+`bilstm_recurrence_train` / `bilstm_recurrence_bwd`, and of
+`bilstm_recurrence_carry` / `bilstm_recurrence`, one body with the first).
+On CPU tensors their plain PyTorch versions run.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (`device="cpu"`): see `avsi_torch.device.resolve_device`.

@@ -1,12 +1,25 @@
-// Bidirectional LSTM recurrence for training, forward and backward, for Hopper.
+// Bidirectional LSTM recurrence over a precomputed gate input, forward and
+// backward, for Hopper.
 //
-// Replaces two Pallas TPU kernels of avsi/ops/pallas_lstm.py, the pair under
+// Replaces four Pallas TPU kernels of avsi/ops/pallas_lstm.py.  The pair under
 // the custom VJP of `_layer` (:1236-1326):
 //   K3  bilstm_recurrence_train (_kernel_train, :148-173): the recurrence over a
 //       precomputed gate input xw, writing the h streams and the f32 cell-state
 //       streams (the residual of the backward);
 //   K4  bilstm_recurrence_bwd   (_bwd_kernel :599-656, _bwd_dir :563-596): the
 //       reverse walk that writes dgates as dxw and accumulates dWh.
+// And two more instantiations of K3's body (one template, two compile-time
+// switches: read initial carries, write the c streams):
+//   K5  bilstm_recurrence_carry (_kernel_carry, :423-448): K3 with initial
+//       carries hc0 (2=h|c, 2=dir, B, H) f32, the LC-BLSTM window of live
+//       streaming (W = C + L frames; the window layer passes the previous
+//       window's forward state and zeros for the backward direction);
+//   K6  bilstm_recurrence       (_kernel, :121-145): K3 without the c streams.
+// K3, K5 and K6 run the same code per step, so where their functions
+// coincide (zero carries; the h streams) their outputs are bit for bit equal.
+// Not their speed: nvcc schedules K6's dot_col loop with each wh read next to
+// the FMA that consumes it, where K3's and K5's issue eight reads first, and
+// K6 takes about twice K3's time per step (PERF.md).
 //
 // Layouts (the TPU kernels'): xw and dxw are (T, 2, B, 4H) in kernel time, so
 // direction 1 is time-reversed there; h, c and dout are (T, B, H) per direction
@@ -28,7 +41,11 @@
 // Design (first, simple version).  K3 is K1's design without the projection:
 // one block per (direction, batch row), a grid of (2, B); thread j owns gate
 // column j; h is staged in shared memory; wh is read from global memory, where
-// it stays resident in the 50 MB L2.  K4 is split in two launches, because the
+// it stays resident in the 50 MB L2.  K5 stages its initial h as
+// round_cd(h0), as the TPU kernel rounds h_prev inside the product (`_cell`
+// :108-110), and its f32 c0 as is; a stream's window is short (W = 24), so at
+// one stream a launch fills 2 of the 132 SMs and its 24 dependent steps set
+// its time.  K4 is split in two launches, because the
 // TPU body's (2, H, 4H) f32 dWh accumulator (2 MB) is carried across the
 // sequential grid in VMEM, which has no Hopper counterpart (an SM has 227 KB,
 // and per-step atomics from 2B blocks onto one accumulator would serialise):
@@ -53,14 +70,17 @@
 
 namespace {
 
-// ------------------------------------------------------------------ K3
+// ------------------------------------------------------------------ K3, K5, K6
 
-template <typename T>
+// kCarry: start from hc0 (2=h|c, 2=dir, B, H) f32 instead of zeros (K5).
+// kCellOut: write the f32 cell-state streams c_f/c_b (K3, K5; not K6).
+template <typename T, bool kCarry, bool kCellOut>
 __global__ void __launch_bounds__(1024)
-bilstm_train_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
-                        float* __restrict__ out_f, float* __restrict__ out_b,
-                        float* __restrict__ c_f, float* __restrict__ c_b,
-                        int t_len, int batch, int hidden) {
+bilstm_recurrence_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
+                         const float* __restrict__ hc0,
+                         float* __restrict__ out_f, float* __restrict__ out_b,
+                         float* __restrict__ c_f, float* __restrict__ c_b,
+                         int t_len, int batch, int hidden) {
   const int dir = blockIdx.x;
   const int row = blockIdx.y;
   const int g4 = 4 * hidden;
@@ -74,8 +94,14 @@ bilstm_train_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
   float* c_out = dir == 0 ? c_f : c_b;
 
   for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
-    hs[k] = 0.0f;
-    cs[k] = 0.0f;
+    if constexpr (kCarry) {
+      const size_t at = ((size_t)dir * batch + row) * hidden + k;
+      hs[k] = round_to<T>(hc0[at]);
+      cs[k] = hc0[(size_t)2 * batch * hidden + at];
+    } else {
+      hs[k] = 0.0f;
+      cs[k] = 0.0f;
+    }
   }
   __syncthreads();
   for (int s = 0; s < t_len; ++s) {
@@ -96,7 +122,7 @@ bilstm_train_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
       cs[k] = c;
       hs[k] = round_to<T>(h);
       out[pos * hidden + k] = h;
-      c_out[pos * hidden + k] = c;
+      if constexpr (kCellOut) c_out[pos * hidden + k] = c;
     }
     __syncthreads();  // h and c of this step visible before the next
   }
@@ -256,18 +282,30 @@ bilstm_bwd_dwh_kernel(const float* __restrict__ out_f, const float* __restrict__
 
 // ------------------------------------------------------------------ launchers
 
-template <typename T>
-int launch_train(const void* xw, const void* wh, float* out_f, float* out_b,
-                 float* c_f, float* c_b, int t_len, int batch, int hidden,
-                 cudaStream_t stream) {
+template <typename T, bool kCarry, bool kCellOut>
+int launch_recurrence(const void* xw, const void* wh, const float* hc0, float* out_f,
+                      float* out_b, float* c_f, float* c_b, int t_len, int batch,
+                      int hidden, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 6 * (size_t)hidden;
-  auto kernel = bilstm_train_fwd_kernel<T>;
+  auto kernel = bilstm_recurrence_kernel<T, kCarry, kCellOut>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(2, batch), gate_threads(hidden), smem, stream>>>(
-      static_cast<const T*>(xw), static_cast<const T*>(wh), out_f, out_b, c_f, c_b,
-      t_len, batch, hidden);
+      static_cast<const T*>(xw), static_cast<const T*>(wh), hc0, out_f, out_b, c_f,
+      c_b, t_len, batch, hidden);
   return (int)cudaGetLastError();
+}
+
+template <bool kCarry, bool kCellOut>
+int recurrence(int in_bf16, const void* xw, const void* wh, const float* hc0,
+               float* out_f, float* out_b, float* c_f, float* c_b, int t_len,
+               int batch, int hidden, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_bf16)
+    return launch_recurrence<__nv_bfloat16, kCarry, kCellOut>(
+        xw, wh, hc0, out_f, out_b, c_f, c_b, t_len, batch, hidden, s);
+  return launch_recurrence<float, kCarry, kCellOut>(xw, wh, hc0, out_f, out_b, c_f,
+                                                    c_b, t_len, batch, hidden, s);
 }
 
 template <typename T>
@@ -300,11 +338,25 @@ extern "C" {
 int avsi_bilstm_recurrence_train(const void* xw, const void* wh, float* out_f,
                                  float* out_b, float* c_f, float* c_b, int t_len,
                                  int batch, int hidden, int in_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    return launch_train<__nv_bfloat16>(xw, wh, out_f, out_b, c_f, c_b, t_len, batch,
-                                       hidden, s);
-  return launch_train<float>(xw, wh, out_f, out_b, c_f, c_b, t_len, batch, hidden, s);
+  return recurrence<false, true>(in_bf16, xw, wh, nullptr, out_f, out_b, c_f, c_b,
+                                 t_len, batch, hidden, stream);
+}
+
+// K5: K3 from the initial carries hc0 (2, 2, B, H) f32 ([h|c][dir]).
+int avsi_bilstm_recurrence_carry(const void* xw, const void* wh, const float* hc0,
+                                 float* out_f, float* out_b, float* c_f, float* c_b,
+                                 int t_len, int batch, int hidden, int in_bf16,
+                                 void* stream) {
+  return recurrence<true, true>(in_bf16, xw, wh, hc0, out_f, out_b, c_f, c_b, t_len,
+                                batch, hidden, stream);
+}
+
+// K6: K3 without the c streams; out_f/out_b (T,B,H) f32.
+int avsi_bilstm_recurrence(const void* xw, const void* wh, float* out_f, float* out_b,
+                           int t_len, int batch, int hidden, int in_bf16,
+                           void* stream) {
+  return recurrence<false, false>(in_bf16, xw, wh, nullptr, out_f, out_b, nullptr,
+                                  nullptr, t_len, batch, hidden, stream);
 }
 
 // K4 (K4a walk, then K4b dWh): xw, wh, dout_f/dout_b and dxw at the compute

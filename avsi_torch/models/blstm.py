@@ -8,8 +8,9 @@ embedding); stacked BLSTM; dense heads 2H -> 257 (inpainting) and
 2H -> num_asr_labels (CTC).  See the reference module for the per-variant
 semantics, which are reproduced here unchanged.
 
-Not ported yet: the latency-controlled (LC) branch, which waits for the
-streaming slice.
+Not ported yet: the latency-controlled (LC) branch of the offline forward
+(`lc_chunk`), which LC training needs.  A model trained with it streams
+through `avsi_torch.infer.streaming` at its trained window.
 """
 
 from __future__ import annotations

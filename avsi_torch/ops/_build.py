@@ -44,6 +44,8 @@ _SIGNATURES = {
     "avsi_bilstm_fused_proj2": [_P] * 8 + [_I] * 6 + [_P],
     "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 4 + [_P],
     "avsi_bilstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 4 + [_P],
+    "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 4 + [_P],
 }
 # launches per kernel wrapper (K4's walk and dWh launches count as one)
 launch_counts = {name[len("avsi_"):]: 0 for name in _SIGNATURES}

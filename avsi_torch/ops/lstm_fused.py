@@ -38,19 +38,22 @@ from avsi_torch.ops import _build
 
 # ---------------------------------------------------------------- plain
 
-def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtype):
+def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtype,
+                     h0: torch.Tensor | None = None, c0: torch.Tensor | None = None):
     """Both directions' recurrence over projected gates (`_cell`,
     `pallas_lstm.py:100-118`).
 
     xw: (2, T, B, 4H) f32 after the parity cast, direction 1 already in
-    walk order (time-reversed); wh: (2, H, 4H).  Returns (out_f, out_b,
-    c_f, c_b), each (T, B, H) in original time order: h in `out_dtype`,
-    the cell state c in f32."""
+    walk order (time-reversed); wh: (2, H, 4H); h0/c0: optional (2, B, H)
+    f32 initial carries per direction (zeros when absent; h0 is rounded to
+    the compute dtype inside the product, as every h is).  Returns (out_f,
+    out_b, c_f, c_b), each (T, B, H) in original time order: h in
+    `out_dtype`, the cell state c in f32."""
     _, t_len, b_sz, g4 = xw.shape
     hidden = g4 // 4
     wh32 = wh.float()
-    h = xw.new_zeros(2, b_sz, hidden)
-    c = xw.new_zeros(2, b_sz, hidden)
+    h = xw.new_zeros(2, b_sz, hidden) if h0 is None else h0.float()
+    c = xw.new_zeros(2, b_sz, hidden) if c0 is None else c0.float()
     out = xw.new_empty(2, t_len, b_sz, hidden)
     cell = xw.new_empty(2, t_len, b_sz, hidden)
     for s in range(t_len):

@@ -149,6 +149,17 @@ def _directions(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return torch.stack([xc, xc.flip(1)])
 
 
+def project(x: torch.Tensor, wx_c: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The hoisted input projection (`_project`, `pallas_lstm.py:1208-1220`):
+    (B, T, D) -> xw (T, 2, B, 4H), contiguous at the compute dtype, direction
+    1 from reversed time; f32 products of compute-dtype values plus the f32
+    bias, then the parity cast.  wx_c: (2, D, 4H) at the compute dtype."""
+    return (
+        torch.einsum("dbti,dig->tdbg", _directions(x, compute_dtype), wx_c.float())
+        + b.float()[None, :, None, :]
+    ).to(compute_dtype).contiguous()
+
+
 class BiLSTMLayer(torch.autograd.Function):
     """One bidirectional layer, (B, T, D) -> (B, T, 2H), through K3 and K4.
 
@@ -163,10 +174,7 @@ class BiLSTMLayer(torch.autograd.Function):
         cd = compute_dtype
         wx_c = wx.to(cd)
         wh_c = wh.to(cd).contiguous()
-        xw = (
-            torch.einsum("dbti,dig->tdbg", _directions(x, cd), wx_c.float())
-            + b.float()[None, :, None, :]
-        ).to(cd).contiguous()
+        xw = project(x, wx_c, b, cd)
         out_f, out_b, c_f, c_b = bilstm_recurrence_train(xw, wh_c)
         ctx.save_for_backward(x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b)
         ctx.compute_dtype = cd

@@ -168,6 +168,22 @@ def istft_real_imag(
     return overlap_add(frames, frame_step, num_samples if num_samples > 0 else total)
 
 
+def waveform_from_mag_phase(
+    mag: torch.Tensor,
+    phase: torch.Tensor,
+    num_samples: int = 48000,
+    frame_length: int = 384,
+    frame_step: int = 192,
+    fft_length: int = 512,
+) -> torch.Tensor:
+    """|X| and its angle -> waveform (`avsi/ops/stft.py:225-236`): the
+    streaming window's resynthesis."""
+    return istft_real_imag(
+        mag * torch.cos(phase), mag * torch.sin(phase),
+        frame_length, frame_step, fft_length, num_samples,
+    )
+
+
 def waveform_from_mag_complex(
     mag: torch.Tensor,
     re: torch.Tensor,

@@ -2,8 +2,9 @@
 
 `InpaintingService` loads a checkpoint directory once and runs the
 inference step at a fixed micro-batch, padding partial batches exactly as
-the reference does (`avsi/serve.py:216-285`).  `serve()` wraps it in a
-stdlib HTTP server:
+the reference does (`avsi/serve.py:216-285`); `open_stream` starts a live
+LC-BLSTM stream on the same weights (`avsi_torch.infer.streaming`).
+`serve()` wraps it in a stdlib HTTP server:
 
   POST /enhance   body: raw little-endian payload
       [int32 n_samples][int32 t_frames]
@@ -12,10 +13,27 @@ stdlib HTTP server:
   -> 200, body: n_samples x int16 enhanced wave
   GET /healthz    -> 200 "ok"
   GET /info       -> model/geometry/weights_version/device JSON
+  GET /metrics    -> Prometheus text (counters, live streams, uptime)
 
-`/stream/*`, `/reload` and `/metrics` answer 501: live streaming (the
-LC-BLSTM window kernel), hot reload and the metrics exposition wait for a
-later slice.
+Live streams (visual models append f16 video rows to each push payload,
+CTC models can ask for framed incremental transcripts with `transcript=1`):
+
+  POST /stream/open?chunk=8&look=16&transcript=0&fill=0
+      -> {"id": ..., "chunk_frames": ..., "frame_step": 192, ...}
+      (blstm-*-emb models: the open body carries the float32 speaker vector)
+  POST /stream/<id>   body: [int32 n_samples][int32 n_frames]
+      [n_samples x int16 wave][n_frames x uint8 frame_mask]
+      (+ [n_frames x video_feat_dim x float16 video] for visual models)
+  -> 200, body: int16 enhanced samples ready so far (possibly empty); with
+      transcript=1 the framed [int32 n_samples][int16 samples][int16 new
+      label ids]
+  POST /stream/<id>/close  -> 200, the final samples; session freed
+
+At most `max_streams` sessions live at once (429 beyond); a session idle
+for `stream_idle_s` is reaped (404 afterwards, as for an unknown id).
+`/enhance` and every stream push take one device lock.  Not ported yet,
+answered 501: `/reload`, and `/stream/open?atten=` below 1 (the causal gap
+attenuation).
 """
 
 from __future__ import annotations
@@ -23,12 +41,17 @@ from __future__ import annotations
 import json
 import struct
 import threading
+import time
+import urllib.parse
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
 from avsi_torch.device import resolve_device
 from avsi_torch.infer.inpaint import load_model_bundle, make_infer_step
+from avsi_torch.infer.streaming import StreamingInpainter
+from avsi_torch.models.blstm import parse_model_name
 
 
 class InpaintingService:
@@ -43,6 +66,7 @@ class InpaintingService:
         device=None,
     ):
         self.device = resolve_device(device)
+        self._lstm_impl = lstm_impl
         self.config, stats, model, self.params = load_model_bundle(
             model_path, norm, lstm_impl=lstm_impl, device=self.device
         )
@@ -58,10 +82,13 @@ class InpaintingService:
         self._step = make_infer_step(
             model, self.config, stats, False, phase_recon, gl_iters, device=self.device
         )
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()  # one device stream: /enhance and pushes
         self.weights_version = 0
+        self.started = time.monotonic()
+        # counters served at /metrics, each updated under _lock
         self.n_utterances = 0
         self.n_device_steps = 0
+        self.n_stream_pushes = 0
         self.warmup()
 
     def _template_batch(self, n: int) -> dict:
@@ -126,6 +153,27 @@ class InpaintingService:
             None if embedding is None else np.asarray(embedding)[None],
         )[0]
 
+    def open_stream(self, chunk_frames: int | None = None,
+                    lookahead_frames: int | None = None,
+                    transcript: bool = False,
+                    phase_fill: bool = False,
+                    embedding: np.ndarray | None = None,
+                    gap_atten: dict | None = None) -> StreamingInpainter:
+        """A live LC-BLSTM stream on this service's weights and device.
+        chunk/lookahead default to the model's trained LC window, else
+        C=8/L=16 (`streaming.resolve_window`); transcript=True (CTC models)
+        keeps an incremental greedy decode on the stream; phase_fill=True
+        fills the hole's phase causally; `embedding` is the speaker vector
+        of blstm-*-emb models.  The stream takes the service's requested
+        `lstm_impl` through streaming's own policy.  Nothing is compiled
+        per stream: the kernels were built by the service's warm-up."""
+        return StreamingInpainter(
+            self.config, self.stats, self.params,
+            chunk_frames=chunk_frames, lookahead_frames=lookahead_frames,
+            embedding=embedding, transcript=transcript, phase_fill=phase_fill,
+            lstm_impl=self._lstm_impl, gap_atten=gap_atten, device=self.device,
+        )
+
 
 def _parse_enhance(raw: bytes, service: InpaintingService):
     """/enhance payload -> (wave f32, mask f32, embedding or None)."""
@@ -158,10 +206,80 @@ def _parse_enhance(raw: bytes, service: InpaintingService):
     return wave, mask.astype(np.float32), emb
 
 
-def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571, **kw):
+def _parse_push(raw: bytes, inp: StreamingInpainter):
+    """/stream/<id> payload -> (wave f32, mask f32, video f32 or None)."""
+    n_samples, n_frames = struct.unpack_from("<ii", raw, 0)
+    off = 8
+    wave = np.frombuffer(raw, "<i2", n_samples, off)
+    off += 2 * n_samples
+    mask = np.frombuffer(raw, np.uint8, n_frames, off)
+    off += n_frames
+    if mask.size and mask.max() > 1:
+        raise ValueError("frame mask bytes must be 0 or 1")
+    video = None
+    if inp.spec.input_type != "a":  # f16 rows, n_frames x video_feat_dim
+        video = np.frombuffer(raw, "<f2", n_frames * inp.vf, off).astype(
+            np.float32).reshape(n_frames, inp.vf)
+    return wave.astype(np.float32), mask.astype(np.float32), video
+
+
+def _open_options(query: str, raw: bytes, service: InpaintingService) -> dict:
+    """/stream/open query and body -> `open_stream` keyword arguments."""
+    spec = parse_model_name(service.config["model"])
+    q = urllib.parse.parse_qs(query)
+    chunk = int(q["chunk"][0]) if "chunk" in q else None
+    look = int(q["look"][0]) if "look" in q else None
+    if chunk is not None and not 1 <= chunk <= 256:
+        raise ValueError("chunk must be in [1,256]")
+    if look is not None and not 0 <= look <= 256:
+        raise ValueError("look must be in [0,256]")
+    transcript = bool(int(q.get("transcript", ["0"])[0]))
+    if transcript and not spec.ctc:
+        raise ValueError(f"model {service.config['model']} has no CTC head; "
+                         "transcript=1 needs a -ctc variant")
+    gap_atten = None
+    if "atten" in q:  # atten=1 is off; below 1 the stream refuses it
+        alpha = float(q["atten"][0])
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("atten must be in [0,1]")
+        gap_atten = {"alpha": alpha}
+    emb = None
+    if raw:
+        if spec.conditioning != "emb":
+            raise ValueError(f"model {service.config['model']} takes no speaker embedding; "
+                             "/stream/open body must be empty")
+        if len(raw) != 4 * service.emb_dim:
+            raise ValueError(f"embedding must be {service.emb_dim} little-endian float32 "
+                             f"values; got {len(raw)} bytes")
+        emb = np.frombuffer(raw, "<f4").copy()
+    elif spec.conditioning == "emb":
+        raise ValueError("model needs an external speaker embedding: send it as "
+                         "float32 bytes in the /stream/open body")
+    return dict(chunk_frames=chunk, lookahead_frames=look, transcript=transcript,
+                phase_fill=bool(int(q.get("fill", ["0"])[0])), embedding=emb,
+                gap_atten=gap_atten)
+
+
+def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571,
+          max_streams: int = 64, stream_idle_s: float = 600.0, **kw):
     """Build the service and an HTTP server bound to (host, port); port=0
-    takes a free one.  The caller runs `serve_forever()` and `shutdown()`."""
+    takes a free one.  The caller runs `serve_forever()` and `shutdown()`;
+    `shutdown()` also stops the idle-stream reaper."""
     service = InpaintingService(model_path, **kw)
+    # sid -> [StreamingInpainter (None while opening), last use (monotonic),
+    #         transcript ids already sent, requests in flight]
+    streams: dict = {}
+    streams_lock = threading.Lock()
+
+    def reap_streams():
+        """Drop sessions idle past the TTL.  Sessions still opening, and
+        sessions with a request in flight (waiting on the device lock), are
+        kept: evicting one would orphan an accepted push."""
+        now = time.monotonic()
+        with streams_lock:
+            for sid in [s for s, v in streams.items()
+                        if v[0] is not None and v[3] == 0 and now - v[1] > stream_idle_s]:
+                del streams[sid]
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -188,34 +306,143 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571, **kw):
                     "device": str(service.device),
                     "lstm_impl": service.config["lstm_impl"],
                 }).encode())
-            elif self.path == "/metrics":
-                self._reply(501, b"/metrics is not ported yet")
+            elif self.path == "/metrics":  # Prometheus text exposition
+                with streams_lock:
+                    live = sum(1 for v in streams.values() if v[0] is not None)
+                lines = [
+                    "# TYPE avsi_utterances_enhanced_total counter",
+                    f"avsi_utterances_enhanced_total {service.n_utterances}",
+                    "# TYPE avsi_device_steps_total counter",
+                    f"avsi_device_steps_total {service.n_device_steps}",
+                    "# TYPE avsi_stream_pushes_total counter",
+                    f"avsi_stream_pushes_total {service.n_stream_pushes}",
+                    "# TYPE avsi_live_streams gauge",
+                    f"avsi_live_streams {live}",
+                    "# TYPE avsi_weights_version gauge",
+                    f"avsi_weights_version {service.weights_version}",
+                    "# TYPE avsi_uptime_seconds gauge",
+                    f"avsi_uptime_seconds {time.monotonic() - service.started:.1f}",
+                ]
+                self._reply(200, ("\n".join(lines) + "\n").encode())
             else:
                 self._reply(404, b"not found")
 
-        def do_POST(self):
-            self._replied = False
-            if self.path.startswith("/stream/") or self.path == "/reload":
-                self._reply(501, f"{self.path} is not ported yet".encode())
-                return
-            if self.path != "/enhance":
-                self._reply(404, b"not found")
+        def _open(self, query: str, raw: bytes):
+            opts = _open_options(query, raw, service)
+            # reserve the slot under one lock acquisition, so concurrent
+            # opens at the limit cannot all pass the check
+            sid = uuid.uuid4().hex[:12]
+            with streams_lock:
+                full = len(streams) >= max_streams
+                if not full:
+                    streams[sid] = [None, time.monotonic(), 0, 0]
+            if full:
+                self._reply(429, b"too many live streams")
                 return
             try:
+                inp = service.open_stream(**opts)
+            except BaseException:
+                with streams_lock:
+                    streams.pop(sid, None)
+                raise
+            with streams_lock:
+                streams[sid] = [inp, time.monotonic(), 0, 0]
+            self._reply(200, json.dumps({
+                "id": sid, "chunk_frames": inp.chunk, "lookahead_frames": inp.look,
+                "frame_step": 192, "frame_length": 384,
+                "video_feat_dim": 0 if inp.spec.input_type == "a" else inp.vf,
+                "transcript": inp.want_transcript, "gap_atten": None,
+            }).encode())
+
+        def _push(self, sid: str, closing: bool, raw: bytes):
+            with streams_lock:
+                entry = streams.get(sid)
+                if entry is not None and entry[0] is None:
+                    entry = None  # still opening
+                if entry is not None:
+                    entry[1] = time.monotonic()
+                    entry[3] += 1  # in flight: the reaper keeps it
+            if entry is None:
+                self._reply(404, b"no such stream")
+                return
+            inp = entry[0]
+            try:
+                with service._lock:
+                    if closing:
+                        out = inp.flush()
+                        with streams_lock:
+                            streams.pop(sid, None)
+                    else:
+                        out = inp.push(*_parse_push(raw, inp))
+                        service.n_stream_pushes += 1
+                    body = np.clip(out, -32768, 32767).astype("<i2").tobytes()
+                    if inp.want_transcript:
+                        # framed reply; the cursor of ids sent is session
+                        # state, advanced once per reply under the lock
+                        new_ids = inp.transcript[entry[2]:]
+                        entry[2] = len(inp.transcript)
+                        body = (struct.pack("<i", len(out)) + body
+                                + np.asarray(new_ids, "<i2").tobytes())
+            finally:
+                with streams_lock:
+                    entry[3] -= 1
+                    entry[1] = time.monotonic()
+            self._reply(200, body)
+
+        def do_POST(self):
+            # client errors -> 400 with the message; a part not ported yet
+            # -> 501; anything else -> opaque 500.  Once a reply has started,
+            # never write a second one into the connection.
+            self._replied = False
+            path, _, query = self.path.partition("?")
+            try:
                 n = int(self.headers.get("Content-Length", "0"))
-                wave, mask, emb = _parse_enhance(self.rfile.read(n), service)
-                enhanced = service.enhance(wave, mask, emb)
-                self._reply(200, enhanced.astype("<i2").tobytes())
-            except (ValueError, struct.error) as e:
-                if not self._replied:  # malformed request
+                raw = self.rfile.read(n)
+                if path == "/enhance":
+                    enhanced = service.enhance(*_parse_enhance(raw, service))
+                    self._reply(200, enhanced.astype("<i2").tobytes())
+                elif path == "/stream/open":
+                    reap_streams()
+                    self._open(query, raw)
+                elif path.startswith("/stream/"):
+                    reap_streams()
+                    parts = path.split("/")[2:]
+                    self._push(parts[0], parts[1:] == ["close"], raw)
+                elif path == "/reload":
+                    raise NotImplementedError("/reload is not ported yet")
+                else:
+                    self._reply(404, b"not found")
+            except (ValueError, KeyError, IndexError, struct.error) as e:
+                if not self._replied:
                     self._reply(400, str(e).encode())
+            except NotImplementedError as e:
+                if not self._replied:
+                    self._reply(501, str(e).encode())
             except Exception:
-                # a server fault: opaque 500, no internal detail on the wire
+                # a server fault (a kernel that failed to launch, too): no
+                # internal detail on the wire
                 if not self._replied:
                     self._reply(500, b"internal error")
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.service = service  # exposed for tests / embedding callers
+
+    # without a periodic reaper the TTL is checked only on stream requests,
+    # and abandoned sessions would hold their slots once traffic stops
+    reap_stop = threading.Event()
+
+    def reap_loop():
+        while not reap_stop.wait(max(1.0, min(stream_idle_s / 4, 60.0))):
+            reap_streams()
+
+    threading.Thread(target=reap_loop, daemon=True, name="avsi-reaper").start()
+    base_shutdown = server.shutdown
+
+    def shutdown():
+        reap_stop.set()
+        base_shutdown()
+
+    server.shutdown = shutdown
     print(f"avsi_torch inpainting service on http://{host}:{server.server_address[1]} "
           f"(model {service.config['model']}, {service.device})")
     return server

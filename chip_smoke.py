@@ -11,8 +11,12 @@ Phases, in order; any failure exits non-zero:
   3. kernels vs their plain PyTorch versions at the flagship shapes, f32
      and bf16, with stated tolerances, at every batch the kernel is timed
      at (K1/K2 at B=8 and 32, serving and validation; K3/K4 at B=8, 32 and
-     128, 32 being the training path's); and `BiLSTMLayer`'s four
-     gradients on the GPU against the same Function on the CPU, B=8 and 32;
+     128, 32 being the training path's; K5 at the streaming window W=24
+     for one stream, B=1, and a fleet, B=16, from random carries; K6 at
+     T=250, B=8 and 32); K3, K5 and K6 bit for bit equal where their
+     functions coincide (K5 from zero carries at W=250 is K3, K6 is K3's
+     h streams); and `BiLSTMLayer`'s four gradients on the GPU against the
+     same Function on the CPU, B=8 and 32;
   4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
      its plain version, its bound (the larger of bytes over memory
      bandwidth and operations over peak rate) and a cuDNN yardstick
@@ -24,7 +28,20 @@ Phases, in order; any failure exits non-zero:
      samples with a gap at frames 80-146; launch counts of K1 (one per
      device step) and K2 (two per step); the step's output held against
      the same step on the CPU (plain kernel versions);
-  6. training path: a fixed-mode TFRecord corpus written with the port's
+  6. streaming paths, on the same checkpoint: one live stream through the
+     service's /stream/open?transcript=1, /stream/<id> (1,536-sample pushes
+     of a 48,000-sample utterance with the same gap, f16 video rows) and
+     /stream/<id>/close at C=8, L=16: 32 windows, 3 K5 launches each and
+     no other kernel, push latency p50/p99 and real-time factor, int16
+     output and transcript held against the same pushes on the CPU; a
+     whole-utterance window (C=250, L=0) held against the offline
+     `phase_recon="none"` step on the card (K5 against K1/K2); a lockstep
+     fleet of 16 streams of 3 s (`stream_utterances_lockstep`): 96 K5
+     launches at B=16, stream 0 held against its single stream and the
+     fleet against the CPU fleet, stream-seconds per wall second, and a
+     profile of one window step (the second of a whole fleet run, and one
+     push of a live stream that completes a window);
+  7. training path: a fixed-mode TFRecord corpus written with the port's
      codec (96 training + 32 validation utterances of 48,000 samples),
      `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
      (6 train steps, 2 validation steps); launch counts of K3 and K4 (3 per
@@ -33,8 +50,9 @@ Phases, in order; any failure exits non-zero:
      step time; a profile of one train step; one train step on the GPU
      held against the same step on the CPU (loss and every gradient), at
      B=8 and at the training batch of 32;
-  7. one JSON line of kernel figures, the `nvidia-smi` card line, and a last
-     line `{"ok": true, "device": {...}}`.
+  8. one JSON line of kernel figures (K1-K6, each with its launches on its
+     path; K6 is on no path of the system and shows 0), the `nvidia-smi`
+     card line, and a last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -61,9 +79,9 @@ from avsi_torch.device import resolve_device  # noqa: E402
 from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
 from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
-from avsi_torch.infer import inpaint  # noqa: E402
+from avsi_torch.infer import inpaint, streaming  # noqa: E402
 from avsi_torch.models import registry  # noqa: E402
-from avsi_torch.ops import _build, lstm_fused, lstm_train  # noqa: E402
+from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.serve import serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
 from avsi_torch.train import loop as train_loop  # noqa: E402
@@ -78,6 +96,9 @@ T, D1, H = T_FRAMES, 593, 250  # flagship: 257 audio + 136 video + 200 SSNN
 GAP = slice(80, 147)  # frames 80-146: the bench's ~800 ms gap
 N_REQUESTS = 4
 TRAIN_BATCH, N_TRAIN, N_VAL, EPOCHS = 32, 96, 32, 2
+CHUNK, LOOK, PUSH, FLEET = 8, 16, 1536, 16  # live streams: C, L, samples per push, fleet B
+W = CHUNK + LOOK  # 24 frames per LC window
+N_WINDOWS = -(-T_FRAMES // CHUNK)  # 32 windows per 250-frame utterance
 KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main path)
     "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180",
                           "avsi_torch/csrc/lstm_fused.cu", 8),
@@ -87,9 +108,17 @@ KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main p
                                 "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
     "bilstm_recurrence_bwd": ("K4", "avsi/ops/pallas_lstm.py:599",
                               "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
+    "bilstm_recurrence_carry": ("K5", "avsi/ops/pallas_lstm.py:423",
+                                "avsi_torch/csrc/lstm_train.cu", 1),
+    "bilstm_recurrence": ("K6", "avsi/ops/pallas_lstm.py:121",
+                          "avsi_torch/csrc/lstm_train.cu", 8),
 }
 SERVING, TRAINING = ("bilstm_fused_proj", "bilstm_fused_proj2"), (
     "bilstm_recurrence_train", "bilstm_recurrence_bwd")
+WINDOW = ("bilstm_recurrence_carry", "bilstm_recurrence")  # lstm_window's
+BATCHES = {"bilstm_fused_proj": (8, 32), "bilstm_fused_proj2": (8, 32),
+           "bilstm_recurrence_train": (8, 32, 128), "bilstm_recurrence_bwd": (8, 32, 128),
+           "bilstm_recurrence_carry": (1, FLEET), "bilstm_recurrence": (8, 32)}
 
 
 def fail(msg: str) -> None:
@@ -107,11 +136,13 @@ def card_line() -> str:
 
 # ------------------------------------------------------------ kernel inputs
 
-def kernel_inputs(name: str, batch: int, dtype, seed: int = 0) -> dict:
+def kernel_inputs(name: str, batch: int, dtype, seed: int = 0, t_len: int | None = None) -> dict:
     """Flagship-shaped inputs: K1 reads x (T,B,593); K2 the two 250-wide
-    streams of the previous layer (values of h, in (-1, 1)); K3 a gate input
-    xw (T,2,B,4H) of projection-sized values; K4 K3's inputs and outputs and
-    the upstream h gradients."""
+    streams of the previous layer (values of h, in (-1, 1)); K3 and K6 a
+    gate input xw (T,2,B,4H) of projection-sized values; K4 K3's inputs and
+    outputs and the upstream h gradients; K5 a window's xw (W,2,B,4H) and
+    random carries hc0 (h in (-1, 1), c of cell-state size) in both
+    directions.  t_len overrides the time axis (T, or W for K5)."""
     gen = torch.Generator().manual_seed(seed)
 
     def u(*shape, scale):
@@ -119,8 +150,12 @@ def kernel_inputs(name: str, batch: int, dtype, seed: int = 0) -> dict:
 
     w = H ** -0.5
     wh = u(2, H, 4 * H, scale=w).to(dtype)
-    if name in TRAINING:
-        inp = {"xw": u(T, 2, batch, 4 * H, scale=1.5).to(dtype), "wh": wh}
+    if name in TRAINING or name in WINDOW:
+        t_len = t_len or (W if name == "bilstm_recurrence_carry" else T)
+        inp = {"xw": u(t_len, 2, batch, 4 * H, scale=1.5).to(dtype), "wh": wh}
+        if name == "bilstm_recurrence_carry":
+            inp["hc0"] = torch.stack([torch.tanh(u(2, batch, H, scale=2.0)),
+                                      u(2, batch, H, scale=2.0)])
         if name == "bilstm_recurrence_bwd":
             out = lstm_train.bilstm_recurrence_train(inp["xw"], wh)
             inp.update(zip(("out_f", "out_b", "c_f", "c_b"), out))
@@ -138,7 +173,7 @@ def kernel_inputs(name: str, batch: int, dtype, seed: int = 0) -> dict:
 
 
 def run_kernel(name, inp, plain=False):
-    module = lstm_train if name in TRAINING else lstm_fused
+    module = lstm_train if name in TRAINING else lstm_window if name in WINDOW else lstm_fused
     return getattr(module, name + "_plain" if plain else name)(*inp.values())
 
 
@@ -146,13 +181,13 @@ def bound(name: str, inp: dict, out, dtype) -> tuple[float, str]:
     """Least time for the work: each input read once and each output written
     once, over HBM bandwidth; the products' multiply-adds over the peak rate
     of the operand type.  K1/K2: the projection and the recurrent product
-    per step and direction; K3: the recurrent product; K4: three products
-    (gate recompute, dh_rec = dgates.wh^T, dWh).  Returns (ms, "bytes" |
-    "operations")."""
+    per step and direction; K3, K5, K6: the recurrent product; K4: three
+    products (gate recompute, dh_rec = dgates.wh^T, dWh).  Returns (ms,
+    "bytes" | "operations")."""
     n_bytes = sum(t.numel() * t.element_size() for t in list(inp.values()) + list(out))
-    if name in TRAINING:
+    if name in TRAINING or name in WINDOW:
         t_len, _, batch, _ = inp["xw"].shape
-        products = 1 if name == "bilstm_recurrence_train" else 3
+        products = 3 if name == "bilstm_recurrence_bwd" else 1
         ops = products * 2 * t_len * 2 * batch * H * 4 * H  # 2 dirs, 2 ops per MAC
     else:
         x = inp["xt"] if name == "bilstm_fused_proj" else inp["af"]
@@ -208,9 +243,24 @@ def cudnn_ms(name: str, inp: dict, batch: int, dtype) -> float:
     kernel's width, in the kernel's dtype.  K1/K2: its forward without
     grad (K2's input is the two streams side by side).  K3: its forward
     with grad enabled; K4: its backward (forward + backward minus
-    forward), at a layer-2 input of 2H.  It includes the input projection,
-    which K3/K4 do not: it is not the same function."""
+    forward), at a layer-2 input of 2H.  K5/K6: its forward without grad
+    over the kernel's time axis at a layer-2 input of 2H, K5's given
+    (h0, c0) from hc0's forward slots and zeros in the backward ones.  It
+    includes the input projection, which K3-K6 do not: it is not the same
+    function."""
     gen = torch.Generator().manual_seed(7)
+    if name in WINDOW:
+        t_len = inp["xw"].shape[0]
+        wx = ((torch.rand(2, 2 * H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5).cuda()
+        x = torch.tanh(torch.randn(t_len, batch, 2 * H, generator=gen)).cuda().to(dtype)
+        lstm = cudnn_lstm([{"wx": wx, "wh": inp["wh"], "b": torch.zeros(2, 4 * H, device="cuda")}],
+                          2 * H).to(dtype)
+        hx = None
+        if "hc0" in inp:
+            hx = tuple(torch.stack([inp["hc0"][k, 0], torch.zeros_like(inp["hc0"][k, 0])])
+                       .to(dtype).contiguous() for k in (0, 1))
+        with torch.no_grad():
+            return time_ms(lambda: lstm(x, hx), reps=10)
     if name == "bilstm_fused_proj":
         wx, d_in, x = inp["wx"], D1, inp["xt"]
     elif name == "bilstm_fused_proj2":
@@ -266,7 +316,7 @@ def check_and_time_kernels() -> tuple[dict, dict]:
     both keyed by (name, dtype, batch)."""
     errs, rows = {}, {}
     for name, (tag, *_) in KERNELS.items():
-        for batch in ((8, 32) if name in SERVING else (8, 32, 128)):
+        for batch in BATCHES[name]:
             for dtype in (torch.float32, torch.bfloat16):
                 inp = kernel_inputs(name, batch, dtype)
                 got = run_kernel(name, inp)
@@ -287,12 +337,33 @@ def check_and_time_kernels() -> tuple[dict, dict]:
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms,
                 )
-                note = " (includes the input projection)" if name in TRAINING else ""
+                note = " (includes the input projection)" if name not in SERVING else ""
                 print(f"time {tag} {name} {str(dtype)[6:]} B={batch}: kernel {ms:.3f} ms, "
                       f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                       f"cuDNN {library_ms:.3f} ms{note}", flush=True)
                 del inp, got
     return errs, rows
+
+
+def check_coincide() -> None:
+    """Phase 3: one body, three instantiations.  K5 from zero carries over a
+    whole utterance (W=T=250) writes K3's four outputs bit for bit, and K6
+    K3's two h streams, f32 and bf16, at B=8 (K5 and K6) and 32 (K6)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (8, 32):
+            inp = kernel_inputs("bilstm_recurrence_train", batch, dtype, seed=9)
+            k3 = lstm_train.bilstm_recurrence_train(inp["xw"], inp["wh"])
+            k6 = lstm_window.bilstm_recurrence(inp["xw"], inp["wh"])
+            same = all(torch.equal(a, b) for a, b in zip(k3[:2], k6))
+            if batch == 8:
+                zero = torch.zeros(2, 2, batch, H, device="cuda")
+                k5 = lstm_window.bilstm_recurrence_carry(inp["xw"], inp["wh"], zero)
+                same = same and all(torch.equal(a, b) for a, b in zip(k3, k5))
+            torch.cuda.synchronize()
+            print(f"check K3/K5/K6 bit-equal where they coincide ({str(dtype)[6:]}, T=250, "
+                  f"B={batch}{', K5 too' if batch == 8 else ''}): {same}", flush=True)
+            if not same:
+                fail(f"K3, K5 and K6 differ where their functions coincide ({dtype}, B={batch})")
 
 
 def time_stack() -> None:
@@ -386,9 +457,9 @@ def main_path(d: str, device: str = "cuda") -> dict:
             if out.shape != (AUDIO_LEN,) or out.dtype != np.int16 or not np.any(out):
                 fail(f"bad /enhance reply: shape {out.shape} dtype {out.dtype}")
         if (counts["bilstm_fused_proj"] != steps or counts["bilstm_fused_proj2"] != 2 * steps
-                or any(counts[k] for k in TRAINING)):
+                or any(v for k, v in counts.items() if k not in SERVING)):
             fail(f"launch counts {counts} for {steps} device steps (want K1 1 and K2 2 per "
-                 "step, no K3/K4)")
+                 "step, nothing else)")
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             if r.read() != b"ok":
                 fail("/healthz")
@@ -463,6 +534,214 @@ def reference_check(d: str, devices=("cuda", "cpu")) -> None:
         fail("GPU step disagrees with the CPU step")
 
 
+# ------------------------------------------------------------ streaming paths
+
+def rel_l2(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
+
+
+def stream_pushes(rng) -> list[tuple]:
+    """One 48,000-sample utterance with the gap at frames 80-146, as a live
+    client sends it: 1,536-sample pushes, each with the mask bytes and f16
+    video rows of the frames its samples complete; the last push also
+    carries the pad_end frame's row."""
+    wave, mask = request(rng)
+    video = rng.randn(T_FRAMES, 136).astype(np.float16)
+    pushes, fed = [], 0
+    for lo in range(0, AUDIO_LEN, PUSH):
+        part = wave[lo : lo + PUSH]
+        last = lo + PUSH >= AUDIO_LEN
+        n = T_FRAMES if last else max(0, (lo + len(part) - 384) // 192 + 1)
+        pushes.append((part, mask[fed:n], video[fed:n]))
+        fed = n
+    return pushes
+
+
+def stream_path(d: str) -> dict:
+    """Phase 6: one live stream through the service's /stream/* on the GPU.
+    Returns the launch counts of this path."""
+    server = serve(d, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+
+    def post(path, body=b""):
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    pushes = stream_pushes(np.random.RandomState(6))
+    try:
+        sid = json.loads(post("/stream/open?transcript=1"))["id"]
+        samples, ids, lat = [], [], []
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        bodies = [struct.pack("<ii", len(p), len(m)) + p.tobytes() + m.tobytes() + v.tobytes()
+                  for p, m, v in pushes]
+        for path, body in [(f"/stream/{sid}", b) for b in bodies] + [(f"/stream/{sid}/close", b"")]:
+            t1 = time.perf_counter()
+            reply = post(path, body)
+            lat.append(time.perf_counter() - t1)
+            (n,) = struct.unpack_from("<i", reply, 0)
+            samples.append(np.frombuffer(reply, "<i2", n, 4))
+            ids += np.frombuffer(reply, "<i2", offset=4 + 2 * n).tolist()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    got = np.concatenate(samples)
+    want_counts = {"bilstm_recurrence_carry": 3 * N_WINDOWS}
+    if {k: v for k, v in counts.items() if v} != want_counts:
+        fail(f"stream launches {counts}; want {want_counts} ({N_WINDOWS} windows x 3 layers, "
+             "nothing else)")
+    if got.shape != (AUDIO_LEN,) or not np.any(got):
+        fail(f"stream returned {got.shape} samples")
+
+    config, stats, _, params = inpaint.load_model_bundle(d, device="cpu")
+    inp = streaming.StreamingInpainter(config, stats, params, transcript=True, device="cpu")
+    ref = [inp.push(p.astype(np.float32), m.astype(np.float32), v.astype(np.float32))
+           for p, m, v in pushes] + [inp.flush()]
+    ref = np.clip(np.concatenate(ref), -32768, 32767).astype("<i2")
+    rel = rel_l2(got, ref)
+    lat_ms = 1e3 * np.asarray(lat)
+    print(f"stream path: /stream/* C={CHUNK} L={LOOK}, {len(pushes)} pushes + close, "
+          f"{N_WINDOWS} windows; launches {counts}; /metrics "
+          f"{[ln for ln in metrics.splitlines() if ln.startswith('avsi_stream')]}", flush=True)
+    print(f"stream path: push latency p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.2f} ms, max {lat_ms.max():.2f} ms (HTTP round trip of "
+          f"{PUSH} samples = {PUSH / 16:.0f} ms of audio); real-time factor "
+          f"{wall / (AUDIO_LEN / 16000):.4f} ({wall:.3f} s for 3 s); card {card_line()}", flush=True)
+    print(f"stream path: GPU vs CPU stream: int16 relative L2 {rel:.2e} (tol 1e-3); "
+          f"transcripts {'equal' if ids == inp.transcript else 'DIFFER'} ({len(ids)} labels)",
+          flush=True)
+    if rel > 1e-3 or ids != inp.transcript:
+        fail("the GPU stream disagrees with the CPU stream")
+    return counts
+
+
+def full_window_check(d: str) -> None:
+    """Phase 6: a window over the whole utterance (C=250, L=0; K5 at W=250)
+    against the offline `phase_recon="none"` step (K1/K2), both on the
+    card: int16 relative L2 <= 1e-3."""
+    config, stats, model, params = inpaint.load_model_bundle(d, device="cuda")
+    pushes = stream_pushes(np.random.RandomState(7))
+    wave = np.concatenate([p for p, _, _ in pushes])
+    mask = np.concatenate([m for _, m, _ in pushes])
+    video = np.concatenate([v for _, _, v in pushes])
+    inp = streaming.StreamingInpainter(config, stats, params, chunk_frames=T_FRAMES,
+                                       lookahead_frames=0, device="cuda")
+    before = _build.launch_counts["bilstm_recurrence_carry"]
+    got = streaming.stream_utterance(inp, wave.astype(np.float32), mask.astype(np.float32),
+                                     video.astype(np.float32))
+    k5 = _build.launch_counts["bilstm_recurrence_carry"] - before
+    got = np.clip(got, -32768, 32767).astype(np.int16)
+    step = inpaint.make_infer_step(model, config, stats, False, "none", 0, device="cuda")
+    batch = {"sequence_lengths": np.array([T_FRAMES], np.int32),
+             "labels_lengths": np.ones(1, np.int32), "target_sources": wave[None],
+             "labels": np.zeros((1, 50), np.float32), "video_features": video[None],
+             "mask_frames": mask[None].astype(np.int8)}
+    want = step(params, batch)[0][0].cpu().numpy()
+    rel = rel_l2(got, want)
+    print(f"full-window stream (C=250, L=0, {k5} K5 launches) vs offline phase_recon='none' "
+          f"(K1/K2), both on the GPU: int16 relative L2 {rel:.2e} (tol 1e-3)", flush=True)
+    if k5 != 3 or rel > 1e-3:
+        fail("the whole-utterance stream disagrees with the offline step")
+
+
+def fleet_inputs(rng):
+    """FLEET utterances of 3 s, each with its own 67-frame gap."""
+    waves = np.clip(3000 * rng.randn(FLEET, AUDIO_LEN), -32768, 32767).round().astype(np.float32)
+    masks = np.ones((FLEET, T_FRAMES), np.float32)
+    for i in range(FLEET):
+        lo = 10 + 11 * i
+        masks[i, lo : lo + 67] = 0.0
+    videos = rng.randn(FLEET, T_FRAMES, 136).astype(np.float16).astype(np.float32)
+    return waves, masks, videos
+
+
+def profile_window_step(run, label: str, k: int = 1) -> None:
+    """Profile the k-th window step (from 0) of a whole `run` of the fleet:
+    `streaming._window_step_raw` is wrapped for that run, so the step has
+    the state and the planes the earlier steps left on the device."""
+    step, calls = streaming._window_step_raw, []
+
+    def wrapped(*args):
+        calls.append(None)
+        if len(calls) != k + 1:
+            return step(*args)
+        out = []
+        profile(label, lambda: out.append(step(*args)))
+        return out[0]
+
+    streaming._window_step_raw = wrapped
+    try:
+        run()
+    finally:
+        streaming._window_step_raw = step
+    if len(calls) <= k:
+        fail(f"the fleet run made {len(calls)} window steps; none profiled")
+
+
+def fleet_path(d: str) -> dict:
+    """Phase 6: `stream_utterances_lockstep`, FLEET streams in one window
+    step per window, on the GPU.  Returns the launch counts of this path."""
+    config, stats, _, params = inpaint.load_model_bundle(d, device="cuda")
+    waves, masks, videos = fleet_inputs(np.random.RandomState(8))
+
+    def run(device, p=params, n=AUDIO_LEN, frames=T_FRAMES):
+        return streaming.stream_utterances_lockstep(
+            config, stats, p, waves[:, :n], masks[:, :frames], videos[:, :frames],
+            chunk_frames=CHUNK, lookahead_frames=LOOK, transcript=True, device=device)
+
+    _build.reset_launch_counts()
+    wav, tr = run("cuda")
+    counts = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    run("cuda")
+    wall = time.perf_counter() - t0
+    want_counts = {"bilstm_recurrence_carry": 3 * N_WINDOWS}
+    if {k: v for k, v in counts.items() if v} != want_counts:
+        fail(f"fleet launches {counts}; want {want_counts} (one window step per window)")
+    if wav.shape != (FLEET, AUDIO_LEN) or not np.isfinite(wav).all():
+        fail(f"fleet returned {wav.shape}")
+
+    inp = streaming.StreamingInpainter(config, stats, params, CHUNK, LOOK, transcript=True,
+                                       device="cuda")
+    single = streaming.stream_utterance(inp, waves[0], masks[0], videos[0])
+    rel_single = rel_l2(wav[0], single)
+    params_cpu = inpaint.load_model_bundle(d, device="cpu")[3]
+    wav_cpu, tr_cpu = run("cpu", params_cpu)
+    rel_cpu = rel_l2(wav, wav_cpu)
+    print(f"fleet path: {FLEET} streams x 3 s, C={CHUNK} L={LOOK}, {N_WINDOWS} window steps; "
+          f"launches {counts}; {FLEET * AUDIO_LEN / 16000 / wall:.1f} stream-seconds per wall "
+          f"second ({1e3 * wall / N_WINDOWS:.2f} ms per window step of {FLEET}); "
+          f"card {card_line()}", flush=True)
+    print(f"fleet path: stream 0 vs its single GPU stream relative L2 {rel_single:.2e}, "
+          f"transcript {'equal' if tr[0] == inp.transcript else 'DIFFERS'}; GPU fleet vs CPU "
+          f"fleet relative L2 {rel_cpu:.2e}, transcripts "
+          f"{'equal' if tr == tr_cpu else 'DIFFER'} (tol 1e-3)", flush=True)
+    if rel_single > 1e-3 or rel_cpu > 1e-3 or tr[0] != inp.transcript or tr != tr_cpu:
+        fail("the GPU fleet disagrees with the single stream or the CPU fleet")
+
+    # one window step inside a whole fleet run (the second of its 32), and
+    # one push of a live stream that completes exactly one window
+    profile_window_step(lambda: run("cuda"), f"window step 2 of {N_WINDOWS} inside a "
+                        f"lockstep run of {FLEET} streams (W={W}; its fetch not included)")
+    inp.reset()
+    n0 = (W - 1) * 192 + 384
+    inp.push(waves[0, :n0], masks[0, :W], videos[0, :W])
+    profile("one single-stream push completing one window (W=24)",
+            lambda: inp.push(waves[0, n0 : n0 + PUSH], masks[0, W : W + CHUNK],
+                             videos[0, W : W + CHUNK]))
+    return counts
+
+
 # ------------------------------------------------------------ training path
 
 def write_corpus(root: str) -> None:
@@ -513,7 +792,7 @@ def train_path(root: str) -> dict:
     val_steps = EPOCHS * -(-N_VAL // TRAIN_BATCH)
     want = {"bilstm_recurrence_train": 3 * steps, "bilstm_recurrence_bwd": 3 * steps,
             "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": 2 * val_steps}
-    if summary["steps"] != steps or counts != want:
+    if summary["steps"] != steps or {k: v for k, v in counts.items() if v} != want:
         fail(f"training ran {summary['steps']} steps with launches {counts}; want {steps} "
              f"steps and {want} (K3, K4: 3 per train step; K1 1, K2 2 per validation step)")
     exp = os.path.join(root, "exp")
@@ -603,6 +882,7 @@ def main() -> int:
 
     resolve_device()  # float32 products in full float32 (no TF32)
     errs, rows = check_and_time_kernels()
+    check_coincide()
     for batch in (8, TRAIN_BATCH):
         check_layer_grads(batch)
     time_stack()
@@ -611,6 +891,9 @@ def main() -> int:
         write_checkpoint(d)
         counts = main_path(d)
         reference_check(d)
+        counts["bilstm_recurrence_carry"] = stream_path(d)["bilstm_recurrence_carry"]
+        full_window_check(d)
+        fleet_path(d)
     with tempfile.TemporaryDirectory() as d:
         counts.update({k: v for k, v in train_path(d).items() if k in TRAINING})
         for batch in (8, TRAIN_BATCH):

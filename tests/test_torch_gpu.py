@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain versions, on the card.
+"""The CUDA kernels K1-K6 against their plain versions, on the card.
 
 Marked `gpu`: each test decides inside itself whether CUDA is present and
 skips without it (the CPU runs the plain versions, tested against the JAX
@@ -14,7 +14,7 @@ parity-cast gate input).
 import pytest
 import torch
 
-from avsi_torch.ops import _build, lstm_fused, lstm_train
+from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -131,3 +131,84 @@ def test_bilstm_layer_cuda_matches_cpu(b):
         grads[dev] = [xd.grad.cpu()] + [pd[k].grad.cpu() for k in ("wx", "wh", "b")]
     for g, w in zip(grads["cuda"], grads["cpu"]):
         assert (g - w).norm().item() <= 1e-4 * w.norm().item()
+
+
+def _carry(gen, b, h):
+    """hc0 (h|c, dir, B, H) f32: h in (-1, 1), c of cell-state size."""
+    return torch.stack([torch.tanh(_w(gen, 2, b, h, scale=2.0)), _w(gen, 2, b, h, scale=2.0)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(24, 1, 250), (24, 16, 250), (20, 2, 24)])
+def test_k5_kernel_matches_plain(dtype, shape):
+    """K5 at the streaming window (W=24: one stream, a fleet of 16) from
+    random carries in both directions."""
+    _need_cuda()
+    t, b, h = shape
+    gen = torch.Generator().manual_seed(4)
+    xw, wh = _train_inputs(gen, t, b, h, dtype)
+    hc0 = _carry(gen, b, h)
+    before = _build.launch_counts["bilstm_recurrence_carry"]
+    got = lstm_window.bilstm_recurrence_carry(xw, wh, hc0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bilstm_recurrence_carry"] == before + 1
+    want = lstm_window.bilstm_recurrence_carry_plain(xw, wh, hc0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [8, 32])
+def test_k6_kernel_matches_plain(dtype, b):
+    _need_cuda()
+    gen = torch.Generator().manual_seed(5)
+    xw, wh = _train_inputs(gen, 250, b, 250, dtype)
+    before = _build.launch_counts["bilstm_recurrence"]
+    got = lstm_window.bilstm_recurrence(xw, wh)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bilstm_recurrence"] == before + 1
+    want = lstm_window.bilstm_recurrence_plain(xw, wh)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k5_k6_kernels_bit_equal(dtype):
+    """One body, three instantiations: K5 from zero carries writes K3's four
+    outputs bit for bit, and K6 K3's h streams."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(6)
+    xw, wh = _train_inputs(gen, 250, 8, 250, dtype)
+    k3 = lstm_train.bilstm_recurrence_train(xw, wh)
+    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, 8, 250, device="cuda"))
+    k6 = lstm_window.bilstm_recurrence(xw, wh)
+    torch.cuda.synchronize()
+    for a, b in zip(k3, k5):
+        assert torch.equal(a, b)
+    for a, b in zip(k3[:2], k6):
+        assert torch.equal(a, b)
+
+
+def test_lc_window_launches_k5_once_per_layer():
+    """One flagship window (W=24, three 250-wide layers, input 593) on the
+    card: three K5 launches and nothing else, and the output agrees with
+    the same layers on the CPU."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(7)
+    layers = [{"wx": (torch.rand(2, d, 1000, generator=gen) * 2 - 1) * 250 ** -0.5,
+               "wh": (torch.rand(2, 250, 1000, generator=gen) * 2 - 1) * 250 ** -0.5,
+               "b": 0.1 * torch.randn(2, 1000, generator=gen)} for d in (593, 500, 500)]
+    x0 = torch.randn(1, 24, 593, generator=gen)
+    outs = {}
+    before = dict(_build.launch_counts)
+    for dev in ("cuda", "cpu"):
+        x = x0.to(dev)
+        for p in layers:
+            carry = torch.zeros(1, 250, device=dev)
+            x, _, _ = lstm_window.lc_bilstm_window(
+                {k: v.to(dev) for k, v in p.items()}, x, carry, carry, 8)
+        outs[dev] = x.cpu()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]}
+    assert launched == {"bilstm_recurrence_carry": 3}
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-4

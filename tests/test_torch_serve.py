@@ -1,17 +1,20 @@
 """The port's service on the CPU against the JAX service on one bundle,
-plus one HTTP round trip.
+plus HTTP round trips: /enhance, and live stream sessions held against
+the same stream run in process.
 
 Both services load the same checkpoint directory (config.txt, the stats
 .npy files and a `sinet.npz` written by the reference).  The JAX service
 runs `lstm_impl="pallas"` (the Pallas kernels in interpret mode off the
 TPU); the port's runs `device="cpu"`, the plain versions of its kernels.
-Tolerance: the int16 Griffin-Lim waveforms agree to relative L2 <= 1e-3.
+Tolerance: the int16 Griffin-Lim waveforms agree to relative L2 <= 1e-3;
+a stream served over HTTP is bit for bit the in-process stream.
 """
 
 import json
 import os
 import struct
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -106,15 +109,122 @@ def test_http_round_trip(bundle):
         with pytest.raises(urllib.error.HTTPError) as exc:  # malformed
             _post(port, "/enhance", struct.pack("<ii", 123, T_FRAMES))
         assert exc.value.code == 400
-        for path in ("/stream/open", "/reload"):
-            with pytest.raises(urllib.error.HTTPError) as exc:
-                _post(port, path, b"")
-            assert exc.value.code == 501
         with pytest.raises(urllib.error.HTTPError) as exc:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics")
+            _post(port, "/reload", b"")
         assert exc.value.code == 501
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics") as r:
+            metrics = _metrics(r.read())
+        assert metrics["avsi_utterances_enhanced_total"] == 2
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def _metrics(text: bytes) -> dict:
+    return {k: float(v) for k, v in (line.split() for line in text.decode().splitlines()
+                                     if not line.startswith("#"))}
+
+
+class _Server:
+    """serve() on a free port in a thread, shut down on exit."""
+
+    def __init__(self, bundle, **kw):
+        self.server = serve(bundle, port=0, micro_batch=2, gl_iters=3, device="cpu", **kw)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+        assert not self.thread.is_alive()
+
+    def post(self, path, body=b""):
+        return _post(self.port, path, body)
+
+    def status(self, path, body=b""):
+        """The HTTP error code of a request that must fail, and its body."""
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            self.post(path, body)
+        return exc.value.code, exc.value.read()
+
+    def metrics(self):
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/metrics") as r:
+            return _metrics(r.read())
+
+
+def _push_body(wave, mask, video):
+    return (struct.pack("<ii", len(wave), len(mask)) + wave.astype("<i2").tobytes()
+            + mask.astype(np.uint8).tobytes() + video.astype("<f2").tobytes())
+
+
+def test_stream_session_matches_in_process_stream(bundle):
+    """open (transcript=1, C=5, L=7) -> 1,536-sample pushes with f16 video
+    rows -> close; the framed replies hold the in-process stream's int16
+    samples and its transcript, bit for bit."""
+    rng = np.random.RandomState(2)
+    waves, masks = _requests(1, seed=2)
+    wave, mask = waves[0].astype(np.int16), masks[0]
+    video = rng.randn(T_FRAMES, 136).astype(np.float16)
+    with _Server(bundle) as srv:
+        info = json.loads(srv.post("/stream/open?chunk=5&look=7&transcript=1"))
+        assert (info["chunk_frames"], info["lookahead_frames"], info["video_feat_dim"],
+                info["frame_step"], info["transcript"]) == (5, 7, 136, 192, True)
+        samples, ids, fed, pushes = [], [], 0, 0
+        for lo in range(0, AUDIO_LEN, 1536):
+            part = wave[lo : lo + 1536]
+            n_frames = min(max(0, (lo + len(part) - 384) // 192 + 1), T_FRAMES)
+            if lo + 1536 >= AUDIO_LEN:
+                n_frames = T_FRAMES  # the last push carries the pad_end rows
+            replies = [srv.post(f"/stream/{info['id']}",
+                                _push_body(part, mask[fed:n_frames], video[fed:n_frames]))]
+            fed, pushes = n_frames, pushes + 1
+            if lo + 1536 >= AUDIO_LEN:
+                replies.append(srv.post(f"/stream/{info['id']}/close"))
+            for body in replies:
+                (n,) = struct.unpack_from("<i", body, 0)
+                samples.append(np.frombuffer(body, "<i2", n, 4))
+                ids += np.frombuffer(body, "<i2", offset=4 + 2 * n).tolist()
+        metrics = srv.metrics()
+        assert metrics["avsi_stream_pushes_total"] == pushes == 4
+        assert metrics["avsi_live_streams"] == 0
+        code, _ = srv.status(f"/stream/{info['id']}", _push_body(part[:0], mask[:0], video[:0]))
+        assert code == 404  # closed sessions are gone
+
+        inp = srv.server.service.open_stream(5, 7, transcript=True)
+        from avsi_torch.infer.streaming import stream_utterance
+        want = stream_utterance(inp, wave.astype(np.float32), mask,
+                                video.astype(np.float32))
+    got = np.concatenate(samples)
+    np.testing.assert_array_equal(got, np.clip(want, -32768, 32767).astype(np.int16))
+    assert len(got) == AUDIO_LEN and np.abs(got).max() > 0
+    assert ids == inp.transcript
+
+
+def test_stream_sessions_limits_and_errors(bundle):
+    """429 at max_streams, 404 for an unknown id, the idle reaper, the
+    /metrics counters, 400 for bad options, 501 for the gap attenuation."""
+    with _Server(bundle, max_streams=2, stream_idle_s=1.0) as srv:
+        code, body = srv.status("/stream/open?atten=0.5")
+        assert code == 501 and b"not ported yet" in body
+        assert srv.status("/stream/open?chunk=0")[0] == 400
+        first = json.loads(srv.post("/stream/open"))
+        assert (first["chunk_frames"], first["lookahead_frames"]) == (8, 16)
+        second = json.loads(srv.post("/stream/open?chunk=4&look=0&fill=1"))
+        assert srv.metrics()["avsi_live_streams"] == 2
+        assert srv.status("/stream/open")[0] == 429
+        assert srv.status("/stream/nosuchid", b"")[0] == 404
+        body = _push_body(np.zeros(960, np.int16), np.ones(4), np.zeros((4, 136)))
+        assert srv.post(f"/stream/{second['id']}", body)  # 4 frames: one C=4, L=0 window
+        assert srv.metrics()["avsi_stream_pushes_total"] == 1
+        assert srv.status(f"/stream/{first['id']}", b"\x01")[0] == 400  # short header
+        time.sleep(1.5)  # both sessions idle past the TTL
+        assert srv.status(f"/stream/{first['id']}", body)[0] == 404
+        assert srv.metrics()["avsi_live_streams"] == 0
+        json.loads(srv.post("/stream/open?atten=1"))  # atten=1 is off
