@@ -1,9 +1,10 @@
 // Device helpers shared by the port's LSTM kernels (lstm_fused.cu, lstm_train.cu).
 //
 // One definition of the casts and of the recurrent dot product, so that every
-// kernel that recomputes a gate pre-activation (K1/K2 in the forward, K3 in the
-// training forward, K4 in the reverse walk) sums the same terms in the same
-// order and gets the same f32 value bit for bit.
+// kernel that recomputes a gate pre-activation (K3 in the training forward, K4
+// in the reverse walk, K5 and K6) sums the same terms in the same order and
+// gets the same f32 value bit for bit.  K1/K2 (lstm_fused.cu) share the casts
+// and the cell's sigmoid; their products are their own.
 
 #pragma once
 

@@ -40,14 +40,17 @@ _lib: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes of each extern "C" launcher (each returns a cudaError_t)
 _SIGNATURES = {
-    "avsi_bilstm_fused_proj": [_P] * 6 + [_I] * 6 + [_P],
-    "avsi_bilstm_fused_proj2": [_P] * 8 + [_I] * 6 + [_P],
+    # K1/K2: ... xw scratch, outs, shape and dtype ints, then the launch plan
+    # (cluster, units, btile, ksplit)
+    "avsi_bilstm_fused_proj": [_P] * 7 + [_I] * 10 + [_P],
+    "avsi_bilstm_fused_proj2": [_P] * 9 + [_I] * 10 + [_P],
     "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 4 + [_P],
     "avsi_bilstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 4 + [_P],
     "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 4 + [_P],
 }
-# launches per kernel wrapper (K4's walk and dWh launches count as one)
+# launches per kernel wrapper (K1's and K2's projection and recurrence, and
+# K4's walk and dWh, count as one)
 launch_counts = {name[len("avsi_"):]: 0 for name in _SIGNATURES}
 
 

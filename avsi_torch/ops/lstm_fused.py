@@ -11,12 +11,14 @@ stack (`blstm_stack_pallas`, `:933-994`):
   * `blstm_stack_fused`: chains K1 and K2 time-major, so the (B, T, 2H)
     hidden stream is never assembled between layers.
 
-Each wrapper launches its CUDA kernel (`avsi_torch/csrc/lstm_fused.cu`)
+Each wrapper launches its CUDA kernels (`avsi_torch/csrc/lstm_fused.cu`)
 for CUDA tensors, or raises; it runs the plain PyTorch version beside it
 only because its tensors lie on the CPU.  There is no fallback from a
-failed launch to the plain version.  `avsi_torch.ops._build.launch_counts`
-counts kernel launches per wrapper, so a run can show that it went through
-the kernels.
+failed launch to the plain version.  A call is two launches, counted as
+one in `avsi_torch.ops._build.launch_counts`: the projection as a GEMM over
+all T x B rows into a scratch xw, then the recurrence on thread-block
+clusters that split the hidden units and keep their slice of wh in shared
+memory, laid out by `launch_plan`.
 
 Numerics (the TPU kernels' function, `pallas_lstm.py:100-118,213-221`):
 the projection plus bias is accumulated in f32 and rounded to the compute
@@ -30,6 +32,9 @@ layout (`pad_gate_params`), and the kernels index H = 250 directly.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -92,6 +97,113 @@ def bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
     return recurrence_plain(xw, wh, cd, out_dtype)[:2]
 
 
+# ---------------------------------------------------------------- launch plan
+
+SMEM_PER_CTA = 232_448  # dynamic shared memory one Hopper block can use (227 KB)
+REC_THREADS_MAX = 512   # `kRecThreadsMax` in lstm_fused.cu
+REC_ITEMS_MAX = 4       # `kRecItemsMax`: cell (row, unit) pairs per thread
+CLUSTER_SIZES = (8, 16)  # 8 is portable; 16 needs the non-portable opt-in
+BATCH_TILES = (8, 16)    # rows per cluster: one or two mma n-tiles of 8
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the cluster recurrence of K1/K2 covers one layer.
+
+    `cluster` CTAs split the hidden units, `units` each (a multiple of 4, so
+    that 4 x units gate columns are whole 16-row mma tiles; the last CTA
+    holds the rest); a cluster serves `btile` batch rows of one direction;
+    the recurrent product's depth is split over `ksplit` thread groups."""
+    cluster: int
+    units: int
+    btile: int
+    ksplit: int
+    threads: int
+    smem_bytes: int
+    clusters: int  # 2 directions x batch tiles
+
+    @property
+    def ctas(self) -> int:
+        return self.clusters * self.cluster
+
+    def c_args(self) -> tuple[int, ...]:
+        """What the C launcher takes; it lays out the shared bytes itself."""
+        return self.cluster, self.units, self.btile, self.ksplit
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def rec_smem_bytes(hidden: int, units: int, btile: int, ksplit: int, bf16: bool) -> int:
+    """Shared bytes of one recurrence CTA, as `rec_layout` in lstm_fused.cu
+    lays them out at launch: the wh slice, two parity buffers of h for the
+    whole layer, the xw ring of two steps, the partial gates and c.  The plan
+    uses it to choose a layout that fits."""
+    g, kp, size = 4 * units, _align16(hidden), 2 if bf16 else 4
+    wh = g * kp * size  # depth padded to 16 with zero rows
+    hs = 2 * btile * (kp + 8) * size  # rows padded by 8
+    ring = 2 * btile * g * size
+    return sum(map(_align16, (wh, hs, ring, ksplit * btile * g * 4, btile * units * 4)))
+
+
+def launch_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132) -> LaunchPlan:
+    """The recurrence's launch plan for a layer of `hidden` units at `batch`.
+
+    Cluster size: 16 while its clusters fill at most half the SMs (half
+    the work per CTA and step; a cluster of 16 needs 16 free SMs in one
+    GPC, and more such clusters than fit wait: PERF.md has the H100's times
+    of both sizes), then 8, then 16 again: the first whose wh slice fits a
+    CTA's shared memory.  Batch tile: the smallest whose clusters x CTAs fit `sm_count`
+    SMs (else the largest), or 8 where the wider one does not fit the
+    memory.  Depth split: as deep as the shared memory allows, up to 4
+    slices of whole 16-deep k-steps for bf16 (a warp per 16-column mma
+    tile and slice, 512 threads at most) and 16 slices of at least 8 rows
+    for f32 (a thread per 4 columns and slice, 256 threads at most), and
+    deep enough that a thread runs at most 4 cells.  Raises ValueError when
+    no cluster size fits."""
+    bf16 = compute_dtype == torch.bfloat16
+    per_unit = 8 if bf16 else 1  # threads per unit and depth slice
+    kp = _align16(hidden)
+    most = kp // 16 if bf16 else kp // 4  # slices of one k-step, or of 4 rows
+    want = min(4, most) if bf16 else min(16, kp // 8)
+    target = 512 if bf16 else 256
+    sizes = CLUSTER_SIZES
+    if 2 * _cdiv(batch, BATCH_TILES[0]) * 16 <= sm_count // 2:
+        sizes = (16, *CLUSTER_SIZES)
+    for size in sizes:
+        units = 4 * _cdiv(_cdiv(hidden, size), 4)
+        n_cta = _cdiv(hidden, units)
+        fits_sms = next((bt for bt in BATCH_TILES if 2 * _cdiv(batch, bt) * n_cta <= sm_count),
+                        BATCH_TILES[-1])
+        # that tile first, then the smallest, which needs the least memory
+        for btile in sorted({fits_sms, BATCH_TILES[0]}, reverse=True):
+            # a thread runs the cell of at most REC_ITEMS_MAX (row, unit) pairs
+            least = _cdiv(btile, REC_ITEMS_MAX * per_unit)
+            ksplit = max(least, min(want, target // (per_unit * units)))
+            while (ksplit > least
+                   and rec_smem_bytes(hidden, units, btile, ksplit, bf16) > SMEM_PER_CTA):
+                ksplit //= 2
+            ksplit = max(ksplit, least)
+            smem = rec_smem_bytes(hidden, units, btile, ksplit, bf16)
+            threads = per_unit * units * ksplit
+            if smem <= SMEM_PER_CTA and threads <= REC_THREADS_MAX and ksplit <= most:
+                return LaunchPlan(n_cta, units, btile, ksplit, threads, smem,
+                                  2 * _cdiv(batch, btile))
+    raise ValueError(
+        f"hidden={hidden} ({compute_dtype}): a CTA's slice of wh does not fit "
+        f"{SMEM_PER_CTA} bytes of shared memory at a cluster of {size}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # ---------------------------------------------------------------- kernels
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -132,13 +244,15 @@ def bilstm_fused_proj(xt, wx, b, wh, out_dtype=torch.float32):
     device = check_inputs(
         "bilstm_fused_proj", cd, out_dtype, xt=(xt, cd, xt.shape), wx=(wx, cd, (2, d_in, g4)),
         b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
+    plan = launch_plan(hidden, b_sz, cd, _sm_count(device.index))
+    xw = torch.empty((2, t_len, b_sz, g4), dtype=cd, device=device)  # projection scratch
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
     _build.launch(
         "bilstm_fused_proj", device,
-        xt.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(),
+        xt.data_ptr(), wx.data_ptr(), b.data_ptr(), wh.data_ptr(), xw.data_ptr(),
         out_f.data_ptr(), out_b.data_ptr(), t_len, b_sz, d_in, hidden,
-        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16), *plan.c_args(),
     )
     return out_f, out_b
 
@@ -158,14 +272,16 @@ def bilstm_fused_proj2(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
         "bilstm_fused_proj2", cd, out_dtype, af=(af, cd, af.shape), ab=(ab, cd, af.shape),
         wxa=(wxa, cd, (2, h_in, g4)), wxb=(wxb, cd, (2, h_in, g4)),
         b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
+    plan = launch_plan(hidden, b_sz, cd, _sm_count(device.index))
+    xw = torch.empty((2, t_len, b_sz, g4), dtype=cd, device=device)  # projection scratch
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
     _build.launch(
         "bilstm_fused_proj2", device,
         af.data_ptr(), ab.data_ptr(), wxa.data_ptr(), wxb.data_ptr(),
-        b.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
+        b.data_ptr(), wh.data_ptr(), xw.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
         t_len, b_sz, h_in, hidden,
-        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(cd == torch.bfloat16), int(out_dtype == torch.bfloat16), *plan.c_args(),
     )
     return out_f, out_b
 

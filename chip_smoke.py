@@ -20,14 +20,22 @@ Phases, in order; any failure exits non-zero:
   4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
      its plain version, its bound (the larger of bytes over memory
      bandwidth and operations over peak rate) and a cuDNN yardstick
-     (`torch.nn.LSTM`, timed here only; the port never calls it); plus
-     the 3-layer stack;
+     (`torch.nn.LSTM`, timed here only; the port never calls it), K1 and
+     K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed);
+     K1 under both cluster sizes at B=8 and 32; plus the 3-layer stack;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
-     `avsi_torch.serve.serve` on the GPU; /enhance requests of 48,000 int16
-     samples with a gap at frames 80-146; launch counts of K1 (one per
-     device step) and K2 (two per step); the step's output held against
-     the same step on the CPU (plain kernel versions);
+     `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
+     int16 samples with a gap at frames 80-146 and 10 steps of a full
+     micro-batch, timed before this process first runs the profiler
+     (requests/s, the spread of request and step walls); launch counts of
+     K1 (one per device step) and K2 (two per step), and in one profiled
+     step 3 projection GEMMs and 3 cluster recurrences; K1's and K2's
+     launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2 call
+     profiled at each (the projection GEMM and the cluster recurrence
+     apart); the requests timed again after those 9 profiler sessions;
+     the step's output held against the same step on the CPU (plain
+     kernel versions);
   6. streaming paths, on the same checkpoint: one live stream through the
      service's /stream/open?transcript=1, /stream/<id> (1,536-sample pushes
      of a 48,000-sample utterance with the same gap, f16 video rows) and
@@ -94,7 +102,7 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 T, D1, H = T_FRAMES, 593, 250  # flagship: 257 audio + 136 video + 200 SSNN
 GAP = slice(80, 147)  # frames 80-146: the bench's ~800 ms gap
-N_REQUESTS = 4
+N_REQUESTS, N_STEPS = 16, 10  # timed /enhance requests; timed steps of a full micro-batch
 TRAIN_BATCH, N_TRAIN, N_VAL, EPOCHS = 32, 96, 32, 2
 CHUNK, LOOK, PUSH, FLEET = 8, 16, 1536, 16  # live streams: C, L, samples per push, fleet B
 W = CHUNK + LOOK  # 24 frames per LC window
@@ -329,7 +337,7 @@ def check_and_time_kernels() -> tuple[dict, dict]:
                     fail(f"{name} {dtype} B={batch} disagrees with its plain version: "
                          f"{err} > {TOL[dtype]}")
                 errs[(name, dtype, batch)] = err
-                ms = time_ms(lambda: run_kernel(name, inp), reps=5)
+                ms = time_ms(lambda: run_kernel(name, inp), reps=20 if name in SERVING else 5)
                 plain_ms = time_ms(lambda: run_kernel(name, inp, plain=True), reps=2, warmup=1)
                 bound_ms, bound_by = bound(name, inp, got, dtype)
                 library_ms = cudnn_ms(name, inp, batch, dtype)
@@ -416,9 +424,33 @@ def request(rng) -> tuple[np.ndarray, np.ndarray]:
     return wave, mask
 
 
+def time_requests(url: str, rng, n: int) -> tuple[list, list]:
+    """`n` /enhance requests of one utterance each, one client in a closed
+    loop.  Returns (replies, wall seconds of each request)."""
+    replies, lat = [], []
+    for _ in range(n):
+        wave, mask = request(rng)
+        body = struct.pack("<ii", AUDIO_LEN, T_FRAMES) + wave.tobytes() + mask.tobytes()
+        req = urllib.request.Request(url + "/enhance", data=body, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies.append(np.frombuffer(r.read(), "<i2"))
+        lat.append(time.perf_counter() - t0)
+    return replies, lat
+
+
+def spread_ms(seconds) -> str:
+    ms = 1e3 * np.asarray(seconds)
+    return f"median {np.median(ms):.1f}, min {ms.min():.1f}, max {ms.max():.1f} ms"
+
+
 def main_path(d: str, device: str = "cuda") -> dict:
-    """Phase 5: serve the flagship on the GPU and answer /enhance requests.
-    Returns the launch counts of this path."""
+    """Phase 5: serve the flagship on the GPU and answer /enhance requests;
+    time the request loop and the step behind it before this process runs
+    any profiler, then profile one step and K1/K2 calls
+    (`fused_plans_and_profiles`) and time the loop again, to show what
+    profiler sessions leave behind in the process's host time.  Returns
+    the launch counts of this path."""
     # defaults: micro_batch 8, phase_recon "gl", gl_iters 30
     server = serve(d, port=0, device=device)
     service = server.service
@@ -432,27 +464,18 @@ def main_path(d: str, device: str = "cuda") -> dict:
     try:
         steps0 = service.n_device_steps
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        replies = []
-        for _ in range(N_REQUESTS):
-            wave, mask = request(rng)
-            body = struct.pack("<ii", AUDIO_LEN, T_FRAMES) + wave.tobytes() + mask.tobytes()
-            req = urllib.request.Request(url + "/enhance", data=body, method="POST")
-            with urllib.request.urlopen(req, timeout=300) as r:
-                replies.append(np.frombuffer(r.read(), "<i2"))
-        req_s = N_REQUESTS / (time.perf_counter() - t0)
+        replies, lat = time_requests(url, rng, N_REQUESTS)
         waves = np.stack([request(rng)[0] for _ in range(service.micro_batch)])
+        waves = waves.astype(np.float32)
         masks = np.ones((service.micro_batch, T_FRAMES), np.float32)
         masks[:, GAP] = 0
-        t0 = time.perf_counter()
-        batch_out = service.enhance_batch(waves.astype(np.float32), masks)
-        utt_s = service.micro_batch / (time.perf_counter() - t0)
+        step_s = []
+        for _ in range(N_STEPS):
+            t0 = time.perf_counter()
+            batch_out = service.enhance_batch(waves, masks)
+            step_s.append(time.perf_counter() - t0)  # the int16 reply is on the host
         counts = dict(_build.launch_counts)
         steps = service.n_device_steps - steps0
-        if device == "cuda":
-            profile(f"one serving step of {service.micro_batch}",
-                    lambda: service.enhance_batch(waves.astype(np.float32), masks))
-
         for out in replies + list(batch_out):
             if out.shape != (AUDIO_LEN,) or out.dtype != np.int16 or not np.any(out):
                 fail(f"bad /enhance reply: shape {out.shape} dtype {out.dtype}")
@@ -460,16 +483,31 @@ def main_path(d: str, device: str = "cuda") -> dict:
                 or any(v for k, v in counts.items() if k not in SERVING)):
             fail(f"launch counts {counts} for {steps} device steps (want K1 1 and K2 2 per "
                  "step, nothing else)")
+        if device == "cuda":
+            names = profile(f"one serving step of {service.micro_batch}",
+                            lambda: service.enhance_batch(waves, masks))
+            if fused_kernel_launches(names) != (3, 3):
+                fail(f"the serving step ran {fused_kernel_launches(names)} projection GEMMs "
+                     "and cluster recurrences, not 3 and 3 (K1 + 2 x K2)")
+            fused_plans_and_profiles()
+            after = time_requests(url, rng, N_REQUESTS)[1]
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             if r.read() != b"ok":
                 fail("/healthz")
         with urllib.request.urlopen(url + "/info", timeout=60) as r:
             info = json.loads(r.read())
-        print(f"serving path: {N_REQUESTS} /enhance requests + 1 batch of {service.micro_batch}, "
-              f"{steps} device steps; launches {counts}; /info {info}", flush=True)
-        print(f"serving path: {req_s:.2f} requests/s (1 utterance each, micro-batch "
-              f"{service.micro_batch}), {utt_s:.2f} utterances/s at a full micro-batch; "
-              f"card {card_line()}", flush=True)
+        print(f"serving path: {N_REQUESTS} /enhance requests + {N_STEPS} batches of "
+              f"{service.micro_batch}, {steps} device steps; launches {counts}; /info {info}",
+              flush=True)
+        print(f"serving path: {N_REQUESTS / sum(lat):.2f} requests/s (1 utterance each, "
+              f"micro-batch {service.micro_batch}; request wall {spread_ms(lat)}); step of "
+              f"{service.micro_batch} unprofiled, wall {spread_ms(step_s)} over {N_STEPS}, "
+              f"{service.micro_batch / np.median(step_s):.2f} utterances/s; card {card_line()}",
+              flush=True)
+        if device == "cuda":
+            print(f"serving path: after 9 profiler sessions (the step, then K1 and K2 at 2 "
+                  f"batches x 2 dtypes), {N_REQUESTS / sum(after):.2f} requests/s (request "
+                  f"wall {spread_ms(after)})", flush=True)
     finally:
         server.shutdown()
         server.server_close()
@@ -477,9 +515,10 @@ def main_path(d: str, device: str = "cuda") -> dict:
     return counts
 
 
-def profile(label: str, fn, top: int = 12) -> None:
+def profile(label: str, fn, top: int = 12) -> dict:
     """Where one step's time goes: torch.profiler's device time per kernel
-    name, and the device's busy share of the step's wall time."""
+    name, and the device's busy share of the step's wall time.  Returns the
+    launches per kernel name."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -497,6 +536,83 @@ def profile(label: str, fn, top: int = 12) -> None:
           f"{sum(r[1] for r in rows)} kernel launches", flush=True)
     for ms, count, key in rows[:top]:
         print(f"profile:   {ms:8.2f} ms {count:6d}x  {key[:100]}", flush=True)
+    return {key: count for _, count, key in rows}
+
+
+def fused_kernel_launches(counts: dict) -> tuple[int, int]:
+    """Launches of K1/K2's projection GEMM and cluster recurrence among a
+    profile's kernel names."""
+    return (sum(n for k, n in counts.items() if "proj_gemm" in k),
+            sum(n for k, n in counts.items() if "rec_cluster" in k))
+
+
+def cluster_sizes_compared() -> None:
+    """Phase 4: K1 at B=8 and 32, f32 and bf16, under the cluster size its
+    plan takes on this card and under the other one, which the plan takes
+    for a card of another SM count (60: clusters of 8 at B=8; 256: clusters
+    of 16 at B=32): the times behind `launch_plan`'s rule.  Each run is
+    held against the plain version."""
+    name, sm_count = "bilstm_fused_proj", lstm_fused._sm_count
+    try:
+        for batch, other in ((8, 60), (32, 256)):
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = kernel_inputs(name, batch, dtype)
+                want = run_kernel(name, inp, plain=True)
+                times = {}
+                for sms in (sm_count(0), other):
+                    lstm_fused._sm_count = lambda index, sms=sms: sms
+                    err = max_err(name, run_kernel(name, inp), want)
+                    if err > TOL[dtype]:
+                        fail(f"K1 planned for {sms} SMs disagrees with its plain version: {err}")
+                    cluster = lstm_fused.launch_plan(H, batch, dtype, sms).cluster
+                    times[cluster] = time_ms(lambda: run_kernel(name, inp), reps=20)
+                print(f"cluster sizes K1 B={batch} {str(dtype)[6:]}: "
+                      + ", ".join(f"{c} CTAs {ms:.3f} ms" for c, ms in times.items())
+                      + " (the first is this card's plan)", flush=True)
+    finally:
+        lstm_fused._sm_count = sm_count
+
+
+def fused_plans_and_profiles() -> None:
+    """Phase 5: the launch plan K1 and K2 take at each timed batch and
+    dtype, and one K1 and one K2 call profiled at each, so the
+    projection's and the recurrence's device times show apart."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch in BATCHES["bilstm_fused_proj"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = lstm_fused.launch_plan(H, batch, dtype, sms)
+            print(f"plan K1/K2 H={H} B={batch} {str(dtype)[6:]}: {plan}, {plan.ctas} CTAs "
+                  f"of {sms} SMs", flush=True)
+            for name in SERVING:
+                inp = kernel_inputs(name, batch, dtype)
+                run_kernel(name, inp)
+                for attempt in (1, 2):
+                    names = profile(f"one {KERNELS[name][0]} {name} call, B={batch} "
+                                    f"{str(dtype)[6:]}", lambda: run_kernel(name, inp), top=2)
+                    if fused_kernel_launches(names) == (1, 1):
+                        break
+                    # the trace has been seen to fold the GEMM's record into the
+                    # recurrence's (one record, the two kernels' time); the launch
+                    # counters show both ran
+                    print(f"profile: {fused_kernel_launches(names)} GEMM and recurrence "
+                          f"records, not (1, 1){'; profiling again' if attempt == 1 else ''}",
+                          flush=True)
+                else:
+                    fail(f"{name} ran {names}, not one projection GEMM and one cluster "
+                         "recurrence")
+
+
+def cudnn_comparisons(rows: dict) -> None:
+    """K1 and K2 against their cuDNN yardstick at B=8 and 32, f32 and bf16:
+    8 comparisons, printed (a loss is recorded, not fatal)."""
+    for name in SERVING:
+        for batch in BATCHES[name]:
+            for dtype in (torch.float32, torch.bfloat16):
+                r = rows[(name, dtype, batch)]
+                verdict = "faster" if r["ms"] < r["library_ms"] else "SLOWER"
+                print(f"vs cuDNN {KERNELS[name][0]} B={batch} {str(dtype)[6:]}: kernel "
+                      f"{r['ms']:.3f} ms, cuDNN {r['library_ms']:.3f} ms, "
+                      f"{r['library_ms'] / r['ms']:.2f}x: {verdict}", flush=True)
 
 
 def reference_check(d: str, devices=("cuda", "cpu")) -> None:
@@ -882,6 +998,8 @@ def main() -> int:
 
     resolve_device()  # float32 products in full float32 (no TF32)
     errs, rows = check_and_time_kernels()
+    cudnn_comparisons(rows)
+    cluster_sizes_compared()
     check_coincide()
     for batch in (8, TRAIN_BATCH):
         check_layer_grads(batch)

@@ -29,42 +29,108 @@ def _w(gen, *shape, scale):
     return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(20, 2, 40, 24), (250, 8, 593, 250)])
-def test_k1_kernel_matches_plain(dtype, shape):
+# K1/K2 at every batch tile shape (B=1 and 3 ragged in one tile, 13 over two
+# tiles, 32 four full ones), unit splits that are ragged for clusters of 8 and
+# 16 (H=24: 6 CTAs of 4 units; H=250: 7 of 32 and one of 26), and T from one
+# step to the flagship's 250; (compute dtype, out_dtype) as the stack uses them.
+FUSED_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+FUSED_SHAPES = [(t, b, h) for h in (24, 250) for t in (1, 20, 250) for b in (1, 3, 8, 13, 32)]
+# K2 at (T, B, Hin, H): the shapes above with Hin = H, then input widths
+# other than H (K2's GEMM depth is 2 Hin, with the seam between af and ab at
+# Hin): narrower, wider, and odd, so that bf16 rows start off 4-byte
+# alignment and the runs across the seam are read element by element.
+K2_SHAPES = [(t, b, h, h) for t, b, h in FUSED_SHAPES] + [
+    (20, 2, 16, 24), (20, 8, 250, 24), (20, 3, 17, 24), (20, 13, 33, 250), (250, 8, 251, 250)]
+
+
+def _fused_check(got, want, dtype):
+    """The outputs against the plain version: dtypes, shapes and values."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtypes", FUSED_DTYPES, ids=lambda d: f"{str(d[0])[6:]}-{str(d[1])[6:]}")
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=lambda s: "T{}-B{}-H{}".format(*s))
+def test_k1_kernel_matches_plain(dtypes, shape):
     _need_cuda()
-    t, b, d, h = shape
+    (dtype, out_dtype), (t, b, h) = dtypes, shape
+    d = 593 if h == 250 else 40
     gen = torch.Generator().manual_seed(0)
     x = _w(gen, t, b, d, scale=2.0).to(dtype)
     wx = _w(gen, 2, d, 4 * h, scale=h ** -0.5).to(dtype)
     wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
     bias = _w(gen, 2, 4 * h, scale=0.1)
-    before = _build.launch_counts["bilstm_fused_proj"]
-    got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh, out_dtype=dtype)
+    before = dict(_build.launch_counts)
+    got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert _build.launch_counts["bilstm_fused_proj"] == before + 1
-    want = lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh, out_dtype=dtype)
-    for g, w in zip(got, want):
-        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+    assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
+        "bilstm_fused_proj": 1}
+    want = lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh, out_dtype=out_dtype)
+    _fused_check(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(20, 2, 16, 24), (250, 8, 250, 250)])
-def test_k2_kernel_matches_plain(dtype, shape):
-    _need_cuda()
+def _k2_id(shape):
     t, b, h_in, h = shape
+    return f"T{t}-B{b}-H{h}" + ("" if h_in == h else f"-Hin{h_in}")
+
+
+@pytest.mark.parametrize("dtypes", FUSED_DTYPES, ids=lambda d: f"{str(d[0])[6:]}-{str(d[1])[6:]}")
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=_k2_id)
+def test_k2_kernel_matches_plain(dtypes, shape):
+    _need_cuda()
+    (dtype, out_dtype), (t, b, h_in, h) = dtypes, shape
     gen = torch.Generator().manual_seed(1)
-    af = _w(gen, t, b, h_in, scale=1.0).to(dtype)
-    ab = _w(gen, t, b, h_in, scale=1.0).to(dtype)
-    wxa = _w(gen, 2, h_in, 4 * h, scale=h ** -0.5).to(dtype)
-    wxb = _w(gen, 2, h_in, 4 * h, scale=h ** -0.5).to(dtype)
+    af = torch.tanh(_w(gen, t, b, h_in, scale=2.0)).to(dtype)
+    ab = torch.tanh(_w(gen, t, b, h_in, scale=2.0)).to(dtype)
+    wxa = _w(gen, 2, h_in, 4 * h, scale=h_in ** -0.5).to(dtype)
+    wxb = _w(gen, 2, h_in, 4 * h, scale=h_in ** -0.5).to(dtype)
     wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
     bias = _w(gen, 2, 4 * h, scale=0.1)
-    got = lstm_fused.bilstm_fused_proj2(af, ab, wxa, wxb, bias, wh)
+    before = dict(_build.launch_counts)
+    got = lstm_fused.bilstm_fused_proj2(af, ab, wxa, wxb, bias, wh, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    want = lstm_fused.bilstm_fused_proj2_plain(af, ab, wxa, wxb, bias, wh)
-    for g, w in zip(got, want):
-        assert (g - w).abs().max().item() <= TOL[dtype]
+    assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
+        "bilstm_fused_proj2": 1}
+    want = lstm_fused.bilstm_fused_proj2_plain(af, ab, wxa, wxb, bias, wh, out_dtype=out_dtype)
+    _fused_check(got, want, dtype)
+
+
+def test_k1_cluster_of_16_matches_plain():
+    """The non-portable cluster of 16 (16 units per CTA, the last 10) that
+    `launch_plan` takes at the serving batch, f32 and bf16, at the flagship
+    shape."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _w(gen, 250, 8, 593, scale=2.0).to(dtype)
+        wx = _w(gen, 2, 593, 1000, scale=250 ** -0.5).to(dtype)
+        wh = _w(gen, 2, 250, 1000, scale=250 ** -0.5).to(dtype)
+        bias = _w(gen, 2, 1000, scale=0.1)
+        assert lstm_fused.launch_plan(250, 8, dtype).cluster == 16
+        got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh)
+        want = lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh)
+        _fused_check(got, want, dtype)
+
+
+def test_k1_plans_of_both_cluster_sizes_alternate():
+    """Plans with less and with more shared memory (B=8: clusters of 16;
+    B=32: clusters of 8; then B=8 again, at the flagship width, f32) launch
+    in turn in one process: the launcher's once-per-plan setup must not
+    leave a kernel capped at a smaller plan's shared memory."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(9)
+    wx = _w(gen, 2, 593, 1000, scale=250 ** -0.5)
+    wh = _w(gen, 2, 250, 1000, scale=250 ** -0.5)
+    bias = _w(gen, 2, 1000, scale=0.1)
+    plans = [lstm_fused.launch_plan(250, b, torch.float32) for b in (8, 32)]
+    assert [p.cluster for p in plans] == [16, 8] and plans[0].smem_bytes < plans[1].smem_bytes
+    for b in (8, 32, 8):
+        x = _w(gen, 20, b, 593, scale=2.0)
+        want = lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh)
+        _fused_check(lstm_fused.bilstm_fused_proj(x, wx, bias, wh), want, torch.float32)
 
 
 def test_kernel_wrapper_rejects_bad_inputs():
