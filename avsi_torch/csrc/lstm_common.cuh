@@ -1,10 +1,8 @@
 // Device helpers shared by the port's LSTM kernels (lstm_fused.cu, lstm_train.cu).
 //
-// One definition of the casts and of the recurrent dot product, so that every
-// kernel that recomputes a gate pre-activation (K3 in the training forward, K4
-// in the reverse walk, K5 and K6) sums the same terms in the same order and
-// gets the same f32 value bit for bit.  K1/K2 (lstm_fused.cu) share the casts
-// and the cell's sigmoid; their products are their own.
+// One definition of the casts and of the cell's sigmoid for every kernel, and
+// the column dot product of K4's reverse walk (the recurrence K1/K2/K3/K5/K6
+// share computes its product in lstm_cluster.cuh).
 
 #pragma once
 

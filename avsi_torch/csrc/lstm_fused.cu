@@ -39,106 +39,29 @@
 //    593-wide row of x is not 16-byte aligned, which rules out cp.async of
 //    whole runs, and TMA needs 16-byte strides.
 //
-// 2. rec_cluster: the recurrence, one thread-block cluster of N CTAs per
-//    (direction, batch tile).  The cluster splits the H hidden units; each CTA
-//    owns all four gates of U units (U*4 gate columns), so its cell is local.
-//    Today's costs and what this does about each:
+// 2. rec_cluster (lstm_cluster.cuh, shared with K3/K5/K6): the recurrence,
+//    one thread-block cluster of N CTAs per (direction, batch tile), reading
+//    the scratch above (XwLayout::kUnitMajor).  The first design's costs (a
+//    block per direction and batch row) and what the cluster does about each:
 //    - wh was re-read from L2 by every block on every step (~3 MB a step): each
 //      CTA now loads its (H x 4U) slice of wh[d] into shared memory once and
-//      keeps it for all T steps (128 KB f32, 64 KB bf16 at H=250, N=8).
+//      keeps it for all T steps.
 //    - one block per batch row, weights never shared between rows: a CTA
 //      serves a whole batch tile (8 or 16 rows) from one read of its slice.
 //    - 16 of 132 SMs busy at B=8: N=16 CTAs per cluster there (32 SMs, half
 //      the product per CTA), N=8 at larger batches; clusters x N <= SMs.
-//    - the product ran on the FMA pipes one column at a time: in bf16 it is
-//      mma.sync.m16n8k16 with A = the slice transposed (stored in the mma's
-//      fragment order, one 16-byte shared load per fragment) and B = h^T
-//      (N = 8 batch rows); in f32 a thread owns four gate columns and the
-//      tile's rows in registers and reads each wh element once per step.  The
-//      depth is split over thread groups and summed in shared memory.
+//    - the product ran on the FMA pipes one column at a time: mma.sync in
+//      bf16, four gate columns x the tile's rows per thread in f32.
 //    - each step re-staged x: the step's xw rows for the next step arrive in a
 //      two-stage ring by cp.async while this step's product runs.
-//    Per step: product, cell (c stays in the CTA), round_cd(h) of the CTA's
-//    units written into every peer's h buffer through distributed shared memory
-//    (double-buffered by step parity), one cluster barrier (arrive.release,
-//    then h written out, then wait.acquire).  No trip through global memory.
-//    The launch plan (N, U, batch tile, depth split) comes from
-//    avsi_torch/ops/lstm_fused.py:launch_plan; the launcher lays out the shared
-//    memory (rec_layout, which the plan mirrors to choose a layout that fits),
-//    checks the plan with cudaOccupancyMaxActiveClusters and returns the CUDA
-//    error of a plan that cannot be scheduled.
-
-#include <cooperative_groups.h>
+//    h crosses SMs through distributed shared memory, one cluster barrier
+//    per step; no trip through global memory.
 
 #include <cstdint>
-#include <mutex>
-#include <set>
-#include <tuple>
 
-#include "lstm_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "lstm_cluster.cuh"
 
 namespace {
-
-constexpr int kRecThreadsMax = 512;  // bf16; f32 takes at most 256 (more registers)
-template <typename T>
-constexpr int rec_threads_max() { return sizeof(T) == 2 ? kRecThreadsMax : kRecThreadsMax / 2; }
-constexpr int kRecItemsMax = 4;  // (row, unit) cells per thread: U * BT <= 4 * threads
-constexpr int kWarp = 32;
-
-// ------------------------------------------------------------ small helpers
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A . B for one m16n8k16 tile: bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
-               "n"(kBytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// Four consecutive values (16-byte aligned f32, 8-byte aligned bf16) as f32.
-__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-}
-__device__ __forceinline__ void load4(float (&v)[4], const __nv_bfloat16* p) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
-  v[0] = __low2float(lo), v[1] = __high2float(lo), v[2] = __low2float(hi), v[3] = __high2float(hi);
-}
 
 // ------------------------------------------------------------ projection GEMM
 //
@@ -397,280 +320,7 @@ __global__ void __launch_bounds__(kBThreads, 2) proj_gemm_bf16(ProjArgs p) {
   }
 }
 
-// ------------------------------------------------------------ cluster recurrence
-
-struct RecArgs {
-  const void* xw;  // (2, T*B, 4H) compute dtype, unit-major gate columns
-  const void* wh;  // (2, H, 4H) compute dtype
-  void* out_f;
-  void* out_b;
-  int t_len, batch, hidden, units, ksplit;
-};
-
-// Byte offsets of the recurrence's shared buffers (16-byte aligned each);
-// avsi_torch/ops/lstm_fused.py:rec_smem_bytes mirrors the total for the plan.
-struct RecLayout {
-  size_t wh, hs, ring, gs, cs, total;
-};
-
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
-__host__ __device__ inline int padded_depth(int hidden) { return (hidden + 15) / 16 * 16; }
-
-template <typename T>
-__host__ __device__ inline RecLayout rec_layout(int hidden, int units, int bt, int ksplit) {
-  const size_t g = 4 * (size_t)units;
-  const size_t kp = padded_depth(hidden);
-  RecLayout l;
-  l.wh = 0;  // f32: [kp][4U]; bf16: mma A fragments of [4U][kp]; zero past H
-  l.hs = l.wh + align16(g * kp * sizeof(T));
-  // two parity buffers of round_cd(h) for the whole layer, [bt][kp + 8] each
-  l.ring = l.hs + align16(2 * bt * (kp + 8) * sizeof(T));
-  l.gs = l.ring + align16(2 * bt * g * sizeof(T));  // xw ring [2][bt][4U]
-  l.cs = l.gs + align16((size_t)ksplit * bt * g * 4);  // partial gates [ksplit][bt][4U]
-  l.total = l.cs + align16((size_t)bt * units * 4);    // c [bt][U]
-  return l;
-}
-
-// One CTA of the cluster for (direction blockIdx.y, batch tile blockIdx.x / N):
-// gate columns of units [rank*U, rank*U + nu), rows [b0, b0 + BT) of the batch.
-template <typename T, typename O, int BT>
-__global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int n_cta = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
-  const int dir = blockIdx.y, b0 = (blockIdx.x / n_cta) * BT;
-  const int H = p.hidden, U = p.units, G = 4 * U, u0 = rank * U;
-  const int nu = max(0, min(U, H - u0));
-  const int kp = padded_depth(H), ksteps = kp / 16, mt_n = G / 16;
-  const int hrow = kp + 8, h_buf = BT * hrow;  // h row stride; elements per parity buffer
-  const size_t g4 = 4 * (size_t)H;
-  const RecLayout lay = rec_layout<T>(H, U, BT, p.ksplit);
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* whs = reinterpret_cast<T*>(smem + lay.wh);
-  T* hs = reinterpret_cast<T*>(smem + lay.hs);
-  T* ring = reinterpret_cast<T*>(smem + lay.ring);
-  float* gs = reinterpret_cast<float*>(smem + lay.gs);
-  float* cs = reinterpret_cast<float*>(smem + lay.cs);
-  const T* wh = static_cast<const T*>(p.wh) + (size_t)dir * H * g4;
-  const T* xw = static_cast<const T*>(p.xw) + (size_t)dir * p.t_len * p.batch * g4;
-  O* out = static_cast<O*>(dir == 0 ? p.out_f : p.out_b);
-  const int tid = threadIdx.x, nthr = blockDim.x, items = U * BT;
-
-  // the slice of wh[d], column c = lu * 4 + gate <- wh[d][k][gate * H + u0 + lu]
-  auto wh_at = [&](int c, int k) -> T {
-    const int lu = c / 4;
-    return (lu < nu && k < H) ? wh[(size_t)k * g4 + (c % 4) * H + u0 + lu] : from_f32<T>(0.0f);
-  };
-  if constexpr (kBf16) {  // fragment (mt, kstep, lane) of A = slice^T, one uint4 each
-    uint4* frag = reinterpret_cast<uint4*>(whs);
-    for (int i = tid; i < mt_n * ksteps * kWarp; i += nthr) {
-      const int lane = i % kWarp, ks = (i / kWarp) % ksteps, mt = i / kWarp / ksteps;
-      const int r = mt * 16 + lane / 4, k = ks * 16 + 2 * (lane % 4);
-      frag[i] = make_uint4(pack_bf16(wh_at(r, k), wh_at(r, k + 1)),
-                           pack_bf16(wh_at(r + 8, k), wh_at(r + 8, k + 1)),
-                           pack_bf16(wh_at(r, k + 8), wh_at(r, k + 9)),
-                           pack_bf16(wh_at(r + 8, k + 8), wh_at(r + 8, k + 9)));
-    }
-  } else {
-    for (int i = tid; i < kp * G; i += nthr) whs[i] = wh_at(i % G, i / G);
-  }
-  for (int i = tid; i < 2 * h_buf; i += nthr) hs[i] = from_f32<T>(0.0f);  // h0 = 0, pads 0
-  for (int i = tid; i < items; i += nthr) cs[i] = 0.0f;
-
-  // item i = (row r = i / U, unit lu = i % U): its four gates of xw are one
-  // 16-byte (f32) or 8-byte (bf16) run; the thread that copies it reads it.
-  auto prefetch = [&](int s) {
-    const int t = dir == 0 ? s : p.t_len - 1 - s;
-    T* stage = ring + (s & 1) * BT * G;
-    for (int i = tid; i < items; i += nthr) {
-      const int lu = i % U, r = i / U;
-      if (lu < nu && b0 + r < p.batch) {
-        cp_async<4 * sizeof(T)>(stage + r * G + lu * 4,
-                                xw + ((size_t)t * p.batch + b0 + r) * g4 + (size_t)(u0 + lu) * 4);
-      }
-    }
-    cp_async_commit();
-  };
-  prefetch(0);
-  cluster.sync();  // every CTA runs and has zeroed its h buffers before any peer writes
-
-  for (int s = 0; s < p.t_len; ++s) {
-    const int t = dir == 0 ? s : p.t_len - 1 - s;
-    if (s + 1 < p.t_len) {
-      prefetch(s + 1);
-    } else {
-      cp_async_commit();
-    }
-    const T* h_cur = hs + (s & 1) * h_buf;
-    T* h_next = hs + ((s + 1) & 1) * h_buf;
-
-    // (b) partial gates over depth slice ks: gs[ks][r][c] = sum_k round_cd(h)[r][k] wh[k][c]
-    if constexpr (kBf16) {
-      const int lane = tid % kWarp, g = lane / 4, tg = lane % 4;
-      const uint4* frag = reinterpret_cast<const uint4*>(whs);
-      for (int w = tid / kWarp; w < mt_n * p.ksplit; w += nthr / kWarp) {
-        const int mt = w % mt_n, ks = w / mt_n;
-        float acc[BT / 8][4] = {};
-        for (int kk = ks; kk < ksteps; kk += p.ksplit) {
-          const uint4 f = frag[(mt * ksteps + kk) * kWarp + lane];
-          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-          for (int nt = 0; nt < BT / 8; ++nt) {
-            const T* hr = h_cur + (nt * 8 + g) * hrow + kk * 16 + 2 * tg;
-            mma_bf16(acc[nt], a, ld_u32(hr), ld_u32(hr + 8));
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < BT / 8; ++nt) {
-          float* o = gs + (ks * BT + nt * 8 + 2 * tg) * G + mt * 16 + g;
-          o[0] = acc[nt][0];
-          o[G] = acc[nt][1];
-          o[8] = acc[nt][2];
-          o[G + 8] = acc[nt][3];
-        }
-      }
-    } else {
-      // thread (column quad cq, depth slice ks): 4 columns x BT rows in
-      // registers; per 4 k one float4 of wh per k and one broadcast float4 of
-      // h per row, so each h read feeds 16 multiply-adds
-      const int k_chunk = (kp / 4 + p.ksplit - 1) / p.ksplit * 4;  // whole float4s
-      for (int w = tid; w < U * p.ksplit; w += nthr) {
-        const int cq = w % U, ks = w / U, k_hi = min(kp, (ks + 1) * k_chunk);
-        float acc[BT][4] = {};
-        for (int k = ks * k_chunk; k < k_hi; k += 4) {
-          float wv[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) load4(wv[kk], whs + (k + kk) * G + cq * 4);
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            float hv[4];
-            load4(hv, h_cur + r * hrow + k);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[r][j] = fmaf(hv[3], wv[3][j], fmaf(hv[2], wv[2][j],
-                          fmaf(hv[1], wv[1][j], fmaf(hv[0], wv[0][j], acc[r][j]))));
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          *reinterpret_cast<float4*>(gs + (ks * BT + r) * G + cq * 4) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        }
-      }
-    }
-    cp_async_wait_one();  // (a) this step's xw rows have landed
-    __syncthreads();      // every partial gate is in gs
-
-    // (c) the cell in f32, (d) round_cd(h) into every peer; a warp's lanes
-    // are consecutive units of one row, so its DSMEM stores are contiguous
-    float h_out[kRecItemsMax];
-#pragma unroll
-    for (int j = 0; j < kRecItemsMax; ++j) {
-      const int i = tid + j * nthr, lu = i % U, r = i / U, b = b0 + r;
-      if (i >= items || lu >= nu) continue;
-      float h = 0.0f;  // rows past the batch carry h = 0
-      if (b < p.batch) {
-        float gate[4], prod[4];
-        load4(gate, ring + (s & 1) * BT * G + r * G + lu * 4);  // xw, parity-cast
-        for (int ks = 0; ks < p.ksplit; ++ks) {
-          float part[4];
-          load4(part, gs + (ks * BT + r) * G + lu * 4);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) prod[q] = ks == 0 ? part[q] : prod[q] + part[q];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gate[q] += prod[q];
-        const float c = sigmoid(gate[1]) * cs[r * U + lu] + sigmoid(gate[0]) * tanhf(gate[2]);
-        h = sigmoid(gate[3]) * tanhf(c);
-        cs[r * U + lu] = c;
-      }
-      h_out[j] = h;
-      const T hv = from_f32<T>(h);
-      for (int q = 0; q < n_cta; ++q) cluster.map_shared_rank(h_next, q)[r * hrow + u0 + lu] = hv;
-    }
-    // (f) one cluster barrier per step: arrive releases the DSMEM stores; the
-    // peers' h is visible, and nobody reads this step's buffers, after wait.
-    // (e) h goes out to global memory between the two, off the release.
-    // After the last step the barrier is the cluster sync before exit: no
-    // peer writes into this CTA's shared memory after it.
-    cluster_arrive();
-#pragma unroll
-    for (int j = 0; j < kRecItemsMax; ++j) {
-      const int i = tid + j * nthr, lu = i % U, b = b0 + i / U;
-      if (i < items && lu < nu && b < p.batch) {
-        out[((size_t)t * p.batch + b) * H + u0 + lu] = from_f32<O>(h_out[j]);
-      }
-    }
-    cluster_wait();
-  }
-}
-
 // ------------------------------------------------------------ launchers
-
-template <typename T, typename O, int BT>
-int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
-  auto kernel = rec_cluster<T, O, BT>;
-  const int threads = (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit;
-  if (cluster < 1 || cluster > 16 || p.units % 4 != 0 || p.ksplit < 1 ||
-      threads > rec_threads_max<T>() || p.units * BT > kRecItemsMax * threads ||
-      (sizeof(T) == 4 && 4 * p.ksplit > padded_depth(p.hidden)) ||
-      (long)cluster * p.units < p.hidden) {
-    return (int)cudaErrorInvalidValue;  // not a plan of launch_plan's
-  }
-  const size_t smem = rec_layout<T>(p.hidden, p.units, BT, p.ksplit).total;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * ((p.batch + BT - 1) / BT), 2, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // Once per device: opt the kernel in to the card's largest dynamic shared
-  // memory (an upper bound, so every plan's size fits under it) and to
-  // clusters of 16.  Once per (device, plan): check that one cluster of the
-  // plan fits the card.  The occupancy query costs more host time than the
-  // launch, and the serving loop is host-bound.
-  static std::mutex mutex;
-  static std::set<int> ready;
-  static std::set<std::tuple<int, int, int, size_t>> checked;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  const auto key = std::make_tuple(device, cluster, threads, smem);
-  {
-    std::lock_guard<std::mutex> lock(mutex);
-    if (!ready.count(device)) {
-      int optin = 0;
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-      if (err == cudaSuccess) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-      }
-      if (err == cudaSuccess) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      }
-      if (err != cudaSuccess) return (int)err;
-      ready.insert(device);
-    }
-    if (!checked.count(key)) {
-      int active = 0;
-      err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-      if (err != cudaSuccess) return (int)err;
-      if (active < 1) return (int)cudaErrorLaunchOutOfResources;  // no cluster of this plan fits
-      checked.insert(key);
-    }
-  }
-  return (int)cudaLaunchKernelEx(&cfg, kernel, p);
-}
-
-struct Plan {
-  int cluster, units, btile, ksplit;
-};
 
 template <typename T, typename O>
 int launch_layer(const ProjArgs& proj, const RecArgs& rec, const Plan& plan, cudaStream_t s) {
@@ -685,15 +335,11 @@ int launch_layer(const ProjArgs& proj, const RecArgs& rec, const Plan& plan, cud
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (plan.btile == 8) return launch_rec<T, O, 8>(rec, plan.cluster, s);
-  if (plan.btile == 16) return launch_rec<T, O, 16>(rec, plan.cluster, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_rec_plan<T, O, XwLayout::kUnitMajor>(rec, plan, s);
 }
 
-int dispatch(const ProjArgs& proj, RecArgs rec, const Plan& plan, int in_bf16, int out_bf16,
-             void* stream) {
-  rec.units = plan.units;
-  rec.ksplit = plan.ksplit;
+int dispatch(const ProjArgs& proj, const RecArgs& rec, const Plan& plan, int in_bf16,
+             int out_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!in_bf16 && !out_bf16) return launch_layer<float, float>(proj, rec, plan, s);
   if (in_bf16 && out_bf16) return launch_layer<__nv_bfloat16, __nv_bfloat16>(proj, rec, plan, s);
@@ -707,15 +353,18 @@ extern "C" {
 
 // K1: x (T,B,D); wx (2,D,4H); b (2,4H) f32; wh (2,H,4H); xw scratch (2,T,B,4H)
 // at the compute dtype; outs (T,B,H) each; the plan of launch_plan (cluster,
-// units, batch tile, depth split; the shared bytes follow from rec_layout).
+// units, batch tile, depth split, resident depth rows; the shared bytes follow
+// from rec_layout).
 // Returns the first CUDA error of the two launches (0 on success).
 int avsi_bilstm_fused_proj(const void* x, const void* wx, const float* b, const void* wh,
                            void* xw, void* out_f, void* out_b, int t_len, int batch,
                            int d_in, int hidden, int in_bf16, int out_bf16, int cluster,
-                           int units, int btile, int ksplit, void* stream) {
+                           int units, int btile, int ksplit, int resident,
+                           void* stream) {
   const ProjArgs proj{x, nullptr, wx, nullptr, b, xw, t_len * batch, d_in, 0, hidden};
-  const RecArgs rec{xw, wh, out_f, out_b, t_len, batch, hidden, 0, 0};
-  return dispatch(proj, rec, Plan{cluster, units, btile, ksplit}, in_bf16, out_bf16, stream);
+  const RecArgs rec{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const Plan plan{cluster, units, btile, ksplit, resident};
+  return dispatch(proj, rec, plan, in_bf16, out_bf16, stream);
 }
 
 // K2: af, ab (T,B,Hin); wxa, wxb (2,Hin,4H); b (2,4H) f32; wh (2,H,4H); the rest as K1.
@@ -723,10 +372,11 @@ int avsi_bilstm_fused_proj2(const void* af, const void* ab, const void* wxa, con
                             const float* b, const void* wh, void* xw, void* out_f,
                             void* out_b, int t_len, int batch, int h_in, int hidden,
                             int in_bf16, int out_bf16, int cluster, int units, int btile,
-                            int ksplit, void* stream) {
+                            int ksplit, int resident, void* stream) {
   const ProjArgs proj{af, ab, wxa, wxb, b, xw, t_len * batch, h_in, h_in, hidden};
-  const RecArgs rec{xw, wh, out_f, out_b, t_len, batch, hidden, 0, 0};
-  return dispatch(proj, rec, Plan{cluster, units, btile, ksplit}, in_bf16, out_bf16, stream);
+  const RecArgs rec{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const Plan plan{cluster, units, btile, ksplit, resident};
+  return dispatch(proj, rec, plan, in_bf16, out_bf16, stream);
 }
 
 }  // extern "C"

@@ -8,47 +8,57 @@
 //       streams (the residual of the backward);
 //   K4  bilstm_recurrence_bwd   (_bwd_kernel :599-656, _bwd_dir :563-596): the
 //       reverse walk that writes dgates as dxw and accumulates dWh.
-// And two more instantiations of K3's body (one template, two compile-time
-// switches: read initial carries, write the c streams):
+// And two more instances of K3's body (compile-time switches: read initial
+// carries, write the c streams):
 //   K5  bilstm_recurrence_carry (_kernel_carry, :423-448): K3 with initial
 //       carries hc0 (2=h|c, 2=dir, B, H) f32, the LC-BLSTM window of live
 //       streaming (W = C + L frames; the window layer passes the previous
 //       window's forward state and zeros for the backward direction);
 //   K6  bilstm_recurrence       (_kernel, :121-145): K3 without the c streams.
-// K3, K5 and K6 run the same code per step, so where their functions
-// coincide (zero carries; the h streams) their outputs are bit for bit equal.
-// Not their speed: nvcc schedules K6's dot_col loop with each wh read next to
-// the FMA that consumes it, where K3's and K5's issue eight reads first, and
-// K6 takes about twice K3's time per step (PERF.md).
 //
 // Layouts (the TPU kernels'): xw and dxw are (T, 2, B, 4H) in kernel time, so
-// direction 1 is time-reversed there; h, c and dout are (T, B, H) per direction
-// in ORIGINAL time order.  At kernel step s, direction 0 is at original time s
-// and direction 1 at T-1-s; the previous step (s-1) is at original time s-1 for
-// direction 0 and T-s for direction 1 (zero state at s = 0).
+// direction 1 is time-reversed there, gate-major (column gate*H + u); h, c
+// and dout are (T, B, H) per direction in ORIGINAL time order.  At kernel
+// step s, direction 0 is at original time s and direction 1 at T-1-s; the
+// previous step (s-1) is at original time s-1 for direction 0 and T-s for
+// direction 1 (zero state at s = 0).
 //
 // Numerics (the TPU kernels' function):
-//   K3:  gates = xw_s + round_cd(h_prev) . wh   (f32 sum, dot_col's order, so
-//        the gates are bit for bit those K1/K2 compute from the same xw)
+//   K3:  gates = xw_s + round_cd(h_prev) . wh   (f32 sums)
 //        c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c)     all f32
-//   K4:  the gates are recomputed by the same code as K3, then with
-//        dh = dout_s + dh_rec and the f32 carries dc, dh_rec:
+//   K4:  the gates are recomputed (dot_col's order, lstm_common.cuh: not the
+//        order of K3's split-depth product, so they may differ from K3's in
+//        the last bit), then with dh = dout_s + dh_rec and the f32 carries
+//        dc, dh_rec:
 //        do = dh tanh(c) o(1-o);  dc += dh o (1 - tanh(c)^2)
 //        di = dc g i(1-i);  df = dc c_prev f(1-f);  dg = dc i (1-g^2)
 //        dxw_s = round_cd(dgates);  dh_rec = dxw_s . wh^T;  dc = dc f
 //        dwh[d] = sum over (s, b) of round_cd(h_prev)^T . dxw_s    (f32)
 //
-// Design (first, simple version).  K3 is K1's design without the projection:
-// one block per (direction, batch row), a grid of (2, B); thread j owns gate
-// column j; h is staged in shared memory; wh is read from global memory, where
-// it stays resident in the 50 MB L2.  K5 stages its initial h as
-// round_cd(h0), as the TPU kernel rounds h_prev inside the product (`_cell`
-// :108-110), and its f32 c0 as is; a stream's window is short (W = 24), so at
-// one stream a launch fills 2 of the 132 SMs and its 24 dependent steps set
-// its time.  K4 is split in two launches, because the
-// TPU body's (2, H, 4H) f32 dWh accumulator (2 MB) is carried across the
-// sequential grid in VMEM, which has no Hopper counterpart (an SM has 227 KB,
-// and per-step atomics from 2B blocks onto one accumulator would serialise):
+// K3, K5, K6: the cluster recurrence of K1/K2 (`rec_cluster`,
+// lstm_cluster.cuh), reading xw in this layout (XwLayout::kGateMajor), under
+// the plan of avsi_torch/ops/lstm_fused.py:launch_plan at the call's batch:
+// a cluster of 8 or 16 CTAs per (direction, batch tile of 8 or 16 rows)
+// splits H, each CTA keeps its slice of wh in shared memory for the whole
+// walk, and h crosses SMs through distributed shared memory with one cluster
+// barrier per step.  One launch per call.  It replaced a first design (one
+// 1,024-thread block per (direction, batch row), every step re-reading the
+// whole (H x 4H) wh from L2 through dot_col: 2B blocks, rows never sharing a
+// read of wh).  Its limits are the plan's: a CTA's slice of wh fits 227 KB
+// whole up to f32 H = 416 and bf16 H = 624; wider, the plan keeps its first
+// depth rows in shared memory and the product reads the rest from L2 every
+// step, up to f32 H = 2048 and bf16 H = 1024 (beyond, no plan: the wrappers
+// raise).  K5 fills its h buffers with round_cd(h0), as the
+// TPU kernel rounds h_prev inside the product (`_cell` :108-110), and its c
+// with the f32 c0 as is.  K3, K5 and K6 are one body and take one plan at one
+// batch, so where their functions coincide (zero carries; the h streams)
+// their outputs are bit for bit equal, and equal to K1's recurrence given
+// K1's parity-cast projection as xw.
+//
+// K4 (the first design) is split in two launches, because the TPU body's
+// (2, H, 4H) f32 dWh accumulator (2 MB) is carried across the sequential grid
+// in VMEM, which has no Hopper counterpart (an SM has 227 KB, and per-step
+// atomics from 2B blocks onto one accumulator would serialise):
 //   K4a, the walk: one block per (direction, batch row) stepping s = T-1..0.
 //        Thread j recomputes gate column j; thread k (< H) forms the dgates of
 //        unit k and updates the dc carry; then dh_rec = dgates . wh^T contracts
@@ -58,75 +68,15 @@
 //        16 (s, b) rows at a time, 4 x 4 outputs per thread, f32 sums) over the
 //        h streams K3 wrote, shifted by one step, and the dxw K4a wrote.
 //
-// What bounds it: as for K1, not the work.  The bound (bytes once at 3.35 TB/s,
-// or the products at peak) is far below a design whose every step re-reads
-// the (H x 4H) wh from L2 and walks 250 dependent steps on 2B SMs; K4a reads
-// wh twice per step (gates and dh_rec).  K4b is a plain tiled product whose
-// cost is small beside the walk.  Faster designs (wh split over a cluster with
-// DSMEM, wgmma for the batched products, K4b fused as a split-K epilogue) are
-// later work.
+// What bounds them: not the work.  The bound (bytes once at 3.35 TB/s, or the
+// products at peak) is far below a chain of 250 dependent steps: K3 is set by
+// its per-step latency (product, cell, DSMEM exchange, barrier).  K4a reads
+// wh twice per step (gates and dh_rec) from L2 on 2B SMs; K4b is a plain
+// tiled product whose cost is small beside the walk.
 
-#include "lstm_common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
-
-// ------------------------------------------------------------------ K3, K5, K6
-
-// kCarry: start from hc0 (2=h|c, 2=dir, B, H) f32 instead of zeros (K5).
-// kCellOut: write the f32 cell-state streams c_f/c_b (K3, K5; not K6).
-template <typename T, bool kCarry, bool kCellOut>
-__global__ void __launch_bounds__(1024)
-bilstm_recurrence_kernel(const T* __restrict__ xw, const T* __restrict__ wh,
-                         const float* __restrict__ hc0,
-                         float* __restrict__ out_f, float* __restrict__ out_b,
-                         float* __restrict__ c_f, float* __restrict__ c_b,
-                         int t_len, int batch, int hidden) {
-  const int dir = blockIdx.x;
-  const int row = blockIdx.y;
-  const int g4 = 4 * hidden;
-  extern __shared__ float smem[];
-  float* hs = smem;          // hidden: h rounded to the compute dtype
-  float* cs = hs + hidden;   // hidden: cell state, f32
-  float* gs = cs + hidden;   // g4: gate pre-activations, f32
-
-  wh += (size_t)dir * hidden * g4;
-  float* out = dir == 0 ? out_f : out_b;
-  float* c_out = dir == 0 ? c_f : c_b;
-
-  for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
-    if constexpr (kCarry) {
-      const size_t at = ((size_t)dir * batch + row) * hidden + k;
-      hs[k] = round_to<T>(hc0[at]);
-      cs[k] = hc0[(size_t)2 * batch * hidden + at];
-    } else {
-      hs[k] = 0.0f;
-      cs[k] = 0.0f;
-    }
-  }
-  __syncthreads();
-  for (int s = 0; s < t_len; ++s) {
-    const int t = dir == 0 ? s : t_len - 1 - s;
-    const size_t pos = (size_t)t * batch + row;
-    const T* xrow = xw + (((size_t)s * 2 + dir) * batch + row) * g4;
-    for (int j = threadIdx.x; j < g4; j += blockDim.x) {
-      gs[j] = to_f32<T>(xrow[j]) + dot_col<T>(hs, wh, hidden, g4, j);
-    }
-    __syncthreads();  // all gates ready; nobody reads hs any more
-    for (int k = threadIdx.x; k < hidden; k += blockDim.x) {
-      const float i = sigmoid(gs[k]);
-      const float f = sigmoid(gs[hidden + k]);
-      const float g = tanhf(gs[2 * hidden + k]);
-      const float o = sigmoid(gs[3 * hidden + k]);
-      const float c = f * cs[k] + i * g;
-      const float h = o * tanhf(c);
-      cs[k] = c;
-      hs[k] = round_to<T>(h);
-      out[pos * hidden + k] = h;
-      if constexpr (kCellOut) c_out[pos * hidden + k] = c;
-    }
-    __syncthreads();  // h and c of this step visible before the next
-  }
-}
 
 // ------------------------------------------------------------------ K4a
 
@@ -282,30 +232,15 @@ bilstm_bwd_dwh_kernel(const float* __restrict__ out_f, const float* __restrict__
 
 // ------------------------------------------------------------------ launchers
 
-template <typename T, bool kCarry, bool kCellOut>
-int launch_recurrence(const void* xw, const void* wh, const float* hc0, float* out_f,
-                      float* out_b, float* c_f, float* c_b, int t_len, int batch,
-                      int hidden, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 6 * (size_t)hidden;
-  auto kernel = bilstm_recurrence_kernel<T, kCarry, kCellOut>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(2, batch), gate_threads(hidden), smem, stream>>>(
-      static_cast<const T*>(xw), static_cast<const T*>(wh), hc0, out_f, out_b, c_f,
-      c_b, t_len, batch, hidden);
-  return (int)cudaGetLastError();
-}
-
+// K3, K5, K6: the cluster recurrence over the TPU layout of xw; outputs f32.
 template <bool kCarry, bool kCellOut>
-int recurrence(int in_bf16, const void* xw, const void* wh, const float* hc0,
-               float* out_f, float* out_b, float* c_f, float* c_b, int t_len,
-               int batch, int hidden, void* stream) {
+int recurrence(int in_bf16, const RecArgs& p, const Plan& plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    return launch_recurrence<__nv_bfloat16, kCarry, kCellOut>(
-        xw, wh, hc0, out_f, out_b, c_f, c_b, t_len, batch, hidden, s);
-  return launch_recurrence<float, kCarry, kCellOut>(xw, wh, hc0, out_f, out_b, c_f,
-                                                    c_b, t_len, batch, hidden, s);
+  if (in_bf16) {
+    return launch_rec_plan<__nv_bfloat16, float, XwLayout::kGateMajor, kCarry, kCellOut>(
+        p, plan, s);
+  }
+  return launch_rec_plan<float, float, XwLayout::kGateMajor, kCarry, kCellOut>(p, plan, s);
 }
 
 template <typename T>
@@ -334,29 +269,34 @@ int launch_bwd(const void* xw, const void* wh, const float* out_f, const float* 
 extern "C" {
 
 // K3: xw (T,2,B,4H) and wh (2,H,4H) at the compute dtype; out_f/out_b and
-// c_f/c_b (T,B,H) f32.  Returns the launch's CUDA error.
+// c_f/c_b (T,B,H) f32; the plan of launch_plan (cluster, units, batch tile,
+// depth split, resident depth rows).  Returns the launch's CUDA error.
 int avsi_bilstm_recurrence_train(const void* xw, const void* wh, float* out_f,
                                  float* out_b, float* c_f, float* c_b, int t_len,
-                                 int batch, int hidden, int in_bf16, void* stream) {
-  return recurrence<false, true>(in_bf16, xw, wh, nullptr, out_f, out_b, c_f, c_b,
-                                 t_len, batch, hidden, stream);
+                                 int batch, int hidden, int in_bf16, int cluster, int units,
+                                 int btile, int ksplit, int resident, void* stream) {
+  const RecArgs p{xw, wh, nullptr, out_f, out_b, c_f, c_b, t_len, batch, hidden, 0, 0, 0};
+  const Plan plan{cluster, units, btile, ksplit, resident};
+  return recurrence<false, true>(in_bf16, p, plan, stream);
 }
 
 // K5: K3 from the initial carries hc0 (2, 2, B, H) f32 ([h|c][dir]).
 int avsi_bilstm_recurrence_carry(const void* xw, const void* wh, const float* hc0,
                                  float* out_f, float* out_b, float* c_f, float* c_b,
-                                 int t_len, int batch, int hidden, int in_bf16,
-                                 void* stream) {
-  return recurrence<true, true>(in_bf16, xw, wh, hc0, out_f, out_b, c_f, c_b, t_len,
-                                batch, hidden, stream);
+                                 int t_len, int batch, int hidden, int in_bf16, int cluster,
+                                 int units, int btile, int ksplit, int resident, void* stream) {
+  const RecArgs p{xw, wh, hc0, out_f, out_b, c_f, c_b, t_len, batch, hidden, 0, 0, 0};
+  const Plan plan{cluster, units, btile, ksplit, resident};
+  return recurrence<true, true>(in_bf16, p, plan, stream);
 }
 
 // K6: K3 without the c streams; out_f/out_b (T,B,H) f32.
 int avsi_bilstm_recurrence(const void* xw, const void* wh, float* out_f, float* out_b,
-                           int t_len, int batch, int hidden, int in_bf16,
-                           void* stream) {
-  return recurrence<false, false>(in_bf16, xw, wh, nullptr, out_f, out_b, nullptr,
-                                  nullptr, t_len, batch, hidden, stream);
+                           int t_len, int batch, int hidden, int in_bf16, int cluster,
+                           int units, int btile, int ksplit, int resident, void* stream) {
+  const RecArgs p{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const Plan plan{cluster, units, btile, ksplit, resident};
+  return recurrence<false, false>(in_bf16, p, plan, stream);
 }
 
 // K4 (K4a walk, then K4b dWh): xw, wh, dout_f/dout_b and dxw at the compute

@@ -21,6 +21,7 @@ from avsi_torch import config as config_lib
 from avsi_torch.data import stats as stats_lib
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
+from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import lstm_fused
 from avsi_torch.train import checkpoints
@@ -53,7 +54,8 @@ def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto
     config = config_lib.check_trainconfiguration(
         config_lib.load_configfile(os.path.join(model_path, "config.txt"))
     )
-    config["lstm_impl"] = lstm_fused.resolve_impl(lstm_impl, device)
+    config["lstm_impl"] = lstm_fused.resolve_impl(
+        lstm_impl, device, config["net_dim"], blstm_lib.dtypes(config)[0])
     if norm:
         stats = stats_lib.load_stats(
             os.path.join(model_path, "audio_features_mean.npy"),

@@ -127,19 +127,23 @@ def resolve_window(config: dict, chunk_frames, lookahead_frames) -> tuple[int, i
     return chunk, look
 
 
-def resolve_stream_impl(requested: str | None, device, gate_dtype=torch.float32) -> str:
+def resolve_stream_impl(requested: str | None, device, gate_dtype, widths,
+                        compute_dtype) -> str:
     """Streaming's `lstm_impl` policy -> "kernel", "plain" or "scan".
 
     "auto" runs the LC window kernel K5 on a CUDA device and its plain
     version on the CPU, but the scan under bf16 gates: the kernel evaluates
     gates in f32 and the scan-trained function rounds them to bf16, and
     "auto" keeps the trained function (the reference's train == serve
-    rule).  "kernel" off CUDA and "plain" on CUDA are refused, as in
-    `lstm_fused.resolve_impl`.  gate_dtype: the effective gate dtype."""
+    rule).  Otherwise `lstm_fused.resolve_impl` decides, given the model's
+    layer `widths` and `compute_dtype`: on a CUDA device "auto" and
+    "kernel" raise for a width without a launch plan.  "kernel" off CUDA,
+    and "plain" on CUDA, are refused.  gate_dtype: the effective gate
+    dtype."""
     req = (requested or "auto").lower()
     if req == "auto" and gate_dtype == torch.bfloat16:
         return "scan"
-    return lstm_fused.resolve_impl(req, device)
+    return lstm_fused.resolve_impl(req, device, widths, compute_dtype)
 
 
 def ctc_blank_id(params) -> int:
@@ -192,14 +196,14 @@ def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device) -> _P
     if transcript and not spec.ctc:
         raise ValueError(
             f"model {config['model']} has no CTC head; transcripts need a -ctc variant")
-    cdt, gdt = blstm_lib._dtypes(config)
+    cdt, gdt = blstm_lib.dtypes(config)
     return _ProgSpec(
         spec=spec,
         int_layer=int(config.get("integration_layer", 0)) if spec.conditioning else 0,
         chunk=chunk, compute_dtype=cdt, gate_dtype=gdt,
         stats=tuple(torch.as_tensor(np.asarray(s, np.float32)).to(device) for s in stats),
         transcript=bool(transcript), phase_fill=bool(phase_fill),
-        lstm_impl=resolve_stream_impl(lstm_impl, device, gdt or cdt),
+        lstm_impl=resolve_stream_impl(lstm_impl, device, gdt or cdt, config["net_dim"], cdt),
     )
 
 

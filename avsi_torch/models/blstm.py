@@ -44,7 +44,7 @@ class BLSTMSpec:
     loss_on_hole_only: bool
 
 
-def _dtypes(config) -> tuple[torch.dtype, torch.dtype | None]:
+def dtypes(config) -> tuple[torch.dtype, torch.dtype | None]:
     """(compute_dtype, gate_dtype) from config; gate_dtype None follows compute."""
     compute = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32
     g = config.get("gate_dtype")
@@ -193,10 +193,11 @@ def forward(
     if int(config.get("lc_chunk", 0) or 0) > 0:
         raise NotImplementedError("the latency-controlled (LC) branch is not ported yet")
     spec = spec or parse_model_name(config["model"])
-    compute_dtype, gate_dtype = _dtypes(config)
+    compute_dtype, gate_dtype = dtypes(config)
     feats = features(batch, stats, config)
     net_in = _net_inputs(spec, feats, batch, audio_features)
-    impl = lstm_fused.resolve_impl(config.get("lstm_impl"), net_in.device)
+    impl = lstm_fused.resolve_impl(config.get("lstm_impl"), net_in.device,
+                                   config["net_dim"], compute_dtype)
     t = net_in.shape[1]
     int_layer = int(config.get("integration_layer", 0)) if spec.conditioning else 0
 

@@ -5,8 +5,10 @@ all sources at once in parallel processes, then links them into one shared
 library with a plain C interface, which `ctypes` loads: no PyTorch headers,
 so a build takes seconds.  The library lands in `build/avsi_torch/` beside
 the package (listed in `.gitignore`), named by a hash of the sources,
-headers and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing is built at import time: the first kernel launch builds.
+the headers listed in `HEADERS` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused (a header left out of
+`HEADERS` would leave a stale library).  Nothing is built at import
+time: the first kernel launch builds.
 
 `launch` calls a kernel's C launcher on the current stream and counts the
 launch in `launch_counts`, so a run can show that it went through the
@@ -27,7 +29,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "lstm_fused.cu", _PKG / "csrc" / "lstm_train.cu")
-HEADERS = (_PKG / "csrc" / "lstm_common.cuh",)
+HEADERS = (_PKG / "csrc" / "lstm_common.cuh", _PKG / "csrc" / "lstm_cluster.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -40,14 +42,14 @@ _lib: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes of each extern "C" launcher (each returns a cudaError_t)
 _SIGNATURES = {
-    # K1/K2: ... xw scratch, outs, shape and dtype ints, then the launch plan
-    # (cluster, units, btile, ksplit)
-    "avsi_bilstm_fused_proj": [_P] * 7 + [_I] * 10 + [_P],
-    "avsi_bilstm_fused_proj2": [_P] * 9 + [_I] * 10 + [_P],
-    "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 4 + [_P],
+    # K1/K2, K3, K5, K6: pointers, shape and dtype ints, then the launch plan
+    # of the cluster recurrence (cluster, units, btile, ksplit, resident)
+    "avsi_bilstm_fused_proj": [_P] * 7 + [_I] * 11 + [_P],
+    "avsi_bilstm_fused_proj2": [_P] * 9 + [_I] * 11 + [_P],
+    "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 9 + [_P],
     "avsi_bilstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 4 + [_P],
-    "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 4 + [_P],
+    "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 9 + [_P],
+    "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 9 + [_P],
 }
 # launches per kernel wrapper (K1's and K2's projection and recurrence, and
 # K4's walk and dWh, count as one)

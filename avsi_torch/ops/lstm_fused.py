@@ -18,7 +18,8 @@ failed launch to the plain version.  A call is two launches, counted as
 one in `avsi_torch.ops._build.launch_counts`: the projection as a GEMM over
 all T x B rows into a scratch xw, then the recurrence on thread-block
 clusters that split the hidden units and keep their slice of wh in shared
-memory, laid out by `launch_plan`.
+memory (its first depth rows, where the whole slice does not fit), laid
+out by `launch_plan`.
 
 Numerics (the TPU kernels' function, `pallas_lstm.py:100-118,213-221`):
 the projection plus bias is accumulated in f32 and rounded to the compute
@@ -100,7 +101,7 @@ def bilstm_fused_proj2_plain(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
 # ---------------------------------------------------------------- launch plan
 
 SMEM_PER_CTA = 232_448  # dynamic shared memory one Hopper block can use (227 KB)
-REC_THREADS_MAX = 512   # `kRecThreadsMax` in lstm_fused.cu
+REC_THREADS_MAX = 512   # `kRecThreadsMax` in lstm_cluster.cuh (bf16; f32 half)
 REC_ITEMS_MAX = 4       # `kRecItemsMax`: cell (row, unit) pairs per thread
 CLUSTER_SIZES = (8, 16)  # 8 is portable; 16 needs the non-portable opt-in
 BATCH_TILES = (8, 16)    # rows per cluster: one or two mma n-tiles of 8
@@ -113,7 +114,10 @@ class LaunchPlan:
     `cluster` CTAs split the hidden units, `units` each (a multiple of 4, so
     that 4 x units gate columns are whole 16-row mma tiles; the last CTA
     holds the rest); a cluster serves `btile` batch rows of one direction;
-    the recurrent product's depth is split over `ksplit` thread groups."""
+    the recurrent product's depth is split over `ksplit` thread groups; the
+    first `resident` depth rows of a CTA's wh slice (a multiple of 16; all
+    of them, padded to 16, where they fit) stay in shared memory and the
+    product reads the rest from global memory every step."""
     cluster: int
     units: int
     btile: int
@@ -121,6 +125,7 @@ class LaunchPlan:
     threads: int
     smem_bytes: int
     clusters: int  # 2 directions x batch tiles
+    resident: int
 
     @property
     def ctas(self) -> int:
@@ -128,7 +133,7 @@ class LaunchPlan:
 
     def c_args(self) -> tuple[int, ...]:
         """What the C launcher takes; it lays out the shared bytes itself."""
-        return self.cluster, self.units, self.btile, self.ksplit
+        return self.cluster, self.units, self.btile, self.ksplit, self.resident
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -139,68 +144,104 @@ def _align16(n: int) -> int:
     return _cdiv(n, 16) * 16
 
 
-def rec_smem_bytes(hidden: int, units: int, btile: int, ksplit: int, bf16: bool) -> int:
-    """Shared bytes of one recurrence CTA, as `rec_layout` in lstm_fused.cu
-    lays them out at launch: the wh slice, two parity buffers of h for the
-    whole layer, the xw ring of two steps, the partial gates and c.  The plan
-    uses it to choose a layout that fits."""
+def rec_smem_bytes(hidden: int, units: int, btile: int, ksplit: int, bf16: bool,
+                   resident: int | None = None, ring: bool = True) -> int:
+    """Shared bytes of one recurrence CTA, as `rec_layout` in
+    lstm_cluster.cuh lays them out at launch: `resident` depth rows of the
+    wh slice (default: all, padded to 16), two parity buffers of h for the
+    whole layer, the xw ring of two steps (K1/K2's layout; `ring=False` for
+    K3/K5/K6's, which read xw into registers), the partial gates and c.
+    The plan uses it to choose a layout that fits."""
     g, kp, size = 4 * units, _align16(hidden), 2 if bf16 else 4
-    wh = g * kp * size  # depth padded to 16 with zero rows
+    wh = g * (kp if resident is None else resident) * size
     hs = 2 * btile * (kp + 8) * size  # rows padded by 8
-    ring = 2 * btile * g * size
-    return sum(map(_align16, (wh, hs, ring, ksplit * btile * g * 4, btile * units * 4)))
+    xw = 2 * btile * g * size if ring else 0
+    return sum(map(_align16, (wh, hs, xw, ksplit * btile * g * 4, btile * units * 4)))
 
 
-def launch_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132) -> LaunchPlan:
-    """The recurrence's launch plan for a layer of `hidden` units at `batch`.
+def launch_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132, *,
+                gate_major: bool = False) -> LaunchPlan:
+    """The recurrence's launch plan for a layer of `hidden` units at `batch`:
+    K1/K2's, or with `gate_major` K3/K5/K6's, whose gate input needs no xw
+    ring in shared memory.
 
     Cluster size: 16 while its clusters fill at most half the SMs (half
     the work per CTA and step; a cluster of 16 needs 16 free SMs in one
     GPC, and more such clusters than fit wait: PERF.md has the H100's times
     of both sizes), then 8, then 16 again: the first whose wh slice fits a
-    CTA's shared memory.  Batch tile: the smallest whose clusters x CTAs fit `sm_count`
-    SMs (else the largest), or 8 where the wider one does not fit the
-    memory.  Depth split: as deep as the shared memory allows, up to 4
-    slices of whole 16-deep k-steps for bf16 (a warp per 16-column mma
-    tile and slice, 512 threads at most) and 16 slices of at least 8 rows
-    for f32 (a thread per 4 columns and slice, 256 threads at most), and
-    deep enough that a thread runs at most 4 cells.  Raises ValueError when
-    no cluster size fits."""
+    CTA's shared memory.  Batch tile: f32 always 8 (a tile of 16 doubles a
+    thread's accumulators and ran slower on the H100 at B=128 than two
+    waves of the tile of 8, with the full depth split or without: PERF.md);
+    bf16 the smallest whose clusters x CTAs fit `sm_count` SMs (else the
+    largest), or 8 where the wider one does not fit the memory.  Depth
+    split: as deep as the shared memory allows, up to 4 slices of whole
+    16-deep k-steps for bf16 (a warp per 16-column mma tile and slice, 512
+    threads at most) and 16 slices of at least 8 rows for f32 (a thread per
+    4 columns and slice, 256 threads at most), and deep enough that a
+    thread runs at most 4 cells.
+
+    Where no cluster size holds its whole slice (f32 H > 416, bf16 H >
+    624), the first cluster size in the same order whose tile of 8 holds the
+    h buffers, partial gates and c (the depth split halved until they fit)
+    and whose threads stay in bounds keeps as many whole 16-row depth steps
+    of its slice as the rest of the memory takes (`resident`), and the
+    kernel reads the others from global memory.  Raises ValueError where
+    that fails too (f32 H > 2048, bf16 H > 1024)."""
     bf16 = compute_dtype == torch.bfloat16
     per_unit = 8 if bf16 else 1  # threads per unit and depth slice
     kp = _align16(hidden)
     most = kp // 16 if bf16 else kp // 4  # slices of one k-step, or of 4 rows
     want = min(4, most) if bf16 else min(16, kp // 8)
-    target = 512 if bf16 else 256
+    target = REC_THREADS_MAX if bf16 else REC_THREADS_MAX // 2  # `rec_threads_max`
+    tiles = BATCH_TILES if bf16 else BATCH_TILES[:1]
     sizes = CLUSTER_SIZES
     if 2 * _cdiv(batch, BATCH_TILES[0]) * 16 <= sm_count // 2:
         sizes = (16, *CLUSTER_SIZES)
+
+    def smem(units, btile, ksplit, resident=kp):
+        return rec_smem_bytes(hidden, units, btile, ksplit, bf16, resident, not gate_major)
+
     for size in sizes:
         units = 4 * _cdiv(_cdiv(hidden, size), 4)
         n_cta = _cdiv(hidden, units)
-        fits_sms = next((bt for bt in BATCH_TILES if 2 * _cdiv(batch, bt) * n_cta <= sm_count),
-                        BATCH_TILES[-1])
+        fits_sms = next((bt for bt in tiles if 2 * _cdiv(batch, bt) * n_cta <= sm_count),
+                        tiles[-1])
         # that tile first, then the smallest, which needs the least memory
         for btile in sorted({fits_sms, BATCH_TILES[0]}, reverse=True):
             # a thread runs the cell of at most REC_ITEMS_MAX (row, unit) pairs
             least = _cdiv(btile, REC_ITEMS_MAX * per_unit)
             ksplit = max(least, min(want, target // (per_unit * units)))
-            while (ksplit > least
-                   and rec_smem_bytes(hidden, units, btile, ksplit, bf16) > SMEM_PER_CTA):
+            while ksplit > least and smem(units, btile, ksplit) > SMEM_PER_CTA:
                 ksplit //= 2
             ksplit = max(ksplit, least)
-            smem = rec_smem_bytes(hidden, units, btile, ksplit, bf16)
             threads = per_unit * units * ksplit
-            if smem <= SMEM_PER_CTA and threads <= REC_THREADS_MAX and ksplit <= most:
-                return LaunchPlan(n_cta, units, btile, ksplit, threads, smem,
-                                  2 * _cdiv(batch, btile))
+            if smem(units, btile, ksplit) <= SMEM_PER_CTA and threads <= target and ksplit <= most:
+                return LaunchPlan(n_cta, units, btile, ksplit, threads,
+                                  smem(units, btile, ksplit), 2 * _cdiv(batch, btile), kp)
+    btile = BATCH_TILES[0]
+    for size in sizes:  # no whole slice fits: keep its first depth rows
+        units = 4 * _cdiv(_cdiv(hidden, size), 4)
+        n_cta = _cdiv(hidden, units)
+        least = _cdiv(btile, REC_ITEMS_MAX * per_unit)
+        ksplit = max(least, min(want, target // (per_unit * units)))
+        while ksplit > least and smem(units, btile, ksplit, 0) > SMEM_PER_CTA:
+            ksplit //= 2
+        ksplit = max(ksplit, least)
+        threads = per_unit * units * ksplit
+        row = 4 * units * (2 if bf16 else 4)  # bytes of one depth row of the slice
+        resident = (SMEM_PER_CTA - smem(units, btile, ksplit, 0)) // (16 * row) * 16
+        if resident >= 0 and threads <= target and ksplit <= most:
+            return LaunchPlan(n_cta, units, btile, ksplit, threads,
+                              smem(units, btile, ksplit, resident), 2 * _cdiv(batch, btile),
+                              resident)
     raise ValueError(
-        f"hidden={hidden} ({compute_dtype}): a CTA's slice of wh does not fit "
-        f"{SMEM_PER_CTA} bytes of shared memory at a cluster of {size}")
+        f"hidden={hidden} ({compute_dtype}): no launch plan; a cluster of 16 cannot hold "
+        f"the layer's h in {SMEM_PER_CTA} bytes of shared memory per CTA, or serve its "
+        f"{_cdiv(hidden, 16)} units per CTA within {target} threads")
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def device_sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -244,7 +285,7 @@ def bilstm_fused_proj(xt, wx, b, wh, out_dtype=torch.float32):
     device = check_inputs(
         "bilstm_fused_proj", cd, out_dtype, xt=(xt, cd, xt.shape), wx=(wx, cd, (2, d_in, g4)),
         b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
-    plan = launch_plan(hidden, b_sz, cd, _sm_count(device.index))
+    plan = launch_plan(hidden, b_sz, cd, device_sm_count(device.index))
     xw = torch.empty((2, t_len, b_sz, g4), dtype=cd, device=device)  # projection scratch
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
@@ -272,7 +313,7 @@ def bilstm_fused_proj2(af, ab, wxa, wxb, b, wh, out_dtype=torch.float32):
         "bilstm_fused_proj2", cd, out_dtype, af=(af, cd, af.shape), ab=(ab, cd, af.shape),
         wxa=(wxa, cd, (2, h_in, g4)), wxb=(wxb, cd, (2, h_in, g4)),
         b=(b, torch.float32, (2, g4)), wh=(wh, cd, (2, hidden, g4)))
-    plan = launch_plan(hidden, b_sz, cd, _sm_count(device.index))
+    plan = launch_plan(hidden, b_sz, cd, device_sm_count(device.index))
     xw = torch.empty((2, t_len, b_sz, g4), dtype=cd, device=device)  # projection scratch
     out_f = torch.empty((t_len, b_sz, hidden), dtype=out_dtype, device=device)
     out_b = torch.empty_like(out_f)
@@ -320,15 +361,38 @@ def blstm_stack_fused(layers: list[dict], x: torch.Tensor,
     return torch.cat([of, ob], dim=-1).transpose(0, 1).to(x.dtype)
 
 
-def resolve_impl(requested: str | None, device) -> str:
+@functools.lru_cache(maxsize=None)
+def plan_fits(hidden: int, compute_dtype) -> bool:
+    """Whether `launch_plan` has a plan for a layer of `hidden` units at
+    the compute dtype (f32 H <= 2048, bf16 H <= 1024).  The fit does not
+    depend on the batch or the card: every batch tries the batch tile of 8
+    under both cluster sizes, which needs the least shared memory; K1/K2's
+    layout, which needs more than K3/K5/K6's, decides."""
+    try:
+        launch_plan(hidden, BATCH_TILES[0], compute_dtype)
+    except ValueError:
+        return False
+    return True
+
+
+def resolve_impl(requested: str | None, device, widths, compute_dtype) -> str:
     """`lstm_impl` request -> "kernel", "plain" or "scan".
 
     "auto": the CUDA kernels for a CUDA device, their plain versions on the
     CPU.  "scan" forces the eager per-layer twin of the reference's scan
-    (`avsi_torch.models.core.bilstm_layer`).  "kernel" off CUDA, or
-    "plain" on CUDA, is refused rather than quietly swapped."""
+    (`avsi_torch.models.core.bilstm_layer`).  `widths` (the model's hidden
+    sizes) and `compute_dtype` are checked before any launch: on a CUDA
+    device "auto" and "kernel" raise, naming the width, for a layer that
+    has no launch plan (`plan_fits`).  "kernel" off CUDA, or "plain" on
+    CUDA, is refused rather than quietly swapped."""
     req = (requested or "auto").lower()
     on_cuda = torch.device(device).type == "cuda"
+    if req in ("auto", "kernel") and on_cuda:
+        unfit = [int(h) for h in widths if not plan_fits(int(h), compute_dtype)]
+        if unfit:
+            raise ValueError(
+                f"lstm_impl={req!r}: no launch plan for hidden={unfit[0]} ({compute_dtype}); "
+                "the CUDA kernels serve f32 H <= 2048 and bf16 H <= 1024 ('scan' runs any)")
     if req == "auto":
         return "kernel" if on_cuda else "plain"
     if req == "scan":

@@ -6,7 +6,12 @@ Counterpart of the custom VJP `_layer` of `avsi/ops/pallas_lstm.py`
 
   * `bilstm_recurrence_train` (K3, TPU kernel `:369-420`): the recurrence
     over a precomputed gate input xw, returning the h streams and the f32
-    cell-state streams, the residual of the backward;
+    cell-state streams, the residual of the backward.  On the card it is
+    the cluster recurrence of K1/K2 (`avsi_torch/csrc/lstm_cluster.cuh`),
+    one launch under `lstm_fused.launch_plan` at the call's batch, so it
+    takes the widths that plan takes (f32 H <= 2048, bf16 H <= 1024; past
+    f32 H = 416 and bf16 H = 624 part of each CTA's wh slice is read from
+    L2 every step);
   * `bilstm_recurrence_bwd` (K4, TPU kernel `:659-747`): the reverse walk,
     returning dgates as dxw and dWh.  On the card it is two launches, the
     walk and a dWh reduction (`avsi_torch/csrc/lstm_train.cu`), counted as
@@ -33,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from avsi_torch.ops import _build
+from avsi_torch.ops import _build, lstm_fused
 from avsi_torch.ops.lstm_fused import check_inputs, recurrence_plain
 
 
@@ -60,12 +65,15 @@ def bilstm_recurrence_train(xw, wh):
     cd, g4 = xw.dtype, 4 * hidden
     device = check_inputs(name, cd, torch.float32, xw=(xw, cd, (t_len, 2, b_sz, g4)),
                           wh=(wh, cd, (2, hidden, g4)))
+    plan = lstm_fused.launch_plan(hidden, b_sz, cd, lstm_fused.device_sm_count(device.index),
+                                  gate_major=True)
     out_f, out_b, c_f, c_b = (
         torch.empty((t_len, b_sz, hidden), dtype=torch.float32, device=device)
         for _ in range(4))
     _build.launch(
         name, device, xw.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), t_len, b_sz, hidden, int(cd == torch.bfloat16),
+        *plan.c_args(),
     )
     return out_f, out_b, c_f, c_b
 

@@ -15,8 +15,13 @@ Counterparts in `avsi/ops/pallas_lstm.py`:
     starts at zero at frame W-1 (the lookahead truncation); it returns the
     forward state after frame `emit - 1`, the carry of the next window.
 
-K3, K5 and K6 are three instantiations of one CUDA body
-(`avsi_torch/csrc/lstm_train.cu`), so their gates are bit for bit the same.
+K3, K5 and K6 are three instances of one CUDA body, the cluster recurrence
+of K1/K2 (`avsi_torch/csrc/lstm_cluster.cuh`, launched from
+`avsi_torch/csrc/lstm_train.cu`) under `lstm_fused.launch_plan` at the
+call's batch, so their outputs are bit for bit the same where their
+functions coincide, and they take the widths that plan takes (f32 H <=
+2048, bf16 H <= 1024; past f32 H = 416 and bf16 H = 624 part of each CTA's
+wh slice is read from L2 every step).
 Each wrapper launches its kernel for CUDA tensors, or raises; it runs the
 plain version only because its tensors lie on the CPU, and counts its
 launches in `avsi_torch.ops._build.launch_counts`.  The plain versions are
@@ -30,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from avsi_torch.ops import _build
+from avsi_torch.ops import _build, lstm_fused
 from avsi_torch.ops.lstm_fused import check_inputs, recurrence_plain
 from avsi_torch.ops.lstm_train import project
 
@@ -58,9 +63,12 @@ def bilstm_recurrence_carry(xw, wh, hc0):
     cd, f32, g4 = xw.dtype, torch.float32, 4 * hidden
     device = check_inputs(name, cd, f32, xw=(xw, cd, (w_len, 2, b_sz, g4)),
                           wh=(wh, cd, (2, hidden, g4)), hc0=(hc0, f32, (2, 2, b_sz, hidden)))
+    plan = lstm_fused.launch_plan(hidden, b_sz, cd, lstm_fused.device_sm_count(device.index),
+                                  gate_major=True)
     outs = [torch.empty((w_len, b_sz, hidden), dtype=f32, device=device) for _ in range(4)]
     _build.launch(name, device, xw.data_ptr(), wh.data_ptr(), hc0.data_ptr(),
-                  *(o.data_ptr() for o in outs), w_len, b_sz, hidden, int(cd == torch.bfloat16))
+                  *(o.data_ptr() for o in outs), w_len, b_sz, hidden, int(cd == torch.bfloat16),
+                  *plan.c_args())
     return tuple(outs)
 
 
@@ -82,10 +90,12 @@ def bilstm_recurrence(xw, wh):
     cd, g4 = xw.dtype, 4 * hidden
     device = check_inputs(name, cd, torch.float32, xw=(xw, cd, (t_len, 2, b_sz, g4)),
                           wh=(wh, cd, (2, hidden, g4)))
+    plan = lstm_fused.launch_plan(hidden, b_sz, cd, lstm_fused.device_sm_count(device.index),
+                                  gate_major=True)
     outs = [torch.empty((t_len, b_sz, hidden), dtype=torch.float32, device=device)
             for _ in range(2)]
     _build.launch(name, device, xw.data_ptr(), wh.data_ptr(), *(o.data_ptr() for o in outs),
-                  t_len, b_sz, hidden, int(cd == torch.bfloat16))
+                  t_len, b_sz, hidden, int(cd == torch.bfloat16), *plan.c_args())
     return tuple(outs)
 
 

@@ -41,6 +41,7 @@ from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
 from avsi_torch.infer.inpaint import expand_batch
+from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import ctc as ctc_ops
 from avsi_torch.ops import lstm_fused
@@ -233,7 +234,8 @@ def train(config_file: str, device=None) -> dict:
         checkpoints.restore_opt_state(ckp_dir, ckp_name, state)
         print(f"Restored model from {config['model_ckp']} (step {start_step})")
 
-    config["lstm_impl"] = lstm_fused.resolve_impl(config.get("lstm_impl"), device)
+    config["lstm_impl"] = lstm_fused.resolve_impl(
+        config.get("lstm_impl"), device, config["net_dim"], blstm_lib.dtypes(config)[0])
     train_step = make_train_step(model, config, stats, device)
     eval_step = make_eval_step(model, config, stats, device)
     gen = torch.Generator(device=device).manual_seed(seed)  # dropout masks

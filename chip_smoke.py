@@ -15,27 +15,27 @@ Phases, in order; any failure exits non-zero:
      for one stream, B=1, and a fleet, B=16, from random carries; K6 at
      T=250, B=8 and 32); K3, K5 and K6 bit for bit equal where their
      functions coincide (K5 from zero carries at W=250 is K3, K6 is K3's
-     h streams); and `BiLSTMLayer`'s four gradients on the GPU against the
-     same Function on the CPU, B=8 and 32;
+     h streams), B=8 and 32; K3 against K1's recurrence given the xw K1's
+     projection computes (one-hot input, so the projection is exact), on
+     one plan, B=8; K1, K3 and K5 at layers wider than a CTA holds whole
+     (f32 H=512, bf16 H=800: part of each wh slice read from global
+     memory), B=8, timed too; and `BiLSTMLayer`'s four gradients on the
+     GPU against the same Function on the CPU, B=8 and 32;
   4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
      its plain version, its bound (the larger of bytes over memory
      bandwidth and operations over peak rate) and a cuDNN yardstick
      (`torch.nn.LSTM`, timed here only; the port never calls it), K1 and
      K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed);
-     K1 under both cluster sizes at B=8 and 32; plus the 3-layer stack;
+     K1 under both cluster sizes at B=8 and 32, K1 and K3 under both batch
+     tiles at B=128; plus the 3-layer stack;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
      int16 samples with a gap at frames 80-146 and 10 steps of a full
-     micro-batch, timed before this process first runs the profiler
-     (requests/s, the spread of request and step walls); launch counts of
-     K1 (one per device step) and K2 (two per step), and in one profiled
-     step 3 projection GEMMs and 3 cluster recurrences; K1's and K2's
-     launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2 call
-     profiled at each (the projection GEMM and the cluster recurrence
-     apart); the requests timed again after those 9 profiler sessions;
-     the step's output held against the same step on the CPU (plain
-     kernel versions);
+     micro-batch (requests/s, the spread of request and step walls);
+     launch counts of K1 (one per device step) and K2 (two per step); the
+     step's output held against the same step on the CPU (plain kernel
+     versions);
   6. streaming paths, on the same checkpoint: one live stream through the
      service's /stream/open?transcript=1, /stream/<id> (1,536-sample pushes
      of a 48,000-sample utterance with the same gap, f16 video rows) and
@@ -46,19 +46,25 @@ Phases, in order; any failure exits non-zero:
      `phase_recon="none"` step on the card (K5 against K1/K2); a lockstep
      fleet of 16 streams of 3 s (`stream_utterances_lockstep`): 96 K5
      launches at B=16, stream 0 held against its single stream and the
-     fleet against the CPU fleet, stream-seconds per wall second, and a
-     profile of one window step (the second of a whole fleet run, and one
-     push of a live stream that completes a window);
+     fleet against the CPU fleet, stream-seconds per wall second;
   7. training path: a fixed-mode TFRecord corpus written with the port's
      codec (96 training + 32 validation utterances of 48,000 samples),
      `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
      (6 train steps, 2 validation steps); launch counts of K3 and K4 (3 per
      train step) and K1/K2 (1 and 2 per validation step); finite losses,
      `sinet.npz` read back by `inpaint.load_model_bundle`; steady-state
-     step time; a profile of one train step; one train step on the GPU
-     held against the same step on the CPU (loss and every gradient), at
-     B=8 and at the training batch of 32;
-  8. one JSON line of kernel figures (K1-K6, each with its launches on its
+     step time; one train step on the GPU held against the same step on
+     the CPU (loss and every gradient), at B=8 and at the training batch
+     of 32;
+  8. profiles, after every host-side figure above was timed (host time
+     reads slower after profiler sessions in the same process): one
+     serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
+     K2's launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2
+     call profiled at each (the projection GEMM and the cluster recurrence
+     apart), then the requests timed again after those 9 sessions; one
+     window step (the second of a whole fleet run) and one push of a live
+     stream that completes a window; one train step;
+  9. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
 
@@ -67,6 +73,7 @@ Exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -88,7 +95,7 @@ from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
 from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
 from avsi_torch.infer import inpaint, streaming  # noqa: E402
-from avsi_torch.models import registry  # noqa: E402
+from avsi_torch.models import blstm, registry  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.serve import serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
@@ -113,17 +120,18 @@ KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main p
     "bilstm_fused_proj2": ("K2", "avsi/ops/pallas_lstm.py:800",
                            "avsi_torch/csrc/lstm_fused.cu", 8),
     "bilstm_recurrence_train": ("K3", "avsi/ops/pallas_lstm.py:148",
-                                "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
+                                "avsi_torch/csrc/lstm_cluster.cuh", TRAIN_BATCH),
     "bilstm_recurrence_bwd": ("K4", "avsi/ops/pallas_lstm.py:599",
                               "avsi_torch/csrc/lstm_train.cu", TRAIN_BATCH),
     "bilstm_recurrence_carry": ("K5", "avsi/ops/pallas_lstm.py:423",
-                                "avsi_torch/csrc/lstm_train.cu", 1),
+                                "avsi_torch/csrc/lstm_cluster.cuh", 1),
     "bilstm_recurrence": ("K6", "avsi/ops/pallas_lstm.py:121",
-                          "avsi_torch/csrc/lstm_train.cu", 8),
+                          "avsi_torch/csrc/lstm_cluster.cuh", 8),
 }
 SERVING, TRAINING = ("bilstm_fused_proj", "bilstm_fused_proj2"), (
     "bilstm_recurrence_train", "bilstm_recurrence_bwd")
 WINDOW = ("bilstm_recurrence_carry", "bilstm_recurrence")  # lstm_window's
+GATE_MAJOR = ("bilstm_recurrence_train", *WINDOW)  # the TPU layout of xw: no xw ring
 BATCHES = {"bilstm_fused_proj": (8, 32), "bilstm_fused_proj2": (8, 32),
            "bilstm_recurrence_train": (8, 32, 128), "bilstm_recurrence_bwd": (8, 32, 128),
            "bilstm_recurrence_carry": (1, FLEET), "bilstm_recurrence": (8, 32)}
@@ -354,24 +362,93 @@ def check_and_time_kernels() -> tuple[dict, dict]:
 
 
 def check_coincide() -> None:
-    """Phase 3: one body, three instantiations.  K5 from zero carries over a
+    """Phase 3: one body, three instances.  K5 from zero carries over a
     whole utterance (W=T=250) writes K3's four outputs bit for bit, and K6
-    K3's two h streams, f32 and bf16, at B=8 (K5 and K6) and 32 (K6)."""
+    K3's two h streams, f32 and bf16, at B=8 and 32 (one plan per batch)."""
     for dtype in (torch.float32, torch.bfloat16):
         for batch in (8, 32):
             inp = kernel_inputs("bilstm_recurrence_train", batch, dtype, seed=9)
             k3 = lstm_train.bilstm_recurrence_train(inp["xw"], inp["wh"])
             k6 = lstm_window.bilstm_recurrence(inp["xw"], inp["wh"])
-            same = all(torch.equal(a, b) for a, b in zip(k3[:2], k6))
-            if batch == 8:
-                zero = torch.zeros(2, 2, batch, H, device="cuda")
-                k5 = lstm_window.bilstm_recurrence_carry(inp["xw"], inp["wh"], zero)
-                same = same and all(torch.equal(a, b) for a, b in zip(k3, k5))
+            zero = torch.zeros(2, 2, batch, H, device="cuda")
+            k5 = lstm_window.bilstm_recurrence_carry(inp["xw"], inp["wh"], zero)
             torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(k3[:2], k6))
+                    and all(torch.equal(a, b) for a, b in zip(k3, k5)))
             print(f"check K3/K5/K6 bit-equal where they coincide ({str(dtype)[6:]}, T=250, "
-                  f"B={batch}{', K5 too' if batch == 8 else ''}): {same}", flush=True)
+                  f"B={batch}): {same}", flush=True)
             if not same:
                 fail(f"K3, K5 and K6 differ where their functions coincide ({dtype}, B={batch})")
+
+
+def check_k3_against_k1(batch: int = 8) -> None:
+    """Phase 3: one body for K1 and K3.  K3 given the parity-cast xw that
+    K1's projection computes writes K1's h streams, T=250, f32 and bf16,
+    both on the plan of one batch.  K1's input is one-hot (row (t, b) picks
+    row t*B + b of wx, zero bias), so its projection is exact and K3's xw is
+    wx laid out in walk order.  Expected: 0 or the last bit; fails over
+    TOL."""
+    gen = torch.Generator().manual_seed(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        d = T * batch
+        x = torch.eye(d, device="cuda").reshape(T, batch, d).to(dtype)
+        wx = ((torch.rand(2, d, 4 * H, generator=gen) * 2 - 1) * 1.5).cuda().to(dtype)
+        wh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5).cuda().to(dtype)
+        k1 = lstm_fused.bilstm_fused_proj(x, wx, torch.zeros(2, 4 * H, device="cuda"), wh)
+        xw = torch.stack([wx[0].reshape(T, batch, 4 * H), wx[1].reshape(T, batch, 4 * H).flip(0)],
+                         dim=1).contiguous()
+        k3 = lstm_train.bilstm_recurrence_train(xw, wh)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(k3[:2], k1))
+        plan, plan_k3 = (lstm_fused.launch_plan(H, batch, dtype, lstm_fused.device_sm_count(0),
+                                                gate_major=gm) for gm in (False, True))
+        if plan.c_args() != plan_k3.c_args():
+            fail(f"K1 and K3 take different plans at B={batch} ({dtype}): {plan}, {plan_k3}")
+        print(f"check K3 vs K1's recurrence on K1's projection ({str(dtype)[6:]}, T=250, "
+              f"B={batch}, plan {plan.c_args()}): max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}; "
+              f"bit-equal {err == 0})", flush=True)
+        if err > TOL[dtype]:
+            fail(f"K3 disagrees with K1's recurrence ({dtype}): {err}")
+
+
+def check_wide_layers(batch: int = 8) -> None:
+    """Phase 3: layers wider than a CTA holds whole (f32 H=512, bf16
+    H=800), where the plan keeps the first depth rows of each wh slice in
+    shared memory and the kernels read the rest from global memory.  K1,
+    K3 (T=250) and K5 (W=24, random carries) at B=8 against their plain
+    versions within TOL, and timed."""
+    gen = torch.Generator().manual_seed(17)
+
+    def u(*shape, scale):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    for dtype, h in ((torch.float32, 512), (torch.bfloat16, 800)):
+        wh = u(2, h, 4 * h, scale=h ** -0.5).to(dtype)
+        x, wx = u(T, batch, D1, scale=2.0).to(dtype), u(2, D1, 4 * h, scale=D1 ** -0.5).to(dtype)
+        b = u(2, 4 * h, scale=0.1)
+        xw, xw5 = (u(t, 2, batch, 4 * h, scale=1.5).to(dtype) for t in (T, W))
+        hc0 = torch.stack([torch.tanh(u(2, batch, h, scale=2.0)), u(2, batch, h, scale=2.0)])
+        runs = {
+            "K1": (lambda: lstm_fused.bilstm_fused_proj(x, wx, b, wh),
+                   lambda: lstm_fused.bilstm_fused_proj_plain(x, wx, b, wh), False),
+            "K3": (lambda: lstm_train.bilstm_recurrence_train(xw, wh),
+                   lambda: lstm_train.bilstm_recurrence_train_plain(xw, wh), True),
+            "K5": (lambda: lstm_window.bilstm_recurrence_carry(xw5, wh, hc0),
+                   lambda: lstm_window.bilstm_recurrence_carry_plain(xw5, wh, hc0), True),
+        }
+        for tag, (fn, plain, gate_major) in runs.items():
+            plan = lstm_fused.launch_plan(h, batch, dtype, lstm_fused.device_sm_count(0),
+                                          gate_major=gate_major)
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(fn(), plain()))
+            ms = time_ms(fn, reps=5)
+            print(f"check wide {tag} H={h} {str(dtype)[6:]} B={batch}: plan {plan.c_args()}, "
+                  f"{plan.resident} of {-(-h // 16) * 16} depth rows resident, max_abs_err "
+                  f"{err:.3e} (tol {TOL[dtype]:.0e}), {ms:.3f} ms", flush=True)
+            if plan.resident >= -(-h // 16) * 16:
+                fail(f"{tag} at H={h} ({dtype}) holds its whole slice: not a wide plan")
+            if err > TOL[dtype]:
+                fail(f"{tag} at H={h} ({dtype}) disagrees with its plain version: {err}")
 
 
 def time_stack() -> None:
@@ -444,22 +521,30 @@ def spread_ms(seconds) -> str:
     return f"median {np.median(ms):.1f}, min {ms.min():.1f}, max {ms.max():.1f} ms"
 
 
+def start_server(d: str, device: str = "cuda"):
+    """`serve()` on the flagship bundle in a thread: (server, base url)."""
+    server = serve(d, port=0, device=device)
+    server.thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server.thread.start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+    server.thread.join(timeout=30)
+
+
 def main_path(d: str, device: str = "cuda") -> dict:
     """Phase 5: serve the flagship on the GPU and answer /enhance requests;
-    time the request loop and the step behind it before this process runs
-    any profiler, then profile one step and K1/K2 calls
-    (`fused_plans_and_profiles`) and time the loop again, to show what
-    profiler sessions leave behind in the process's host time.  Returns
-    the launch counts of this path."""
+    time the request loop and the step behind it (this process has run no
+    profiler yet; `serving_profiles` profiles later).  Returns the launch
+    counts of this path."""
     # defaults: micro_batch 8, phase_recon "gl", gl_iters 30
-    server = serve(d, port=0, device=device)
+    server, url = start_server(d, device)
     service = server.service
     if service.config["lstm_impl"] != ("kernel" if device == "cuda" else "plain"):
         fail(f"service resolved lstm_impl={service.config['lstm_impl']!r}, not 'kernel'")
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{port}"
     rng = np.random.RandomState(1)
     try:
         steps0 = service.n_device_steps
@@ -483,14 +568,6 @@ def main_path(d: str, device: str = "cuda") -> dict:
                 or any(v for k, v in counts.items() if k not in SERVING)):
             fail(f"launch counts {counts} for {steps} device steps (want K1 1 and K2 2 per "
                  "step, nothing else)")
-        if device == "cuda":
-            names = profile(f"one serving step of {service.micro_batch}",
-                            lambda: service.enhance_batch(waves, masks))
-            if fused_kernel_launches(names) != (3, 3):
-                fail(f"the serving step ran {fused_kernel_launches(names)} projection GEMMs "
-                     "and cluster recurrences, not 3 and 3 (K1 + 2 x K2)")
-            fused_plans_and_profiles()
-            after = time_requests(url, rng, N_REQUESTS)[1]
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             if r.read() != b"ok":
                 fail("/healthz")
@@ -504,15 +581,37 @@ def main_path(d: str, device: str = "cuda") -> dict:
               f"{service.micro_batch} unprofiled, wall {spread_ms(step_s)} over {N_STEPS}, "
               f"{service.micro_batch / np.median(step_s):.2f} utterances/s; card {card_line()}",
               flush=True)
-        if device == "cuda":
-            print(f"serving path: after 9 profiler sessions (the step, then K1 and K2 at 2 "
-                  f"batches x 2 dtypes), {N_REQUESTS / sum(after):.2f} requests/s (request "
-                  f"wall {spread_ms(after)})", flush=True)
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        stop_server(server)
     return counts
+
+
+def serving_profiles(d: str) -> None:
+    """Phase 8 (the process's first profiler sessions): one serving step
+    profiled (3 projection GEMMs and 3 cluster recurrences), K1 and K2
+    calls profiled at each batch and dtype (`fused_plans_and_profiles`),
+    then the requests timed again, to show what profiler sessions leave
+    behind in the process's host time."""
+    server, url = start_server(d)
+    service = server.service
+    rng = np.random.RandomState(1)
+    waves = np.stack([request(rng)[0] for _ in range(service.micro_batch)]).astype(np.float32)
+    masks = np.ones((service.micro_batch, T_FRAMES), np.float32)
+    masks[:, GAP] = 0
+    try:
+        service.enhance_batch(waves, masks)
+        names = profile(f"one serving step of {service.micro_batch}",
+                        lambda: service.enhance_batch(waves, masks))
+        if fused_kernel_launches(names) != (3, 3):
+            fail(f"the serving step ran {fused_kernel_launches(names)} projection GEMMs "
+                 "and cluster recurrences, not 3 and 3 (K1 + 2 x K2)")
+        fused_plans_and_profiles()
+        after = time_requests(url, rng, N_REQUESTS)[1]
+        print(f"serving path: after 9 profiler sessions (the step, then K1 and K2 at 2 "
+              f"batches x 2 dtypes), {N_REQUESTS / sum(after):.2f} requests/s (request "
+              f"wall {spread_ms(after)})", flush=True)
+    finally:
+        stop_server(server)
 
 
 def profile(label: str, fn, top: int = 12) -> dict:
@@ -546,35 +645,75 @@ def fused_kernel_launches(counts: dict) -> tuple[int, int]:
             sum(n for k, n in counts.items() if "rec_cluster" in k))
 
 
-def cluster_sizes_compared() -> None:
-    """Phase 4: K1 at B=8 and 32, f32 and bf16, under the cluster size its
-    plan takes on this card and under the other one, which the plan takes
-    for a card of another SM count (60: clusters of 8 at B=8; 256: clusters
-    of 16 at B=32): the times behind `launch_plan`'s rule.  Each run is
-    held against the plain version."""
-    name, sm_count = "bilstm_fused_proj", lstm_fused._sm_count
+def plans_compared(name: str, batch: int, other_plan, field: str, reps: int) -> None:
+    """Phase 4: kernel `name` at `batch`, f32 and bf16, under the plan
+    `launch_plan` takes on this card and under `other_plan(plan, dtype, batch)`,
+    timed here: the times behind the plan's rule, keyed by the plan `field`
+    that differs.  Each run is held against the plain version."""
+    tag, launch_plan = KERNELS[name][0], lstm_fused.launch_plan
+    sms = lstm_fused.device_sm_count(0)
     try:
-        for batch, other in ((8, 60), (32, 256)):
-            for dtype in (torch.float32, torch.bfloat16):
-                inp = kernel_inputs(name, batch, dtype)
-                want = run_kernel(name, inp, plain=True)
-                times = {}
-                for sms in (sm_count(0), other):
-                    lstm_fused._sm_count = lambda index, sms=sms: sms
-                    err = max_err(name, run_kernel(name, inp), want)
-                    if err > TOL[dtype]:
-                        fail(f"K1 planned for {sms} SMs disagrees with its plain version: {err}")
-                    cluster = lstm_fused.launch_plan(H, batch, dtype, sms).cluster
-                    times[cluster] = time_ms(lambda: run_kernel(name, inp), reps=20)
-                print(f"cluster sizes K1 B={batch} {str(dtype)[6:]}: "
-                      + ", ".join(f"{c} CTAs {ms:.3f} ms" for c, ms in times.items())
-                      + " (the first is this card's plan)", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = kernel_inputs(name, batch, dtype)
+            want = run_kernel(name, inp, plain=True)
+            plan = launch_plan(H, batch, dtype, sms, gate_major=name in GATE_MAJOR)
+            times = {}
+            for p in (plan, other_plan(plan, dtype, batch)):
+                lstm_fused.launch_plan = lambda *args, p=p, **kw: p
+                err = max_err(name, run_kernel(name, inp), want)
+                if err > TOL[dtype]:
+                    fail(f"{tag} under {p} disagrees with its plain version: {err}")
+                times[(getattr(p, field), p.ctas, p.threads)] = time_ms(
+                    lambda: run_kernel(name, inp), reps=reps)
+            lstm_fused.launch_plan = launch_plan
+            print(f"plans compared {tag} B={batch} {str(dtype)[6:]}: "
+                  + ", ".join(f"{field} {v} ({ctas} CTAs of {threads} threads) {ms:.3f} ms"
+                              for (v, ctas, threads), ms in times.items())
+                  + " (the first is this card's plan)", flush=True)
+            del inp, want
     finally:
-        lstm_fused._sm_count = sm_count
+        lstm_fused.launch_plan = launch_plan
+
+
+def other_batch_tile(plan, dtype, batch: int, gate_major: bool):
+    """`plan` with the other batch tile and the deepest depth split that
+    fits a CTA there (16 rows: the split halves until the partial gates
+    fit; 8 rows: the plan of a card with an SM for every CTA of them)."""
+    if plan.btile == 16:
+        sms = 2 * -(-batch // 8) * plan.cluster
+        return lstm_fused.launch_plan(H, batch, dtype, sm_count=sms, gate_major=gate_major)
+    bf16, ksplit = dtype == torch.bfloat16, plan.ksplit
+
+    def smem(k):
+        return lstm_fused.rec_smem_bytes(H, plan.units, 16, k, bf16, plan.resident,
+                                         not gate_major)
+
+    while smem(ksplit) > lstm_fused.SMEM_PER_CTA:
+        ksplit //= 2
+    return dataclasses.replace(
+        plan, btile=16, ksplit=ksplit, threads=plan.threads // plan.ksplit * ksplit,
+        smem_bytes=smem(ksplit), clusters=2 * -(-batch // 16))
+
+
+def plan_rules_compared() -> None:
+    """Phase 4: K1 at B=8 and 32 under the cluster size its plan takes on
+    this card and under the other one, which the plan takes for a card of
+    another SM count (60: clusters of 8 at B=8; 256: clusters of 16 at
+    B=32); and K1 and K3 at B=128 under both batch tiles (a tile of 16 fits
+    the card in one wave of 128 CTAs; f32 K1 has room there only for half
+    the depth split, K3, with no xw ring, for all of it; a tile of 8 takes
+    256 CTAs, more than one wave)."""
+    for batch, other in ((8, 60), (32, 256)):
+        plans_compared("bilstm_fused_proj", batch,
+                       lambda plan, dtype, b, o=other: lstm_fused.launch_plan(H, b, dtype, o),
+                       "cluster", reps=20)
+    for name in ("bilstm_fused_proj", "bilstm_recurrence_train"):
+        plans_compared(name, 128, lambda plan, dtype, b, gm=name in GATE_MAJOR:
+                       other_batch_tile(plan, dtype, b, gm), "btile", reps=5)
 
 
 def fused_plans_and_profiles() -> None:
-    """Phase 5: the launch plan K1 and K2 take at each timed batch and
+    """Phase 8: the launch plan K1 and K2 take at each timed batch and
     dtype, and one K1 and one K2 call profiled at each, so the
     projection's and the recurrence's device times show apart."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -677,11 +816,7 @@ def stream_pushes(rng) -> list[tuple]:
 def stream_path(d: str) -> dict:
     """Phase 6: one live stream through the service's /stream/* on the GPU.
     Returns the launch counts of this path."""
-    server = serve(d, port=0)
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{port}"
+    server, url = start_server(d)
 
     def post(path, body=b""):
         req = urllib.request.Request(url + path, data=body, method="POST")
@@ -708,9 +843,7 @@ def stream_path(d: str) -> dict:
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        stop_server(server)
     got = np.concatenate(samples)
     want_counts = {"bilstm_recurrence_carry": 3 * N_WINDOWS}
     if {k: v for k, v in counts.items() if v} != want_counts:
@@ -804,16 +937,23 @@ def profile_window_step(run, label: str, k: int = 1) -> None:
         fail(f"the fleet run made {len(calls)} window steps; none profiled")
 
 
-def fleet_path(d: str) -> dict:
-    """Phase 6: `stream_utterances_lockstep`, FLEET streams in one window
-    step per window, on the GPU.  Returns the launch counts of this path."""
+def fleet_runner(d: str):
+    """(run(device, params) -> the lockstep fleet's (waves, transcripts),
+    the bundle's (config, stats, params on the GPU), the fleet's inputs)."""
     config, stats, _, params = inpaint.load_model_bundle(d, device="cuda")
     waves, masks, videos = fleet_inputs(np.random.RandomState(8))
 
-    def run(device, p=params, n=AUDIO_LEN, frames=T_FRAMES):
+    def run(device, p=params):
         return streaming.stream_utterances_lockstep(
-            config, stats, p, waves[:, :n], masks[:, :frames], videos[:, :frames],
+            config, stats, p, waves, masks, videos,
             chunk_frames=CHUNK, lookahead_frames=LOOK, transcript=True, device=device)
+    return run, (config, stats, params), (waves, masks, videos)
+
+
+def fleet_path(d: str) -> dict:
+    """Phase 6: `stream_utterances_lockstep`, FLEET streams in one window
+    step per window, on the GPU.  Returns the launch counts of this path."""
+    run, (config, stats, params), (waves, masks, videos) = fleet_runner(d)
 
     _build.reset_launch_counts()
     wav, tr = run("cuda")
@@ -844,18 +984,22 @@ def fleet_path(d: str) -> dict:
           f"{'equal' if tr == tr_cpu else 'DIFFER'} (tol 1e-3)", flush=True)
     if rel_single > 1e-3 or rel_cpu > 1e-3 or tr[0] != inp.transcript or tr != tr_cpu:
         fail("the GPU fleet disagrees with the single stream or the CPU fleet")
+    return counts
 
-    # one window step inside a whole fleet run (the second of its 32), and
-    # one push of a live stream that completes exactly one window
+
+def fleet_profiles(d: str) -> None:
+    """Phase 8: one window step inside a whole fleet run (the second of its
+    32), and one push of a live stream that completes exactly one window."""
+    run, (config, stats, params), (waves, masks, videos) = fleet_runner(d)
     profile_window_step(lambda: run("cuda"), f"window step 2 of {N_WINDOWS} inside a "
                         f"lockstep run of {FLEET} streams (W={W}; its fetch not included)")
-    inp.reset()
+    inp = streaming.StreamingInpainter(config, stats, params, CHUNK, LOOK, transcript=True,
+                                       device="cuda")
     n0 = (W - 1) * 192 + 384
     inp.push(waves[0, :n0], masks[0, :W], videos[0, :W])
     profile("one single-stream push completing one window (W=24)",
             lambda: inp.push(waves[0, n0 : n0 + PUSH], masks[0, W : W + CHUNK],
                              videos[0, W : W + CHUNK]))
-    return counts
 
 
 # ------------------------------------------------------------ training path
@@ -894,7 +1038,7 @@ def train_config(root: str) -> dict:
 
 
 def train_path(root: str) -> dict:
-    """Phase 6: `avsi_torch.train.loop.train` on the GPU.  Returns the
+    """Phase 7: `avsi_torch.train.loop.train` on the GPU.  Returns the
     launch counts of this path."""
     write_corpus(root)
     config_file = os.path.join(root, "train.config")
@@ -931,7 +1075,6 @@ def train_path(root: str) -> dict:
     print(f"training path: steady-state {np.mean(steady):.4f} s/step "
           f"({', '.join(f'{t:.4f}' for t in steady)}), {TRAIN_BATCH / np.mean(steady):.1f} "
           f"training utterances/s (steps after the first); card {card_line()}", flush=True)
-    profile_train_step(root, train_config(root))
     return counts
 
 
@@ -939,7 +1082,8 @@ def _train_step_setup(config: dict, device: str, params: dict):
     """A fresh train state on `device` holding a copy of `params`, and the
     train step; `config` is checked (`check_trainconfiguration`)."""
     model = registry.get_model(config["model"])
-    config = dict(config, lstm_impl=lstm_fused.resolve_impl(None, device))
+    config = dict(config, lstm_impl=lstm_fused.resolve_impl(
+        None, device, config["net_dim"], blstm.dtypes(config)[0]))
     params = checkpoints.params_from_flat(checkpoints.params_to_flat(params), device)
     state = train_state.create_train_state(params, config)
     stats = tuple(np.load(config[k]) for k in ("audio_feat_mean", "audio_feat_std"))
@@ -999,23 +1143,30 @@ def main() -> int:
     resolve_device()  # float32 products in full float32 (no TF32)
     errs, rows = check_and_time_kernels()
     cudnn_comparisons(rows)
-    cluster_sizes_compared()
+    plan_rules_compared()
     check_coincide()
+    check_k3_against_k1()
+    check_wide_layers()
     for batch in (8, TRAIN_BATCH):
         check_layer_grads(batch)
     time_stack()
 
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
         write_checkpoint(d)
+        # every path's host-side figures (requests/s, push latency, fleet
+        # stream-s per s, train step wall) before the process first runs the
+        # profiler: host time reads slower after profiler sessions
         counts = main_path(d)
         reference_check(d)
         counts["bilstm_recurrence_carry"] = stream_path(d)["bilstm_recurrence_carry"]
         full_window_check(d)
         fleet_path(d)
-    with tempfile.TemporaryDirectory() as d:
-        counts.update({k: v for k, v in train_path(d).items() if k in TRAINING})
+        counts.update({k: v for k, v in train_path(root).items() if k in TRAINING})
         for batch in (8, TRAIN_BATCH):
-            train_reference_check(train_config(d), batch)
+            train_reference_check(train_config(root), batch)
+        serving_profiles(d)
+        fleet_profiles(d)
+        profile_train_step(root, train_config(root))
 
     kernels = []
     for name, (_, replaces, source, batch) in KERNELS.items():

@@ -8,7 +8,9 @@ repo conftest imports JAX, which the GPU machine need not have).
 
 Tolerances: f32 atol 1e-4 (f32 sums over up to ~850 terms in another
 order, carried over 250 steps); bf16 atol 2e-2 (a one-ulp flip of a
-parity-cast gate input).
+parity-cast gate input).  K3 against K1's recurrence is held to the same
+tolerances, though one body on one plan should agree bit for bit
+(`chip_smoke.py` prints the difference).
 """
 
 import pytest
@@ -153,8 +155,12 @@ def _train_inputs(gen, t, b, h, dtype):
     return xw, wh
 
 
+# K3 (the cluster recurrence) and K4 at (T, B, H): one ragged tile, the
+# training batches 8 and 32, 128 (bf16 batch tiles of 16), an odd batch over
+# two tiles, and an odd H, whose bf16 gate rows start off 4-byte alignment.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(20, 2, 24), (250, 8, 250), (250, 32, 250)])
+@pytest.mark.parametrize("shape", [(20, 2, 24), (250, 8, 250), (250, 32, 250), (250, 128, 250),
+                                   (60, 13, 250), (60, 13, 251), (20, 3, 5)])
 def test_k3_k4_kernels_match_plain(dtype, shape):
     _need_cuda()
     t, b, h = shape
@@ -205,10 +211,12 @@ def _carry(gen, b, h):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(24, 1, 250), (24, 16, 250), (20, 2, 24)])
+@pytest.mark.parametrize("shape", [(24, 1, 250), (24, 16, 250), (20, 2, 24), (24, 3, 250),
+                                   (24, 13, 251)])
 def test_k5_kernel_matches_plain(dtype, shape):
-    """K5 at the streaming window (W=24: one stream, a fleet of 16) from
-    random carries in both directions."""
+    """K5 at the streaming window (W=24: one stream, a fleet of 16, a
+    ragged 3, an odd batch and H) from random carries in both
+    directions."""
     _need_cuda()
     t, b, h = shape
     gen = torch.Generator().manual_seed(4)
@@ -239,20 +247,134 @@ def test_k6_kernel_matches_plain(dtype, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_k5_k6_kernels_bit_equal(dtype):
-    """One body, three instantiations: K5 from zero carries writes K3's four
-    outputs bit for bit, and K6 K3's h streams."""
+@pytest.mark.parametrize("b", [8, 32])
+def test_k3_k5_k6_kernels_bit_equal(dtype, b):
+    """One body, three instances: K5 from zero carries writes K3's four
+    outputs bit for bit, and K6 K3's h streams (one plan at one batch)."""
     _need_cuda()
     gen = torch.Generator().manual_seed(6)
-    xw, wh = _train_inputs(gen, 250, 8, 250, dtype)
+    xw, wh = _train_inputs(gen, 250, b, 250, dtype)
     k3 = lstm_train.bilstm_recurrence_train(xw, wh)
-    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, 8, 250, device="cuda"))
+    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, b, 250, device="cuda"))
     k6 = lstm_window.bilstm_recurrence(xw, wh)
     torch.cuda.synchronize()
     for a, b in zip(k3, k5):
         assert torch.equal(a, b)
     for a, b in zip(k3[:2], k6):
         assert torch.equal(a, b)
+
+
+def one_hot_projection(gen, t, b, h, dtype):
+    """K1's inputs whose projection is exact: x (T,B,T*B) one-hot (row
+    (t, b) picks row t*B + b of wx), zero bias; and the xw (T,2,B,4H) that
+    K1's projection then computes, laid out for K3 (direction 1 in walk
+    order)."""
+    x = torch.eye(t * b).reshape(t, b, t * b).cuda().to(dtype)
+    wx = _w(gen, 2, t * b, 4 * h, scale=1.5).to(dtype)
+    bias = torch.zeros(2, 4 * h, device="cuda")
+    xw = torch.stack([wx[0].reshape(t, b, 4 * h), wx[1].reshape(t, b, 4 * h).flip(0)], dim=1)
+    return x, wx, bias, xw.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 3, 24), (250, 8, 250), (40, 32, 250)])
+def test_k3_matches_k1_recurrence(dtype, shape):
+    """One body: K3 given the parity-cast xw that K1's projection computes
+    (exactly, from one-hot rows) writes K1's h streams, both on the plan of
+    the same batch."""
+    _need_cuda()
+    t, b, h = shape
+    gen = torch.Generator().manual_seed(10)
+    x, wx, bias, xw = one_hot_projection(gen, t, b, h, dtype)
+    wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
+    k1 = lstm_fused.bilstm_fused_proj(x, wx, bias, wh)
+    k3 = lstm_train.bilstm_recurrence_train(xw, wh)
+    torch.cuda.synchronize()
+    for a, w in zip(k3[:2], k1):
+        assert (a - w).abs().max().item() <= TOL[dtype]
+
+
+def test_k3_k5_k6_refuse_a_width_without_a_plan():
+    """The cluster body refuses what `launch_plan` refuses (f32 H=2050)."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(11)
+    xw, wh = _train_inputs(gen, 4, 2, 2050, torch.float32)
+    with pytest.raises(ValueError, match="hidden=2050"):
+        lstm_train.bilstm_recurrence_train(xw, wh)
+    with pytest.raises(ValueError, match="hidden=2050"):
+        lstm_window.bilstm_recurrence(xw, wh)
+    with pytest.raises(ValueError, match="hidden=2050"):
+        lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, 2, 2050, device="cuda"))
+
+
+# Layers wider than a CTA holds whole (f32 H > 416, bf16 H > 624): the plan
+# keeps the first depth rows of each wh slice in shared memory and the
+# kernel reads the rest from global memory every step.  (dtype, T, B, H):
+# just past each limit, odd and ragged batches, up to the widest with a
+# plan (f32 2048, bf16 1024).
+WIDE = [(torch.float32, 20, 3, 418), (torch.float32, 20, 8, 512), (torch.float32, 12, 13, 1000),
+        (torch.float32, 6, 8, 2048), (torch.bfloat16, 20, 3, 626), (torch.bfloat16, 20, 8, 800),
+        (torch.bfloat16, 12, 13, 1024)]
+
+
+def _spills(hidden, batch, dtype, gate_major):
+    plan = lstm_fused.launch_plan(hidden, batch, dtype, lstm_fused.device_sm_count(0),
+                                  gate_major=gate_major)
+    return plan.resident < -(-hidden // 16) * 16
+
+
+@pytest.mark.parametrize("wide", WIDE, ids=lambda w: f"{str(w[0])[6:]}-T{w[1]}-B{w[2]}-H{w[3]}")
+def test_wide_k1_k2_read_the_rest_of_wh_from_global_memory(wide):
+    _need_cuda()
+    dtype, t, b, h = wide
+    assert _spills(h, b, dtype, gate_major=False)
+    gen = torch.Generator().manual_seed(12)
+    x = _w(gen, t, b, 64, scale=2.0).to(dtype)
+    wx = _w(gen, 2, 64, 4 * h, scale=0.125).to(dtype)
+    wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
+    bias = _w(gen, 2, 4 * h, scale=0.1)
+    before = dict(_build.launch_counts)
+    got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh)
+    _fused_check(got, lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh), dtype)
+    af, ab = (o.to(dtype) for o in got)
+    wxa, wxb = (_w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype) for _ in range(2))
+    got2 = lstm_fused.bilstm_fused_proj2(af, ab, wxa, wxb, bias, wh)
+    _fused_check(got2, lstm_fused.bilstm_fused_proj2_plain(af, ab, wxa, wxb, bias, wh), dtype)
+    assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
+        "bilstm_fused_proj": 1, "bilstm_fused_proj2": 1}
+
+
+@pytest.mark.parametrize("wide", WIDE, ids=lambda w: f"{str(w[0])[6:]}-T{w[1]}-B{w[2]}-H{w[3]}")
+def test_wide_k3_k4_k5_k6_match_plain(wide):
+    """K3, K5 (random carries in both directions) and K6 at widths past
+    the whole-slice limit, and K4 behind K3, against their plain versions."""
+    _need_cuda()
+    dtype, t, b, h = wide
+    if h not in (418, 626):  # these still fit whole without the xw ring
+        assert _spills(h, b, dtype, gate_major=True)
+    gen = torch.Generator().manual_seed(13)
+    xw, wh = _train_inputs(gen, t, b, h, dtype)
+    hc0 = _carry(gen, b, h)
+    before = dict(_build.launch_counts)
+    fwd = lstm_train.bilstm_recurrence_train(xw, wh)
+    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, hc0)
+    k6 = lstm_window.bilstm_recurrence(xw, wh)
+    dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
+    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
+        "bilstm_recurrence_train": 1, "bilstm_recurrence_carry": 1, "bilstm_recurrence": 1,
+        "bilstm_recurrence_bwd": 1}
+    want = lstm_train.bilstm_recurrence_train_plain(xw, wh)
+    for g, w in zip(fwd, want):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+    for g, w in zip(k6, want[:2]):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+    for g, w in zip(k5, lstm_window.bilstm_recurrence_carry_plain(xw, wh, hc0)):
+        assert (g - w).abs().max().item() <= TOL[dtype]
+    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
+    assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
 
 
 def test_lc_window_launches_k5_once_per_layer():

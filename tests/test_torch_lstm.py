@@ -20,6 +20,7 @@ import torch
 
 from avsi.models import core as jcore
 from avsi.ops import pallas_lstm
+from avsi_torch.infer import streaming
 from avsi_torch.models import core as tcore
 from avsi_torch.ops import _build, lstm_fused
 
@@ -151,15 +152,45 @@ def test_stack_impls_agree_in_f32():
 
 
 def test_resolve_impl():
-    assert lstm_fused.resolve_impl("auto", "cpu") == "plain"
-    assert lstm_fused.resolve_impl(None, "cuda") == "kernel"
-    assert lstm_fused.resolve_impl("scan", "cuda") == "scan"
-    assert lstm_fused.resolve_impl("plain", "cpu") == "plain"
+    flagship = ([250, 250, 250], torch.float32)
+    assert lstm_fused.resolve_impl("auto", "cpu", *flagship) == "plain"
+    assert lstm_fused.resolve_impl(None, "cuda", *flagship) == "kernel"
+    assert lstm_fused.resolve_impl("scan", "cuda", *flagship) == "scan"
+    assert lstm_fused.resolve_impl("plain", "cpu", *flagship) == "plain"
     with pytest.raises(ValueError):
-        lstm_fused.resolve_impl("kernel", "cpu")
+        lstm_fused.resolve_impl("kernel", "cpu", *flagship)
     with pytest.raises(ValueError):
-        lstm_fused.resolve_impl("plain", "cuda")
+        lstm_fused.resolve_impl("plain", "cuda", *flagship)
     with pytest.raises(ValueError):
-        lstm_fused.resolve_impl("pallas", "cpu")
+        lstm_fused.resolve_impl("pallas", "cpu", *flagship)
     with pytest.raises(ValueError):
         tcore.blstm_stack([], torch.zeros(1, 2, 3), impl="kernel")
+
+
+@pytest.mark.parametrize("hidden,dtype,want", [
+    (416, torch.float32, "kernel"), (418, torch.float32, "kernel"),
+    (2048, torch.float32, "kernel"), (2050, torch.float32, None),
+    (624, torch.bfloat16, "kernel"), (626, torch.bfloat16, "kernel"),
+    (1024, torch.bfloat16, "kernel"), (1026, torch.bfloat16, None)])
+def test_resolve_impl_width_rule(hidden, dtype, want):
+    """"auto" on a CUDA device takes the kernels at every width that has a
+    launch plan, those whose wh slice does not fit a CTA whole (f32 H >
+    416, bf16 H > 624) included, and raises, naming the width, where a
+    layer has none (f32 H > 2048, bf16 H > 1024), as an explicit "kernel"
+    does; it never swaps in the scan.  The CPU runs the plain versions at
+    any width, and "scan" stays what the caller asks for."""
+    widths = [250, hidden, 250]
+    assert lstm_fused.resolve_impl("auto", "cpu", widths, dtype) == "plain"
+    assert lstm_fused.resolve_impl("scan", "cuda", widths, dtype) == "scan"
+    calls = [lambda: lstm_fused.resolve_impl("auto", "cuda", widths, dtype),
+             lambda: lstm_fused.resolve_impl(None, "cuda", [hidden], dtype),
+             lambda: lstm_fused.resolve_impl("kernel", "cuda", widths, dtype),
+             lambda: streaming.resolve_stream_impl("auto", "cuda", torch.float32, widths, dtype),
+             lambda: streaming.resolve_stream_impl("kernel", "cuda", torch.float32, widths,
+                                                   dtype)]
+    for call in calls:
+        if want is None:
+            with pytest.raises(ValueError, match=f"hidden={hidden}"):
+                call()
+        else:
+            assert call() == want

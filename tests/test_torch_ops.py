@@ -24,6 +24,7 @@ from avsi.ops import mel as jmel
 from avsi.ops import phase as jphase
 from avsi.ops import stft as jstft
 from avsi_torch import device as tdevice
+from avsi_torch.ops import _build
 from avsi_torch.ops import ctc as tctc
 from avsi_torch.ops import masks as tmasks
 from avsi_torch.ops import mel as tmel
@@ -198,3 +199,12 @@ def test_port_imports_no_jax_and_no_avsi():
     sources = list((REPO / "avsi_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for src in sources:
         assert not _FORBIDDEN.search(src.read_text()), src
+
+
+def test_build_hash_covers_every_kernel_source():
+    """The kernels' library is named by a hash of `_build.SOURCES` and
+    `_build.HEADERS` only: every `.cu` and `.cuh` under `avsi_torch/csrc/`
+    must be listed, or an edit to it would load a stale library."""
+    csrc = REPO / "avsi_torch" / "csrc"
+    assert sorted(_build.SOURCES) == sorted(csrc.glob("*.cu"))
+    assert sorted(_build.HEADERS) == sorted(csrc.glob("*.cuh"))

@@ -362,19 +362,20 @@ def test_lockstep_validation():
 
 def test_resolve_stream_impl():
     f32, bf16 = torch.float32, torch.bfloat16
-    assert streaming.resolve_stream_impl("auto", "cpu", f32) == "plain"
-    assert streaming.resolve_stream_impl(None, "cuda", f32) == "kernel"
+    model = ([250, 250, 250], f32)  # the layer widths and compute dtype
+    assert streaming.resolve_stream_impl("auto", "cpu", f32, *model) == "plain"
+    assert streaming.resolve_stream_impl(None, "cuda", f32, *model) == "kernel"
     # bf16 gates: the scan, whose gates round as the trained function's do
-    assert streaming.resolve_stream_impl("auto", "cuda", bf16) == "scan"
-    assert streaming.resolve_stream_impl("auto", "cpu", bf16) == "scan"
-    assert streaming.resolve_stream_impl("scan", "cuda", f32) == "scan"
-    assert streaming.resolve_stream_impl("kernel", "cuda", bf16) == "kernel"
+    assert streaming.resolve_stream_impl("auto", "cuda", bf16, *model) == "scan"
+    assert streaming.resolve_stream_impl("auto", "cpu", bf16, *model) == "scan"
+    assert streaming.resolve_stream_impl("scan", "cuda", f32, *model) == "scan"
+    assert streaming.resolve_stream_impl("kernel", "cuda", bf16, *model) == "kernel"
     with pytest.raises(ValueError):
-        streaming.resolve_stream_impl("kernel", "cpu", f32)
+        streaming.resolve_stream_impl("kernel", "cpu", f32, *model)
     with pytest.raises(ValueError):
-        streaming.resolve_stream_impl("plain", "cuda", f32)
+        streaming.resolve_stream_impl("plain", "cuda", f32, *model)
     with pytest.raises(ValueError):
-        streaming.resolve_stream_impl("pallas", "cpu", f32)
+        streaming.resolve_stream_impl("pallas", "cpu", f32, *model)
 
 
 def test_unported_options_and_device_default(monkeypatch):

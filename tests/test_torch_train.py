@@ -31,8 +31,10 @@ from avsi.train import state as jstate
 from avsi_torch import config as tconfig_lib
 from avsi_torch.data import reader as treader
 from avsi_torch.data import tfrecord as ttfr
+from avsi_torch.infer import inpaint as tinpaint
 from avsi_torch.models import registry as tregistry
 from avsi_torch.ops import ctc as tctc
+from avsi_torch.ops import lstm_fused
 from avsi_torch.train import checkpoints as tckpt
 from avsi_torch.train import loop as tloop
 from avsi_torch.train import state as tstate
@@ -419,3 +421,30 @@ def test_train_refuses_what_is_not_ported(tmp_path):
         tconfig_lib.save_configfile(cfg, path)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tloop.train(path, device="cpu")
+
+
+def test_train_and_bundle_pass_the_config_widths(tmp_path, monkeypatch):
+    """`train()` and `load_model_bundle` resolve `lstm_impl` with the
+    config's layer widths and compute dtype (a 418-wide layer, whose wh
+    slice does not fit a CTA whole); `resolve_impl` is wrapped to record
+    what it is given.  A width without a launch plan raises on a CUDA
+    device, naming the width (`test_resolve_impl_width_rule`)."""
+    seen, resolve = [], lstm_fused.resolve_impl
+
+    def recording(requested, device, widths, compute_dtype):
+        seen.append((requested, torch.device(device).type, list(widths), compute_dtype))
+        return resolve(requested, device, widths, compute_dtype)
+
+    monkeypatch.setattr(lstm_fused, "resolve_impl", recording)
+    root = str(tmp_path / "corpus")
+    _write_corpus(root, n_train=2, n_val=1)
+    summary = tloop.train(_train_config(tmp_path, root, "exp", net_dim=[16, 418]), device="cpu")
+    assert summary["steps"] == 1
+    assert seen and seen[0] == (None, "cpu", [16, 418], torch.float32)
+    log = (tmp_path / "exp" / "training_log.txt").read_text()
+    assert "# device=cpu lstm_impl=plain" in log
+    seen.clear()
+    netmodel = str(tmp_path / "exp" / "netmodel")
+    config = tinpaint.load_model_bundle(netmodel, lstm_impl="scan", device="cpu")[0]
+    assert seen[0] == ("scan", "cpu", [16, 418], torch.float32)
+    assert config["net_dim"] == [16, 418] and config["lstm_impl"] == "scan"
