@@ -1,6 +1,7 @@
 // The bidirectional LSTM recurrence on thread-block clusters, for Hopper:
 // one body for K1/K2 (lstm_fused.cu, after their projection GEMM) and for
-// K3, K5 and K6 (lstm_train.cu, over a precomputed gate input).
+// K3, K5 and K6 (lstm_train.cu, over a precomputed gate input), and K4's
+// reverse walk on the same clusters and slices (rec_cluster_bwd, below).
 //
 // What it computes, per direction d and step s (the TPU kernels' `_cell`,
 // avsi/ops/pallas_lstm.py:100-118):
@@ -73,6 +74,7 @@
 #include <mutex>
 #include <set>
 #include <tuple>
+#include <utility>
 
 #include "lstm_common.cuh"
 
@@ -118,6 +120,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -186,19 +191,208 @@ __host__ __device__ inline RecLayout rec_layout(int hidden, int units, int bt, i
   return l;
 }
 
+// What avsi_torch/ops/lstm_train.py:bilstm_recurrence_bwd hands the walk.
+struct BwdArgs {
+  const void* xw;     // (T, 2, B, 4H) compute dtype, gate-major, direction 1 in walk order
+  const void* wh;     // (2, H, 4H) compute dtype
+  const float* h_f;   // K3's h streams (T, B, H) f32, original time order
+  const float* h_b;
+  const float* c_f;   // K3's c streams
+  const float* c_b;
+  const void* dout_f;  // upstream h gradients (T, B, H), compute dtype
+  const void* dout_b;
+  void* dxw;          // (T, 2, B, 4H) compute dtype, like xw
+  int t_len, batch, hidden, units, ksplit, resident;
+};
+
+// Row stride of the walk's f32 slice (4U columns and 4 floats of pad, so
+// that the dh_rec product's threads, one per depth row, fall in different
+// banks); bf16 keeps fragments and has no rows.
+template <typename T>
+__host__ __device__ inline int bwd_slice_stride(int units) {
+  return sizeof(T) == 2 ? 0 : 4 * units + 4;
+}
+
+// Byte offsets of the walk's shared buffers (16-byte aligned each);
+// avsi_torch/ops/lstm_train.py:bwd_smem_bytes mirrors the total.
+struct BwdLayout {
+  size_t wh, hs, hf, gs, dg, recv, total;
+};
+
+template <typename T>
+__host__ __device__ inline BwdLayout bwd_layout(int hidden, int units, int cluster, int bt,
+                                                int ksplit, int resident) {
+  const size_t g = 4 * (size_t)units;
+  const size_t kp = padded_depth(hidden);
+  const bool bf16 = sizeof(T) == 2;
+  BwdLayout l;
+  l.wh = 0;  // f32: [resident][4U + 4]; bf16: mma A fragments of [4U][resident]
+  l.hs = l.wh + align16((bf16 ? g : (size_t)bwd_slice_stride<T>(units)) * resident * sizeof(T));
+  l.hf = l.hs + align16(bt * (kp + 8) * sizeof(T));       // h_prev, [bt][kp + 8]
+  l.gs = l.hf + (bf16 ? align16((size_t)bt * hidden * 4) : 0);  // bf16: f32 h_prev [bt][H]
+  l.dg = l.gs + align16((size_t)ksplit * bt * g * 4);     // partial gates [ksplit][bt][4U]
+  l.recv = l.dg + (bf16 ? align16(bt * (g + 8) * 2) : 0);  // bf16 dgates [bt][4U + 8]
+  l.total = l.recv + align16(2 * (size_t)cluster * bt * units * 4);  // [2][N][bt][U] f32
+  return l;
+}
+
+// The transpose of an 8 x 8 bf16 matrix held in the mma fragment layout.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// The CTA's slice of wh[d] in global memory: column c = lu * 4 + gate <-
+// wh[d][k][gate * H + u0 + lu], zero past the CTA's units and past depth H.
+template <typename T>
+struct Slice {
+  const T* wh;  // wh[d], (H, 4H)
+  int hidden, u0, nu;
+
+  __device__ __forceinline__ T at(int c, int k) const {
+    const int lu = c / 4;
+    return (lu < nu && k < hidden)
+               ? wh[(size_t)k * 4 * hidden + (c % 4) * hidden + u0 + lu]
+               : from_f32<T>(0.0f);
+  }
+  // bf16: the mma A fragment (m-tile mt, k-step ks) of this lane for A =
+  // slice^T (m = gate column, k = depth)
+  __device__ __forceinline__ uint4 frag(int mt, int ks, int lane) const {
+    const int r = mt * 16 + lane / 4, k = ks * 16 + 2 * (lane % 4);
+    return make_uint4(pack_bf16(at(r, k), at(r, k + 1)), pack_bf16(at(r + 8, k), at(r + 8, k + 1)),
+                      pack_bf16(at(r, k + 8), at(r, k + 9)),
+                      pack_bf16(at(r + 8, k + 8), at(r + 8, k + 9)));
+  }
+  // bf16: the fragment (m-tile mk, k-step mc) for A = the slice itself (m =
+  // depth, k = gate column), the transpose of frag(mc, mk, lane)
+  __device__ __forceinline__ uint4 frag_t(int mk, int mc, int lane) const {
+    const int k = mk * 16 + lane / 4, c = mc * 16 + 2 * (lane % 4);
+    return make_uint4(pack_bf16(at(c, k), at(c + 1, k)), pack_bf16(at(c, k + 8), at(c + 1, k + 8)),
+                      pack_bf16(at(c + 8, k), at(c + 9, k)),
+                      pack_bf16(at(c + 8, k + 8), at(c + 9, k + 8)));
+  }
+};
+
+// The slice's first `kres` depth rows into shared memory: f32 rows of G
+// columns at a stride of `ws`; bf16 mma A fragments of slice^T, (m-tile,
+// k-step, lane), one uint4 each.
+template <typename T>
+__device__ __forceinline__ void load_slice(T* whs, int ws, const Slice<T>& sl, int G, int kres,
+                                           int tid, int nthr) {
+  if constexpr (sizeof(T) == 2) {
+    uint4* frag = reinterpret_cast<uint4*>(whs);
+    const int ks_res = kres / 16;
+    for (int i = tid; i < G / 16 * ks_res * kWarp; i += nthr) {
+      frag[i] = sl.frag(i / kWarp / ks_res, (i / kWarp) % ks_res, i % kWarp);
+    }
+  } else {
+    for (int i = tid; i < kres * G; i += nthr) whs[(i / G) * ws + i % G] = sl.at(i % G, i / G);
+  }
+}
+
+// The recurrent product's partial gates over depth slice ks:
+// gs[ks][r][c] = sum_k round_cd(h)[r][k] slice[k][c], h rows at a stride of
+// `hrow`, depth rows past `kres` (kSpill) read from global memory in the
+// same order.  rec_cluster and rec_cluster_bwd run this one code, so at one
+// depth split their gates are equal bit for bit.
+template <typename T, int BT, bool kSpill>
+__device__ __forceinline__ void partial_gates(const T* whs, int ws, const Slice<T>& sl,
+                                              const T* h_cur, int hrow, float* gs, int G,
+                                              int ksplit, int kres, int tid, int nthr) {
+  const int kp = padded_depth(sl.hidden);
+  if constexpr (sizeof(T) == 2) {
+    const int ksteps = kp / 16, ks_res = kres / 16, mt_n = G / 16;
+    const int lane = tid % kWarp, g = lane / 4, tg = lane % 4;
+    const uint4* frag = reinterpret_cast<const uint4*>(whs);
+    for (int w = tid / kWarp; w < mt_n * ksplit; w += nthr / kWarp) {
+      const int mt = w % mt_n, ks = w / mt_n;
+      float acc[BT / 8][4] = {};
+      auto mma_step = [&](const uint4& f, int kk) {
+        const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int nt = 0; nt < BT / 8; ++nt) {
+          const T* hr = h_cur + (nt * 8 + g) * hrow + kk * 16 + 2 * tg;
+          mma_bf16(acc[nt], a, ld_u32(hr), ld_u32(hr + 8));
+        }
+      };
+      if constexpr (kSpill) {  // k-steps in order: the resident ones, then those from wh
+        int kk = ks;
+        for (; kk < ks_res; kk += ksplit) mma_step(frag[(mt * ks_res + kk) * kWarp + lane], kk);
+        for (; kk < ksteps; kk += ksplit) mma_step(sl.frag(mt, kk, lane), kk);
+      } else {
+        for (int kk = ks; kk < ksteps; kk += ksplit) {
+          mma_step(frag[(mt * ksteps + kk) * kWarp + lane], kk);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < BT / 8; ++nt) {
+        float* o = gs + (ks * BT + nt * 8 + 2 * tg) * G + mt * 16 + g;
+        o[0] = acc[nt][0];
+        o[G] = acc[nt][1];
+        o[8] = acc[nt][2];
+        o[G + 8] = acc[nt][3];
+      }
+    }
+  } else {
+    // thread (column quad cq, depth slice ks): 4 columns x BT rows in
+    // registers; per 4 k one float4 of wh per k and one broadcast float4 of
+    // h per row, so each h read feeds 16 multiply-adds
+    const int U = G / 4;
+    const int k_chunk = (kp / 4 + ksplit - 1) / ksplit * 4;  // whole float4s
+    for (int w = tid; w < U * ksplit; w += nthr) {
+      const int cq = w % U, ks = w / U, k_hi = min(kp, (ks + 1) * k_chunk);
+      float acc[BT][4] = {};
+      auto fma_rows = [&](const float (&wv)[4][4], int k) {
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          float hv[4];
+          load4(hv, h_cur + r * hrow + k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[r][j] = fmaf(hv[3], wv[3][j], fmaf(hv[2], wv[2][j],
+                        fmaf(hv[1], wv[1][j], fmaf(hv[0], wv[0][j], acc[r][j]))));
+          }
+        }
+      };
+      // depth rows in order: the resident ones, then (kSpill) those read
+      // from wh, unit cq's four gates H apart there
+      int k = ks * k_chunk;
+      for (; k < (kSpill ? min(k_hi, kres) : k_hi); k += 4) {
+        float wv[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) load4(wv[kk], whs + (k + kk) * ws + cq * 4);
+        fma_rows(wv, k);
+      }
+      for (; kSpill && k < k_hi; k += 4) {
+        float wv[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wv[kk][j] = to_f32<T>(sl.at(cq * 4 + j, k + kk));
+        }
+        fma_rows(wv, k);
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r) {
+        *reinterpret_cast<float4*>(gs + (ks * BT + r) * G + cq * 4) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    }
+  }
+}
+
 // One CTA of the cluster for (direction blockIdx.y, batch tile blockIdx.x / N):
 // gate columns of units [rank*U, rank*U + nu), rows [b0, b0 + BT) of the batch.
 template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut, bool kSpill>
 __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr bool kGateMajor = kXw == XwLayout::kGateMajor;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
   const int dir = blockIdx.y, b0 = (blockIdx.x / n_cta) * BT;
   const int H = p.hidden, U = p.units, G = 4 * U, u0 = rank * U;
   const int nu = max(0, min(U, H - u0));
-  const int kp = padded_depth(H), ksteps = kp / 16, mt_n = G / 16;
-  const int kres = p.resident, ks_res = kres / 16;  // depth rows (k-steps) held in whs
+  const int kp = padded_depth(H), kres = p.resident;  // kres: depth rows held in whs
   const int hrow = kp + 8, h_buf = BT * hrow;  // h row stride; elements per parity buffer
   const size_t g4 = 4 * (size_t)H;
   const RecLayout lay = rec_layout<T>(H, U, BT, p.ksplit, kres, !kGateMajor);
@@ -208,7 +402,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
   T* ring = reinterpret_cast<T*>(rec_smem + lay.ring);
   float* gs = reinterpret_cast<float*>(rec_smem + lay.gs);
   float* cs = reinterpret_cast<float*>(rec_smem + lay.cs);
-  const T* wh = static_cast<const T*>(p.wh) + (size_t)dir * H * g4;
+  const Slice<T> sl{static_cast<const T*>(p.wh) + (size_t)dir * H * g4, H, u0, nu};
   // kUnitMajor: rows (t, b) of direction dir; kGateMajor: rows (s, dir, b)
   const T* xw = static_cast<const T*>(p.xw) +
                 (size_t)dir * (kGateMajor ? 1 : p.t_len) * p.batch * g4;
@@ -216,27 +410,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
   float* c_out = dir == 0 ? p.c_f : p.c_b;
   const int tid = threadIdx.x, nthr = blockDim.x, items = U * BT;
 
-  // the slice of wh[d], column c = lu * 4 + gate <- wh[d][k][gate * H + u0 + lu]
-  auto wh_at = [&](int c, int k) -> T {
-    const int lu = c / 4;
-    return (lu < nu && k < H) ? wh[(size_t)k * g4 + (c % 4) * H + u0 + lu] : from_f32<T>(0.0f);
-  };
-  // the mma A fragment (m-tile mt, k-step ks) of this lane: A = slice^T
-  auto frag_at = [&](auto mt, int ks, int lane) -> uint4 {  // generic: bf16 only
-    const int r = mt * 16 + lane / 4, k = ks * 16 + 2 * (lane % 4);
-    return make_uint4(pack_bf16(wh_at(r, k), wh_at(r, k + 1)),
-                      pack_bf16(wh_at(r + 8, k), wh_at(r + 8, k + 1)),
-                      pack_bf16(wh_at(r, k + 8), wh_at(r, k + 9)),
-                      pack_bf16(wh_at(r + 8, k + 8), wh_at(r + 8, k + 9)));
-  };
-  if constexpr (kBf16) {  // fragment (mt, kstep, lane), one uint4 each
-    uint4* frag = reinterpret_cast<uint4*>(whs);
-    for (int i = tid; i < mt_n * ks_res * kWarp; i += nthr) {
-      frag[i] = frag_at(i / kWarp / ks_res, (i / kWarp) % ks_res, i % kWarp);
-    }
-  } else {
-    for (int i = tid; i < kres * G; i += nthr) whs[i] = wh_at(i % G, i / G);
-  }
+  load_slice<T>(whs, G, sl, G, kres, tid, nthr);
   // h: buffer 0 holds h0 (round_cd(h0) with kCarry, else 0), pads and rows
   // past the batch 0; buffer 1 is 0 until the first step writes it
   for (int i = tid; i < 2 * h_buf; i += nthr) {
@@ -307,84 +481,8 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
     const T* h_cur = hs + (s & 1) * h_buf;
     T* h_next = hs + ((s + 1) & 1) * h_buf;
 
-    // (b) partial gates over depth slice ks: gs[ks][r][c] = sum_k round_cd(h)[r][k] wh[k][c]
-    if constexpr (kBf16) {
-      const int lane = tid % kWarp, g = lane / 4, tg = lane % 4;
-      const uint4* frag = reinterpret_cast<const uint4*>(whs);
-      for (int w = tid / kWarp; w < mt_n * p.ksplit; w += nthr / kWarp) {
-        const int mt = w % mt_n, ks = w / mt_n;
-        float acc[BT / 8][4] = {};
-        auto mma_step = [&](const uint4& f, int kk) {
-          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-          for (int nt = 0; nt < BT / 8; ++nt) {
-            const T* hr = h_cur + (nt * 8 + g) * hrow + kk * 16 + 2 * tg;
-            mma_bf16(acc[nt], a, ld_u32(hr), ld_u32(hr + 8));
-          }
-        };
-        if constexpr (kSpill) {  // k-steps in order: the resident ones, then those from wh
-          int kk = ks;
-          for (; kk < ks_res; kk += p.ksplit) mma_step(frag[(mt * ks_res + kk) * kWarp + lane], kk);
-          for (; kk < ksteps; kk += p.ksplit) mma_step(frag_at(mt, kk, lane), kk);
-        } else {
-          for (int kk = ks; kk < ksteps; kk += p.ksplit) {
-            mma_step(frag[(mt * ksteps + kk) * kWarp + lane], kk);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < BT / 8; ++nt) {
-          float* o = gs + (ks * BT + nt * 8 + 2 * tg) * G + mt * 16 + g;
-          o[0] = acc[nt][0];
-          o[G] = acc[nt][1];
-          o[8] = acc[nt][2];
-          o[G + 8] = acc[nt][3];
-        }
-      }
-    } else {
-      // thread (column quad cq, depth slice ks): 4 columns x BT rows in
-      // registers; per 4 k one float4 of wh per k and one broadcast float4 of
-      // h per row, so each h read feeds 16 multiply-adds
-      const int k_chunk = (kp / 4 + p.ksplit - 1) / p.ksplit * 4;  // whole float4s
-      for (int w = tid; w < U * p.ksplit; w += nthr) {
-        const int cq = w % U, ks = w / U, k_hi = min(kp, (ks + 1) * k_chunk);
-        float acc[BT][4] = {};
-        auto fma_rows = [&](const float (&wv)[4][4], int k) {
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            float hv[4];
-            load4(hv, h_cur + r * hrow + k);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[r][j] = fmaf(hv[3], wv[3][j], fmaf(hv[2], wv[2][j],
-                          fmaf(hv[1], wv[1][j], fmaf(hv[0], wv[0][j], acc[r][j]))));
-            }
-          }
-        };
-        // depth rows in order: the resident ones, then (kSpill) those read
-        // from wh, unit cq's four gates H apart there
-        int k = ks * k_chunk;
-        for (; k < (kSpill ? min(k_hi, kres) : k_hi); k += 4) {
-          float wv[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) load4(wv[kk], whs + (k + kk) * G + cq * 4);
-          fma_rows(wv, k);
-        }
-        for (; kSpill && k < k_hi; k += 4) {
-          float wv[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wv[kk][j] = to_f32<T>(wh_at(cq * 4 + j, k + kk));
-          }
-          fma_rows(wv, k);
-        }
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          *reinterpret_cast<float4*>(gs + (ks * BT + r) * G + cq * 4) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        }
-      }
-    }
+    // (b) partial gates over depth slice ks
+    partial_gates<T, BT, kSpill>(whs, G, sl, h_cur, hrow, gs, G, p.ksplit, kres, tid, nthr);
     if constexpr (!kGateMajor) cp_async_wait_one();  // (a) this step's xw rows have landed
     __syncthreads();  // every partial gate is in gs
 
@@ -445,50 +543,338 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
   }
 }
 
+// ------------------------------------------------------------ the reverse walk
+
+// rec_cluster_bwd: K4's reverse walk (the TPU kernel's _bwd_dir,
+// avsi/ops/pallas_lstm.py:563-596) on rec_cluster's cluster and plan.  Per
+// direction d and kernel step s = T-1 .. 0, with the f32 carries dc and
+// dh_rec (zero at s = T-1):
+//   gates = xw_s + round_cd(h_prev) . wh[d]             (partial_gates: K3's sums)
+//   dh = dout_s + dh_rec;  do = dh tanh(c) o(1-o);  dc += dh o (1 - tanh(c)^2)
+//   di = dc g i(1-i);  df = dc c_prev f(1-f);  dg = dc i (1-g^2);  dc *= f
+//   dxw_s = round_cd(dgates);  dh_rec = dxw_s . wh[d]^T  (f32 sums)
+// h_prev and c_prev are K3's f32 streams at the previous kernel step (zero at
+// s = 0); c and dout are at this one.
+//
+// CTA `rank` owns units [rank*U, rank*U + nu) with their four gates and keeps
+// the same (H x 4U) slice of wh[d] in shared memory as the forward (its first
+// `resident` depth rows; the rest from global memory in the same order).
+// The slice serves both products: the gates read it along the depth, dh_rec
+// along the gate columns.  Per step:
+//  1. h_prev for all H units of the tile's rows, staged from global memory
+//     into one buffer by cp.async, issued a step ahead (as soon as the
+//     gates have read the buffer), so the copies fly during the cell, the
+//     dh_rec product and the barrier and hold no registers (loaded into
+//     registers a step ahead, they held the step up on the H100); bf16
+//     lands in an f32 buffer and is rounded into hs by the thread that
+//     copied it.
+//  2. the partial gates, partial_gates (K3's code at K3's depth split).
+//  3. the cell backward for the CTA's own (row, unit) cells, dc in
+//     registers; round_cd(dgates) kept for dxw, which goes out gate-major
+//     (consecutive threads, consecutive units) between the cluster
+//     barrier's arrive and wait, and into a shared [BT][4U] buffer (f32: the
+//     partial gates' plane 0, which each cell reads before it writes the
+//     same four columns; bf16: a buffer of its own, rows padded by 8).
+//  4. the partial dh_rec over the CTA's 4U columns for all H units:
+//     P[r][k] = sum_c dg[r][c] slice[k][c].  f32: a thread per depth row k
+//     and all BT rows, the slice's rows padded by 4 floats so that a warp's
+//     rows fall in different banks, dgates read as broadcasts.  bf16:
+//     mma.sync with A = the slice (m = depth, k = gate column), made from
+//     the resident fragments of slice^T by movmatrix.trans, four per
+//     fragment, so the slice is held once in the forward's fragment order
+//     and costs no resident rows; B = dgates^T.
+//  5. reduce-scatter through DSMEM: P[:, units of q] goes into CTA q's
+//     receive buffer, slot `rank`, double-buffered by step parity.  After the
+//     step's one cluster barrier each CTA sums its N slots in rank order 0 ..
+//     N-1 (in the next step's cell), so dh_rec is the same from run to run.
+//     Only a unit's owner needs its dh_rec: nothing is all-gathered.
+// The last step (s = 0) has no dh_rec to pass on, so it ends after its cell.
+template <typename T, int BT, bool kSpill>
+__global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs p) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = (int)cluster.dim_blocks().x, rank = (int)cluster.block_rank();
+  const int dir = blockIdx.y, b0 = (blockIdx.x / n_cta) * BT;
+  const int H = p.hidden, U = p.units, G = 4 * U, u0 = rank * U;
+  const int nu = max(0, min(U, H - u0));
+  const int kp = padded_depth(H), kres = p.resident;
+  const int hrow = kp + 8, ws = bwd_slice_stride<T>(U), dgrow = G + 8, slots = n_cta * BT * U;
+  const size_t g4 = 4 * (size_t)H;
+  const BwdLayout lay = bwd_layout<T>(H, U, n_cta, BT, p.ksplit, kres);
+  extern __shared__ __align__(16) unsigned char rec_smem[];
+  T* whs = reinterpret_cast<T*>(rec_smem + lay.wh);
+  T* hs = reinterpret_cast<T*>(rec_smem + lay.hs);
+  float* gs = reinterpret_cast<float*>(rec_smem + lay.gs);
+  T* dgs = reinterpret_cast<T*>(rec_smem + lay.dg);  // bf16 only
+  float* hf = reinterpret_cast<float*>(rec_smem + lay.hf);  // bf16 only
+  float* recv = reinterpret_cast<float*>(rec_smem + lay.recv);  // [2][N][BT][U]
+  const Slice<T> sl{static_cast<const T*>(p.wh) + (size_t)dir * H * g4, H, u0, nu};
+  const T* xw = static_cast<const T*>(p.xw) + (size_t)dir * p.batch * g4;  // rows (s, dir, b)
+  T* dxw = static_cast<T*>(p.dxw) + (size_t)dir * p.batch * g4;
+  const float* h_src = dir == 0 ? p.h_f : p.h_b;
+  const float* c_src = dir == 0 ? p.c_f : p.c_b;
+  const T* d_src = static_cast<const T*>(dir == 0 ? p.dout_f : p.dout_b);
+  const int tid = threadIdx.x, nthr = blockDim.x, items = U * BT;
+
+  load_slice<T>(whs, ws, sl, G, kres, tid, nthr);
+  for (int i = tid; i < BT * hrow; i += nthr) hs[i] = from_f32<T>(0.0f);  // pads stay 0
+  for (int i = tid; i < 2 * slots; i += nthr) recv[i] = 0.0f;  // dh_rec = 0 at the first step
+
+  // original time of kernel step s, and of step s - 1 (valid for s > 0)
+  auto t_of = [&](int s) { return dir == 0 ? s : p.t_len - 1 - s; };
+  auto tp_of = [&](int s) { return dir == 0 ? s - 1 : p.t_len - s; };
+  // this thread's cells j at step s: the four gates of xw, c, c_prev, dout
+  T xg[kRecItemsMax][4];
+  float cc[kRecItemsMax], cprev[kRecItemsMax], dy[kRecItemsMax], dc[kRecItemsMax];
+  auto fetch = [&](int s) {
+    const T* row = xw + (size_t)s * 2 * p.batch * g4;
+    const size_t t = t_of(s), tp = tp_of(s);
+#pragma unroll
+    for (int j = 0; j < kRecItemsMax; ++j) {
+      const int i = tid + j * nthr, lu = i % U, b = b0 + i / U;
+      if (i < items && lu < nu && b < p.batch) {
+        const T* x = row + (size_t)b * g4 + u0 + lu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xg[j][q] = x[(size_t)q * H];
+        const size_t at = (t * p.batch + b) * H + u0 + lu;
+        cc[j] = c_src[at];
+        dy[j] = to_f32<T>(d_src[at]);
+        cprev[j] = s > 0 ? c_src[(tp * p.batch + b) * H + u0 + lu] : 0.0f;
+      }
+    }
+  };
+  // h_prev of step s >= 1 (K3's h at kernel step s - 1) for the tile's rows
+  // in the batch: f32 straight into hs, bf16 into the f32 buffer hf, by
+  // cp.async, so that neither registers nor the barrier's release wait on
+  // the loads.  Thread tid copies units tid, tid + nthr, ... of every row.
+  float* h_dst = kBf16 ? hf : reinterpret_cast<float*>(hs);
+  const int h_stride = kBf16 ? H : hrow;
+  auto fetch_h = [&](int s) {
+    const size_t tp = tp_of(s);
+    for (int r = 0; r < BT && b0 + r < p.batch; ++r) {
+      const float* src = h_src + (tp * p.batch + b0 + r) * H;
+      for (int k = tid; k < H; k += nthr) cp_async<4>(h_dst + r * h_stride + k, src + k);
+    }
+    cp_async_commit();
+  };
+  // hs = round_cd(h_prev) of step s, zero at s = 0 (rows past the batch and
+  // the pads stay 0): each thread waits for its own copies and rounds them
+  auto stage_h = [&](int s) {
+    cp_async_wait_all();
+    if (!kBf16 && s > 0) return;
+    for (int r = 0; r < BT && b0 + r < p.batch; ++r) {
+      for (int k = tid; k < H; k += nthr) {
+        hs[r * hrow + k] = from_f32<T>(s > 0 ? h_dst[r * h_stride + k] : 0.0f);
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kRecItemsMax; ++j) dc[j] = 0.0f;
+  if (p.t_len > 0) fetch(p.t_len - 1);
+  // every CTA runs and has zeroed its receive slots before any peer writes,
+  // and hs before its own copies land there
+  cluster.sync();
+  if (p.t_len > 1) fetch_h(p.t_len - 1);
+
+  for (int s = p.t_len - 1, n = 0; s >= 0; --s, ++n) {
+    stage_h(s);
+    __syncthreads();  // h_prev staged
+    partial_gates<T, BT, kSpill>(whs, ws, sl, hs, hrow, gs, G, p.ksplit, kres, tid, nthr);
+    __syncthreads();  // every partial gate is in gs; hs is free
+    if (s > 1) fetch_h(s - 1);
+
+    // (3) the cell backward; dh_rec = the N slots of parity n, in rank order
+    const float* rin = recv + (n & 1) * slots;
+    T dq[kRecItemsMax][4];  // round_cd(dgates) of this thread's cells, for dxw
+#pragma unroll
+    for (int j = 0; j < kRecItemsMax; ++j) {
+      const int i = tid + j * nthr, lu = i % U, r = i / U, b = b0 + r;
+      if (i >= items) continue;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // dgates; 0 past the batch and the units
+      if (lu < nu && b < p.batch) {
+        float gate[4], prod[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] = to_f32<T>(xg[j][q]);
+        for (int ks = 0; ks < p.ksplit; ++ks) {
+          float part[4];
+          load4(part, gs + (ks * BT + r) * G + lu * 4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) prod[q] = ks == 0 ? part[q] : prod[q] + part[q];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[q] += prod[q];
+        float dh_rec = 0.0f;
+#pragma unroll 4
+        for (int q = 0; q < n_cta; ++q) dh_rec += rin[(q * BT + r) * U + lu];
+        const float ig = sigmoid(gate[0]), fg = sigmoid(gate[1]);
+        const float gg = tanhf(gate[2]), og = sigmoid(gate[3]);
+        const float tc = tanhf(cc[j]);
+        const float dh = dy[j] + dh_rec;
+        const float d_o = dh * tc * og * (1.0f - og);
+        const float dcv = dc[j] + dh * og * (1.0f - tc * tc);
+        d[0] = dcv * gg * ig * (1.0f - ig);
+        d[1] = dcv * cprev[j] * fg * (1.0f - fg);
+        d[2] = dcv * ig * (1.0f - gg * gg);
+        d[3] = d_o;
+        dc[j] = dcv * fg;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dq[j][q] = from_f32<T>(d[q]);
+          d[q] = to_f32<T>(dq[j][q]);
+        }
+      }
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dgs[r * dgrow + lu * 4 + q] = from_f32<T>(d[q]);
+      } else {
+        *reinterpret_cast<float4*>(gs + r * G + lu * 4) = make_float4(d[0], d[1], d[2], d[3]);
+      }
+    }
+    // dxw of this step's cells, gate-major: consecutive threads, consecutive units
+    auto store_dxw = [&]() {
+#pragma unroll
+      for (int j = 0; j < kRecItemsMax; ++j) {
+        const int i = tid + j * nthr, lu = i % U, b = b0 + i / U;
+        if (i < items && lu < nu && b < p.batch) {
+          T* out = dxw + (s * 2 * (size_t)p.batch + b) * g4 + u0 + lu;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out[(size_t)q * H] = dq[j][q];
+        }
+      }
+    };
+    if (s == 0) {  // nothing to pass on
+      store_dxw();
+      break;
+    }
+    fetch(s - 1);  // the next step's inputs fly during the product and the barrier
+    __syncthreads();  // every dgate is staged
+
+    // (4, 5) P[r][k] for all H units k, into the slot `rank` of k's owner
+    float* rout = recv + ((n + 1) & 1) * slots + rank * BT * U;
+    auto slot = [&](int k) {  // unit k's column of this CTA's slot in its owner
+      const int q = k / U;
+      return cluster.map_shared_rank(rout, q) + k - q * U;
+    };
+    if constexpr (kBf16) {
+      const int ksteps = kp / 16, ks_res = kres / 16, mt_n = G / 16;
+      const int lane = tid % kWarp, g = lane / 4, tg = lane % 4;
+      const uint4* frag = reinterpret_cast<const uint4*>(whs);
+      for (int mk = tid / kWarp; mk < ksteps; mk += nthr / kWarp) {
+        float acc[BT / 8][4] = {};
+        for (int mc = 0; mc < mt_n; ++mc) {
+          uint4 f;
+          if (!kSpill || mk < ks_res) {  // fragment (mc, mk) of slice^T, transposed
+            const uint4 ft = frag[(mc * ks_res + mk) * kWarp + lane];
+            f = make_uint4(movmatrix_t(ft.x), movmatrix_t(ft.z), movmatrix_t(ft.y),
+                           movmatrix_t(ft.w));
+          } else {
+            f = sl.frag_t(mk, mc, lane);
+          }
+          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int nt = 0; nt < BT / 8; ++nt) {
+            const T* dr = dgs + (nt * 8 + g) * dgrow + mc * 16 + 2 * tg;
+            mma_bf16(acc[nt], a, ld_u32(dr), ld_u32(dr + 8));
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < BT / 8; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {  // D[k][r]: rows g and g + 8
+            const int k = mk * 16 + g + 8 * half, r = nt * 8 + 2 * tg;
+            if (k < H) {
+              float* to = slot(k);
+              to[r * U] = acc[nt][2 * half];
+              to[(r + 1) * U] = acc[nt][2 * half + 1];
+            }
+          }
+        }
+      }
+    } else {
+      for (int k = tid; k < H; k += nthr) {
+        float acc[BT] = {};
+        auto fma_rows = [&](const float (&wv)[4], int c) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            float dv[4];
+            load4(dv, gs + r * G + c);
+            acc[r] = fmaf(dv[3], wv[3], fmaf(dv[2], wv[2], fmaf(dv[1], wv[1], fmaf(dv[0], wv[0], acc[r]))));
+          }
+        };
+        if (!kSpill || k < kres) {
+          for (int c = 0; c < G; c += 4) {
+            float wv[4];
+            load4(wv, whs + k * ws + c);
+            fma_rows(wv, c);
+          }
+        } else {
+          for (int c = 0; c < G; c += 4) {
+            float wv[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) wv[q] = to_f32<T>(sl.at(c + q, k));
+            fma_rows(wv, c);
+          }
+        }
+        float* to = slot(k);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) to[r * U] = acc[r];
+      }
+    }
+    // one cluster barrier per step: arrive releases the DSMEM stores, the
+    // peers' partials are visible after wait, and nobody writes this
+    // parity's slots again before every CTA has read them (next step).
+    // dxw goes out between the two, off the release.
+    cluster_arrive();
+    store_dxw();
+    cluster_wait();
+  }
+}
+
 // ------------------------------------------------------------ launchers
 
-template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut, bool kSpill>
-int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
-  auto kernel = rec_cluster<T, O, BT, kXw, kCarry, kCellOut, kSpill>;
-  const int threads = (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit;
-  if (cluster < 1 || cluster > 16 || p.units % 4 != 0 || p.ksplit < 1 ||
-      threads > rec_threads_max<T>() || p.units * BT > kRecItemsMax * threads ||
-      (sizeof(T) == 4 && 4 * p.ksplit > padded_depth(p.hidden)) ||
-      (long)cluster * p.units < p.hidden || p.resident < 0 || p.resident % 16 != 0 ||
-      (p.resident < padded_depth(p.hidden)) != kSpill || p.resident > padded_depth(p.hidden)) {
-    return (int)cudaErrorInvalidValue;  // not a plan of launch_plan's
-  }
-  const size_t smem =
-      rec_layout<T>(p.hidden, p.units, BT, p.ksplit, p.resident, kXw == XwLayout::kUnitMajor)
-          .total;
+// Whether (cluster, units, ksplit, resident) at batch tile BT is a plan of
+// launch_plan's (or bwd_plan's) that the kernels can run.
+template <typename T, int BT, bool kSpill>
+bool plan_ok(int hidden, int cluster, int units, int ksplit, int resident) {
+  const int threads = (sizeof(T) == 2 ? 8 : 1) * units * ksplit, kp = padded_depth(hidden);
+  return cluster >= 1 && cluster <= 16 && units % 4 == 0 && ksplit >= 1 &&
+         threads <= rec_threads_max<T>() && units * BT <= kRecItemsMax * threads &&
+         !(sizeof(T) == 4 && 4 * ksplit > kp) && (long)cluster * units >= hidden &&
+         resident >= 0 && resident % 16 == 0 && (resident < kp) == kSpill && resident <= kp;
+}
+
+// Launch a cluster kernel over (cluster x batch tiles, 2 directions).
+// Once per device and kernel: opt the kernel in to the card's largest
+// dynamic shared memory (an upper bound, so every plan's size fits under it)
+// and to clusters of 16.  Once per (device, kernel, plan): check that one
+// cluster of the plan fits the card.  The occupancy query costs more host
+// time than the launch, and the serving loop is host-bound.
+template <typename Args>
+int launch_cluster(void (*kernel)(Args), const Args& p, int cluster, int tiles, int threads,
+                   size_t smem, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * ((p.batch + BT - 1) / BT), 2, 1);
+  cfg.gridDim = dim3(cluster * tiles, 2, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // Once per device and instance (the statics are per template instance):
-  // opt the kernel in to the card's largest dynamic shared memory (an upper
-  // bound, so every plan's size fits under it) and to clusters of 16.  Once
-  // per (device, plan): check that one cluster of the plan fits the card.
-  // The occupancy query costs more host time than the launch, and the
-  // serving loop is host-bound.
   static std::mutex mutex;
-  static std::set<int> ready;
-  static std::set<std::tuple<int, int, int, size_t>> checked;
+  static std::set<std::pair<const void*, int>> ready;
+  static std::set<std::tuple<const void*, int, int, int, size_t>> checked;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  const auto key = std::make_tuple(device, cluster, threads, smem);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const auto key = std::make_tuple(fn, device, cluster, threads, smem);
   {
     std::lock_guard<std::mutex> lock(mutex);
-    if (!ready.count(device)) {
+    if (!ready.count({fn, device})) {
       int optin = 0;
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
       if (err == cudaSuccess) {
@@ -498,7 +884,7 @@ int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       }
       if (err != cudaSuccess) return (int)err;
-      ready.insert(device);
+      ready.insert({fn, device});
     }
     if (!checked.count(key)) {
       int active = 0;
@@ -509,6 +895,45 @@ int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
     }
   }
   return (int)cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut, bool kSpill>
+int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
+  if (!plan_ok<T, BT, kSpill>(p.hidden, cluster, p.units, p.ksplit, p.resident)) {
+    return (int)cudaErrorInvalidValue;  // not a plan of launch_plan's
+  }
+  const size_t smem =
+      rec_layout<T>(p.hidden, p.units, BT, p.ksplit, p.resident, kXw == XwLayout::kUnitMajor)
+          .total;
+  return launch_cluster(rec_cluster<T, O, BT, kXw, kCarry, kCellOut, kSpill>, p, cluster,
+                        (p.batch + BT - 1) / BT,
+                        (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit, smem, stream);
+}
+
+template <typename T, int BT, bool kSpill>
+int launch_bwd_walk(const BwdArgs& p, int cluster, cudaStream_t stream) {
+  if (!plan_ok<T, BT, kSpill>(p.hidden, cluster, p.units, p.ksplit, p.resident)) {
+    return (int)cudaErrorInvalidValue;  // not a plan of bwd_plan's
+  }
+  const size_t smem = bwd_layout<T>(p.hidden, p.units, cluster, BT, p.ksplit, p.resident).total;
+  return launch_cluster(rec_cluster_bwd<T, BT, kSpill>, p, cluster, (p.batch + BT - 1) / BT,
+                        (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit, smem, stream);
+}
+
+// The reverse walk under a plan of bwd_plan's; nothing to do at T = 0 or B = 0.
+template <typename T>
+int launch_bwd_walk_plan(BwdArgs p, const Plan& plan, cudaStream_t s) {
+  if (p.t_len == 0 || p.batch == 0) return 0;
+  p.units = plan.units;
+  p.ksplit = plan.ksplit;
+  p.resident = plan.resident;
+  if (plan.resident < padded_depth(p.hidden)) {  // a wide layer: bwd_plan spills on tiles of 8
+    if (plan.btile != 8) return (int)cudaErrorInvalidValue;
+    return launch_bwd_walk<T, 8, true>(p, plan.cluster, s);
+  }
+  if (plan.btile == 8) return launch_bwd_walk<T, 8, false>(p, plan.cluster, s);
+  if (plan.btile == 16) return launch_bwd_walk<T, 16, false>(p, plan.cluster, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The recurrence under a plan of launch_plan's (the batch tile and the resident depth pick the

@@ -47,12 +47,14 @@ _SIGNATURES = {
     "avsi_bilstm_fused_proj": [_P] * 7 + [_I] * 11 + [_P],
     "avsi_bilstm_fused_proj2": [_P] * 9 + [_I] * 11 + [_P],
     "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 9 + [_P],
-    "avsi_bilstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # K4: pointers (dwh's chunk scratch last), shape and dtype ints, the
+    # walk's plan, then dWh's chunks (nsplit, rows_per)
+    "avsi_bilstm_recurrence_bwd": [_P] * 11 + [_I] * 11 + [_P],
     "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 9 + [_P],
     "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 9 + [_P],
 }
 # launches per kernel wrapper (K1's and K2's projection and recurrence, and
-# K4's walk and dWh, count as one)
+# K4's walk, dWh's chunks and their sum, count as one)
 launch_counts = {name[len("avsi_"):]: 0 for name in _SIGNATURES}
 
 

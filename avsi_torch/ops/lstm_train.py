@@ -13,9 +13,14 @@ Counterpart of the custom VJP `_layer` of `avsi/ops/pallas_lstm.py`
     f32 H = 416 and bf16 H = 624 part of each CTA's wh slice is read from
     L2 every step);
   * `bilstm_recurrence_bwd` (K4, TPU kernel `:659-747`): the reverse walk,
-    returning dgates as dxw and dWh.  On the card it is two launches, the
-    walk and a dWh reduction (`avsi_torch/csrc/lstm_train.cu`), counted as
-    one in `launch_counts`;
+    returning dgates as dxw and dWh.  On the card it is three launches,
+    counted as one in `launch_counts`: the walk `rec_cluster_bwd`
+    (`avsi_torch/csrc/lstm_cluster.cuh`) on K3's clusters and resident wh
+    slices under `bwd_plan`, with dh_rec reduce-scattered through
+    distributed shared memory, then dWh as a split-K product over
+    `dwh_splits` chunks of the T x B rows and a fixed-order sum of the
+    chunks (`avsi_torch/csrc/lstm_train.cu`).  It serves the widths K3
+    serves (f32 H <= 2048, bf16 H <= 1024) and raises beyond them;
   * `BiLSTMLayer`: forward = the hoisted projection (`_project`,
     `:1208-1220`, a plain large product) then K3; backward = K4 then dWx,
     db and dx as whole-sequence products (`_layer_bwd`, `:1281-1323`).
@@ -38,8 +43,11 @@ from __future__ import annotations
 
 import torch
 
+import dataclasses
+
 from avsi_torch.ops import _build, lstm_fused
-from avsi_torch.ops.lstm_fused import check_inputs, recurrence_plain
+from avsi_torch.ops.lstm_fused import (
+    BATCH_TILES, SMEM_PER_CTA, LaunchPlan, check_inputs, recurrence_plain)
 
 
 # ---------------------------------------------------------------- K3
@@ -79,6 +87,68 @@ def bilstm_recurrence_train(xw, wh):
 
 
 # ---------------------------------------------------------------- K4
+
+def bwd_smem_bytes(hidden: int, units: int, cluster: int, btile: int, ksplit: int,
+                   bf16: bool, resident: int) -> int:
+    """Shared bytes of one CTA of K4's walk, as `bwd_layout` in
+    lstm_cluster.cuh lays them out: `resident` depth rows of the wh slice
+    (f32 rows of 4U + 4 floats; bf16 the forward's fragments), one buffer
+    of h_prev for the whole layer ([btile][kp + 8]; bf16 also lands it in
+    f32, [btile][H]), the partial gates ([ksplit][btile][4U] f32, whose
+    plane 0 holds f32 dgates), bf16 dgates ([btile][4U + 8]) and the dh_rec
+    receive slots ([2][cluster][btile][U] f32).  The dc carry lives in
+    registers."""
+    g, kp = 4 * units, lstm_fused._align16(hidden)
+    size = 2 if bf16 else 4
+    wh = (g if bf16 else g + 4) * resident * size
+    hs = btile * (kp + 8) * size
+    hf = btile * hidden * 4 if bf16 else 0
+    dg = btile * (g + 8) * 2 if bf16 else 0
+    recv = 2 * cluster * btile * units * 4
+    return sum(map(lstm_fused._align16, (wh, hs, hf, ksplit * btile * g * 4, dg, recv)))
+
+
+def bwd_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132) -> LaunchPlan:
+    """The launch plan of K4's walk: K3's plan at the same batch
+    (`launch_plan(..., gate_major=True)`: cluster, units, batch tile, depth
+    split), so the recomputed gates run K3's product at K3's split and equal
+    K3's bit for bit.  Where the walk's buffers leave no room for the whole
+    slice, it keeps fewer resident depth rows (whole 16-row steps; the
+    kernel reads the rest from global memory in the same order), on the
+    batch tile of 8, which the spilling instances take.  At every width K3
+    serves the buffers fit with K3's split (tests/test_torch_lstm_bwd_plan.py
+    checks each); raises ValueError, naming the width, where K3 has no
+    plan."""
+    bf16 = compute_dtype == torch.bfloat16
+    plan = lstm_fused.launch_plan(hidden, batch, compute_dtype, sm_count, gate_major=True)
+    kp = lstm_fused._align16(hidden)
+
+    def smem(resident):
+        return bwd_smem_bytes(hidden, plan.units, plan.cluster, plan.btile, plan.ksplit, bf16,
+                              resident)
+
+    if smem(kp) > SMEM_PER_CTA and plan.btile != BATCH_TILES[0]:
+        plan = dataclasses.replace(plan, btile=BATCH_TILES[0],
+                                   clusters=2 * -(-batch // BATCH_TILES[0]))
+    row = 4 * plan.units * 2 if bf16 else (4 * plan.units + 4) * 4  # bytes per depth row
+    resident = min(kp, (SMEM_PER_CTA - smem(0)) // (16 * row) * 16)
+    return dataclasses.replace(plan, resident=resident, smem_bytes=smem(resident))
+
+
+DWH_ROWS = 32  # dWh's depth rows per stage (the bf16 kernel's; f32 stages 16)
+
+
+def dwh_splits(t_len: int, batch: int, hidden: int, sm_count: int = 132) -> tuple[int, int]:
+    """(nsplit, rows_per): the chunks of dWh's depth of T x B rows.  Its grid
+    has 2 x ceil(H / 64) x ceil(4H / 128) tiles per chunk; enough chunks
+    that the grid holds about 8 CTAs per SM, none shorter than 256 rows,
+    each a whole number of stages."""
+    rows = t_len * batch
+    tiles = 2 * -(-hidden // 64) * -(-4 * hidden // 128)
+    nsplit = max(1, min(-(-rows // 256), -(-8 * sm_count // max(tiles, 1))))
+    rows_per = max(DWH_ROWS, -(-(-(-rows // nsplit)) // DWH_ROWS) * DWH_ROWS)
+    return max(1, -(-rows // rows_per)), rows_per
+
 
 def _walk_order(fwd: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
     """Two (T, B, H) streams in original order -> (T, 2, B, H) in kernel
@@ -121,7 +191,7 @@ def bilstm_recurrence_bwd_plain(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
 
 
 def bilstm_recurrence_bwd(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
-    """K4: the reverse walk over the recurrence, then the dWh reduction.
+    """K4: the reverse walk over the recurrence, then dWh.
 
     xw, wh: as given to K3; out_f/out_b and c_f/c_b: what K3 returned (f32);
     dout_f/dout_b: the upstream h gradients, (T, B, H) in original time
@@ -138,12 +208,17 @@ def bilstm_recurrence_bwd(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
         name, cd, f32, xw=(xw, cd, (t_len, 2, b_sz, g4)), wh=(wh, cd, (2, hidden, g4)),
         out_f=(out_f, f32, stream), out_b=(out_b, f32, stream), c_f=(c_f, f32, stream),
         c_b=(c_b, f32, stream), dout_f=(dout_f, cd, stream), dout_b=(dout_b, cd, stream))
+    sms = lstm_fused.device_sm_count(device.index)
+    plan = bwd_plan(hidden, b_sz, cd, sms)
+    nsplit, rows_per = dwh_splits(t_len, b_sz, hidden, sms)
     dxw = torch.empty_like(xw)
     dwh = torch.empty((2, hidden, 4 * hidden), dtype=torch.float32, device=device)
+    part = torch.empty((nsplit, 2, hidden, 4 * hidden), dtype=torch.float32, device=device)
     _build.launch(
         name, device, xw.data_ptr(), wh.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), dout_f.data_ptr(), dout_b.data_ptr(),
-        dxw.data_ptr(), dwh.data_ptr(), t_len, b_sz, hidden, int(cd == torch.bfloat16),
+        dxw.data_ptr(), dwh.data_ptr(), part.data_ptr(), t_len, b_sz, hidden,
+        int(cd == torch.bfloat16), *plan.c_args(), nsplit, rows_per,
     )
     return dxw, dwh
 

@@ -19,15 +19,17 @@ Phases, in order; any failure exits non-zero:
      projection computes (one-hot input, so the projection is exact), on
      one plan, B=8; K1, K3 and K5 at layers wider than a CTA holds whole
      (f32 H=512, bf16 H=800: part of each wh slice read from global
-     memory), B=8, timed too; and `BiLSTMLayer`'s four gradients on the
-     GPU against the same Function on the CPU, B=8 and 32;
+     memory), B=8, timed too, and K4 behind K3 there; and `BiLSTMLayer`'s
+     four gradients on the GPU against the same Function on the CPU, B=8
+     and 32;
   4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
      its plain version, its bound (the larger of bytes over memory
      bandwidth and operations over peak rate) and a cuDNN yardstick
      (`torch.nn.LSTM`, timed here only; the port never calls it), K1 and
      K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed);
      K1 under both cluster sizes at B=8 and 32, K1 and K3 under both batch
-     tiles at B=128; plus the 3-layer stack;
+     tiles at B=128, K4 with dWh's depth in the rule's chunks, half and
+     twice as many, at B=32 and 128; plus the 3-layer stack;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
@@ -63,7 +65,8 @@ Phases, in order; any failure exits non-zero:
      call profiled at each (the projection GEMM and the cluster recurrence
      apart), then the requests timed again after those 9 sessions; one
      window step (the second of a whole fleet run) and one push of a live
-     stream that completes a window; one train step;
+     stream that completes a window; one train step; one K4 call at B=8,
+     32 and 128, f32 and bf16, its walk and its dWh apart;
   9. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
@@ -415,32 +418,40 @@ def check_wide_layers(batch: int = 8) -> None:
     """Phase 3: layers wider than a CTA holds whole (f32 H=512, bf16
     H=800), where the plan keeps the first depth rows of each wh slice in
     shared memory and the kernels read the rest from global memory.  K1,
-    K3 (T=250) and K5 (W=24, random carries) at B=8 against their plain
-    versions within TOL, and timed."""
+    K3 (T=250), K5 (W=24, random carries) and K4 behind K3 (its walk keeps
+    fewer rows resident than K3) at B=8 against their plain versions within
+    TOL (K4's dWh relative to its scale), and timed."""
     gen = torch.Generator().manual_seed(17)
 
     def u(*shape, scale):
         return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
 
+    sms = lstm_fused.device_sm_count(0)
     for dtype, h in ((torch.float32, 512), (torch.bfloat16, 800)):
         wh = u(2, h, 4 * h, scale=h ** -0.5).to(dtype)
         x, wx = u(T, batch, D1, scale=2.0).to(dtype), u(2, D1, 4 * h, scale=D1 ** -0.5).to(dtype)
         b = u(2, 4 * h, scale=0.1)
         xw, xw5 = (u(t, 2, batch, 4 * h, scale=1.5).to(dtype) for t in (T, W))
         hc0 = torch.stack([torch.tanh(u(2, batch, h, scale=2.0)), u(2, batch, h, scale=2.0)])
+        fwd = lstm_train.bilstm_recurrence_train(xw, wh)
+        k4_in = (xw, wh, *fwd, *(u(T, batch, h, scale=1.0).to(dtype) for _ in range(2)))
+        k3_plan = lstm_fused.launch_plan(h, batch, dtype, sms, gate_major=True)
         runs = {
             "K1": (lambda: lstm_fused.bilstm_fused_proj(x, wx, b, wh),
-                   lambda: lstm_fused.bilstm_fused_proj_plain(x, wx, b, wh), False),
+                   lambda: lstm_fused.bilstm_fused_proj_plain(x, wx, b, wh),
+                   lstm_fused.launch_plan(h, batch, dtype, sms), "bilstm_fused_proj"),
             "K3": (lambda: lstm_train.bilstm_recurrence_train(xw, wh),
-                   lambda: lstm_train.bilstm_recurrence_train_plain(xw, wh), True),
+                   lambda: lstm_train.bilstm_recurrence_train_plain(xw, wh), k3_plan,
+                   "bilstm_recurrence_train"),
             "K5": (lambda: lstm_window.bilstm_recurrence_carry(xw5, wh, hc0),
-                   lambda: lstm_window.bilstm_recurrence_carry_plain(xw5, wh, hc0), True),
+                   lambda: lstm_window.bilstm_recurrence_carry_plain(xw5, wh, hc0), k3_plan,
+                   "bilstm_recurrence_carry"),
+            "K4": (lambda: lstm_train.bilstm_recurrence_bwd(*k4_in),
+                   lambda: lstm_train.bilstm_recurrence_bwd_plain(*k4_in),
+                   lstm_train.bwd_plan(h, batch, dtype, sms), "bilstm_recurrence_bwd"),
         }
-        for tag, (fn, plain, gate_major) in runs.items():
-            plan = lstm_fused.launch_plan(h, batch, dtype, lstm_fused.device_sm_count(0),
-                                          gate_major=gate_major)
-            err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(fn(), plain()))
+        for tag, (fn, plain, plan, name) in runs.items():
+            err = max_err(name, fn(), plain())
             ms = time_ms(fn, reps=5)
             print(f"check wide {tag} H={h} {str(dtype)[6:]} B={batch}: plan {plan.c_args()}, "
                   f"{plan.resident} of {-(-h // 16) * 16} depth rows resident, max_abs_err "
@@ -600,9 +611,16 @@ def serving_profiles(d: str) -> None:
     masks[:, GAP] = 0
     try:
         service.enhance_batch(waves, masks)
-        names = profile(f"one serving step of {service.micro_batch}",
-                        lambda: service.enhance_batch(waves, masks))
-        if fused_kernel_launches(names) != (3, 3):
+        for attempt in (1, 2):
+            names = profile(f"one serving step of {service.micro_batch}",
+                            lambda: service.enhance_batch(waves, masks))
+            if fused_kernel_launches(names) == (3, 3):
+                break
+            # the trace has been seen to hold a single GEMM and recurrence
+            # record for the step; main_path's launch counters show all ran
+            print(f"profile: {fused_kernel_launches(names)} GEMM and recurrence records, not "
+                  f"(3, 3){'; profiling again' if attempt == 1 else ''}", flush=True)
+        else:
             fail(f"the serving step ran {fused_kernel_launches(names)} projection GEMMs "
                  "and cluster recurrences, not 3 and 3 (K1 + 2 x K2)")
         fused_plans_and_profiles()
@@ -710,6 +728,75 @@ def plan_rules_compared() -> None:
     for name in ("bilstm_fused_proj", "bilstm_recurrence_train"):
         plans_compared(name, 128, lambda plan, dtype, b, gm=name in GATE_MAJOR:
                        other_batch_tile(plan, dtype, b, gm), "btile", reps=5)
+
+
+def dwh_splits_compared() -> None:
+    """Phase 4: K4 at B=32 and 128, f32 and bf16, with dWh's depth of T x B
+    rows cut into the chunks `lstm_train.dwh_splits` takes on this card and
+    into half and twice as many, each held against the plain version and
+    timed: the run behind the one rule K4 adds at these shapes (its walk
+    takes K3's plan as it is)."""
+    name, rule = "bilstm_recurrence_bwd", lstm_train.dwh_splits
+    sms = lstm_fused.device_sm_count(0)
+    try:
+        for batch in (32, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = kernel_inputs(name, batch, dtype)
+                want = run_kernel(name, inp, plain=True)
+                rows, step = T * batch, lstm_train.DWH_ROWS
+                first = rule(T, batch, H, sms)[0]
+                times = {}
+                for n in (first, max(1, first // 2), 2 * first):
+                    rows_per = -(-(-(-rows // n)) // step) * step
+                    chunks = (-(-rows // rows_per), rows_per)
+                    lstm_train.dwh_splits = lambda *args, c=chunks: c
+                    err = max_err(name, run_kernel(name, inp), want)
+                    if err > TOL[dtype]:
+                        fail(f"K4 with dWh in {chunks} chunks disagrees with its plain version: {err}")
+                    times[chunks] = time_ms(lambda: run_kernel(name, inp), reps=5)
+                lstm_train.dwh_splits = rule
+                print(f"dWh chunks compared K4 B={batch} {str(dtype)[6:]}: "
+                      + ", ".join(f"{n} chunks of {r} rows {ms:.3f} ms"
+                                  for (n, r), ms in times.items())
+                      + " (the first is this card's rule)", flush=True)
+                del inp, want
+    finally:
+        lstm_train.dwh_splits = rule
+
+
+def k4_profiles() -> None:
+    """Phase 8: one K4 call profiled at each timed batch and dtype, so that
+    its walk (`rec_cluster_bwd`) and its dWh (the chunks' products and their
+    sum) show apart."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    name = "bilstm_recurrence_bwd"
+    for batch in BATCHES[name]:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = kernel_inputs(name, batch, dtype)
+            run_kernel(name, inp)
+            for attempt in range(3):
+                torch.cuda.synchronize()
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    run_kernel(name, inp)
+                    torch.cuda.synchronize()
+                rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                walk = [r for r in rows if "rec_cluster_bwd" in r[0]]
+                dwh = [r for r in rows if "dwh_" in r[0]]
+                if walk and dwh:
+                    break
+            if not (walk and dwh):
+                print(f"profile: K4 B={batch} {str(dtype)[6:]}: the trace holds no walk or dWh "
+                      "record in 3 sessions; not measured", flush=True)
+                continue
+            print(f"profile: K4 B={batch} {str(dtype)[6:]}: walk {sum(r[2] for r in walk):.3f} ms "
+                  f"({sum(r[1] for r in walk)} launch), dWh {sum(r[2] for r in dwh):.3f} ms "
+                  f"(" + " + ".join(f"{'chunks' if 'partial' in r[0] else 'sum'} {r[2]:.3f}"
+                                    for r in dwh) + ")", flush=True)
+            del inp
 
 
 def fused_plans_and_profiles() -> None:
@@ -1144,6 +1231,7 @@ def main() -> int:
     errs, rows = check_and_time_kernels()
     cudnn_comparisons(rows)
     plan_rules_compared()
+    dwh_splits_compared()
     check_coincide()
     check_k3_against_k1()
     check_wide_layers()
@@ -1167,6 +1255,7 @@ def main() -> int:
         serving_profiles(d)
         fleet_profiles(d)
         profile_train_step(root, train_config(root))
+    k4_profiles()
 
     kernels = []
     for name, (_, replaces, source, batch) in KERNELS.items():

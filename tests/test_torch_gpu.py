@@ -183,6 +183,74 @@ def test_k3_k4_kernels_match_plain(dtype, shape):
     assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
 
 
+def _k4_check(xw, wh, fwd, dout, dtype):
+    """K4 on the card against its plain version, one counted launch."""
+    before = dict(_build.launch_counts)
+    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bilstm_recurrence_bwd"] == before["bilstm_recurrence_bwd"] + 1
+    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
+    assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
+    return dxw, dwh
+
+
+def _k4_inputs(seed, t, b, h, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    xw, wh = _train_inputs(gen, t, b, h, dtype)
+    fwd = lstm_train.bilstm_recurrence_train(xw, wh)
+    dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
+    return xw, wh, fwd, dout
+
+
+# K4's walk at widths where K3 holds its whole wh slice but the walk's
+# buffers leave room for only part of it (f32 H=400, bf16 H=624), and bf16
+# H=400 at B=128, where the walk leaves K3's batch tile of 16 for 8.
+@pytest.mark.parametrize("case", [(torch.float32, 30, 8, 400), (torch.bfloat16, 30, 8, 624),
+                                  (torch.bfloat16, 20, 128, 400)],
+                         ids=lambda c: f"{str(c[0])[6:]}-T{c[1]}-B{c[2]}-H{c[3]}")
+def test_k4_walk_spills_where_k3_does_not(case):
+    _need_cuda()
+    dtype, t, b, h = case
+    sms, kp = lstm_fused.device_sm_count(0), -(-h // 16) * 16
+    k3 = lstm_fused.launch_plan(h, b, dtype, sms, gate_major=True)
+    walk = lstm_train.bwd_plan(h, b, dtype, sms)
+    assert k3.resident == kp and (walk.resident < kp or walk.btile != k3.btile)
+    _k4_check(*_k4_inputs(14, t, b, h, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_cluster_of_16_matches_plain(dtype):
+    """B=8 at the flagship width: clusters of 16 CTAs of 16 units."""
+    _need_cuda()
+    assert lstm_train.bwd_plan(250, 8, dtype, lstm_fused.device_sm_count(0)).cluster == 16
+    _k4_check(*_k4_inputs(15, 250, 8, 250, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [8, 32])
+def test_k4_repeated_calls_bit_equal(dtype, b):
+    """dh_rec is summed over the cluster in rank order and dWh's chunks in
+    chunk order: two calls on the same inputs give the same bits."""
+    _need_cuda()
+    inputs = _k4_inputs(16, 250, b, 250, dtype)
+    first = _k4_check(*inputs, dtype)
+    second = lstm_train.bilstm_recurrence_bwd(inputs[0], inputs[1], *inputs[2], *inputs[3])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_k4_refuses_a_width_without_a_plan():
+    """K4 raises, naming the width, where K3 has no plan (f32 H=2050)."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(11)
+    t, b, h = 4, 2, 2050
+    xw, wh = _train_inputs(gen, t, b, h, torch.float32)
+    streams = [torch.zeros(t, b, h, device="cuda") for _ in range(6)]
+    with pytest.raises(ValueError, match="hidden=2050"):
+        lstm_train.bilstm_recurrence_bwd(xw, wh, *streams)
+
+
 @pytest.mark.parametrize("b", [8, 32])  # 32: the training batch of chip_smoke.py
 def test_bilstm_layer_cuda_matches_cpu(b):
     """`BiLSTMLayer` on the card (K3/K4) against the same Function on the
