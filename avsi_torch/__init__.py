@@ -8,8 +8,10 @@ reference.
 
 It serves the flagship `av-blstm-ssnn-ctc` `/enhance` path and live
 LC-BLSTM streams (`avsi_torch.serve`, `avsi_torch.infer.streaming`: one
-stream per session, or a lockstep fleet), and trains it
-(`avsi_torch.train.loop.train`).  The bidirectional LSTM runs hand-written
+stream per session, or a lockstep fleet), with the `passthrough` and
+`gap_atten` levers and `/reload`; enhances a TFRecord test set offline
+(`avsi_torch.infer.inpaint.infer`); and trains it, the latency-controlled
+model of the streams included (`avsi_torch.train.loop.train`).  The bidirectional LSTM runs hand-written
 CUDA kernels for sm_90a, built with `nvcc` at first use: the forward-only
 stack for serving and validation (`avsi_torch/csrc/lstm_fused.cu`, the
 ports of the Pallas kernels `bilstm_fused_proj` / `bilstm_fused_proj2`),

@@ -1,19 +1,22 @@
 """Shared inference helpers (port of `avsi/infer/common.py`): waveform
-reconstruction with the MODEL's STFT geometry, and per-sample losses."""
+reconstruction with the MODEL's STFT geometry, the known-region
+passthrough, and per-sample losses."""
 
 from __future__ import annotations
 
 import torch
 
+from avsi_torch.ops import passthrough as passthrough_ops
 from avsi_torch.ops import phase as phase_ops
 
 
 def reconstruct_waveform(
     model, outputs: dict, batch: dict, config: dict, stats: tuple,
-    oracle_phase: bool, phase_recon: str, gl_iters: int,
+    oracle_phase: bool, phase_recon: str, gl_iters: int, gl_opts: dict | None = None,
 ) -> torch.Tensor:
     """Enhanced waveform: oracle or masked phase ("none"), or Griffin-Lim
-    with the known-region phase clamped ("gl")."""
+    with the known-region phase clamped ("gl"); `gl_opts` goes to
+    `griffin_lim_blend` (momentum, init, hole_mag_relax)."""
     if oracle_phase or phase_recon == "none":
         return model.enhanced_sources(outputs, batch, config, stats, oracle_phase)
     if phase_recon != "gl":
@@ -35,7 +38,16 @@ def reconstruct_waveform(
         frame_length=model.frame_length,
         frame_step=model.frame_step,
         fft_length=model.fft_length,
+        **(gl_opts or {}),
     )
+
+
+def apply_passthrough(model, wav: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The `passthrough` lever: original samples on fully-known frames, the
+    model's output in gaps, crossfaded on the known side
+    (`ops/passthrough.py`)."""
+    return passthrough_ops.known_region_passthrough(
+        wav, batch["target_sources"], batch["masks"], model.frame_step)
 
 
 def per_sample_losses(outputs: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:

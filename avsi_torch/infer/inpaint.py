@@ -1,36 +1,84 @@
-"""Inference bundle and step (port of `avsi/infer/inpaint.py:35-108`).
+"""Batch inpainting inference (port of `avsi/infer/inpaint.py`, with the
+host-side batch compaction of `avsi/parallel/mesh.py:123-178`).
 
 `load_model_bundle` reads a self-contained checkpoint directory (the
 reference's layout: `config.txt`, `audio_features_{mean,std}.npy`,
-`sinet.npz`); `make_infer_step` returns the step that the service runs on
-each fixed-size micro-batch: expand the compact batch, forward, per-sample
-losses, waveform reconstruction, int16 clip.
+`sinet.npz`); `make_infer_step` returns the step that `infer()` and the
+service run on each fixed-size batch: expand the compact batch, forward,
+per-sample losses, the optional gap attenuation, waveform reconstruction,
+the optional known-region passthrough, int16 clip.  `infer()` enhances a
+TFRecord test set and writes `<audio_path>/<sample>/enhanced/<prefix>.wav`,
+int16, trimmed to seq_len * 192 samples, with one batch in flight.
 
-Not in this slice: the `gap_atten` and `passthrough` options and the
-TFRecord `infer()` loop.
+Not in this slice: `infer(data_shards > 1)` (data-parallel meshes).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from avsi_torch import config as config_lib
 from avsi_torch.data import stats as stats_lib
+from avsi_torch.data.reader import DataManager
+from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import lstm_fused
+from avsi_torch.ops import postfilter
 from avsi_torch.train import checkpoints
+from avsi_torch.utils import wav as wavio
+
+# the fields of a host batch that the device step reads
+DEVICE_BATCH_KEYS = ("sequence_lengths", "labels_lengths", "target_sources", "labels",
+                     "video_features", "masks", "mask_frames", "embeddings")
+
+
+def device_batch(batch: dict) -> dict:
+    """Strip the host-only fields (sample paths, `num_real`) from a batch."""
+    return {k: v for k, v in batch.items() if k in DEVICE_BATCH_KEYS}
+
+
+def compact_batch(batch: dict) -> dict:
+    """Shrink a host batch before its upload: time-gap masks (every bin of a
+    frame zeroed together) travel as one int8 per frame (`mask_frames`),
+    int16-valued waves as int16, video as f16.  Falls back silently where an
+    assumption does not hold: a mask that is not bin-uniform, or soft (its
+    values would not survive int8), stays f32, and so does a wave with
+    non-integer values.  `expand_batch` restores the rest inside the step."""
+    out = device_batch(batch)
+    m = out.get("masks")
+    if m is not None and m.ndim == 3:
+        m = np.asarray(m)
+        mf = m[:, :, 0]
+        mi = mf.astype(np.int8)
+        if np.array_equal(mi.astype(m.dtype), mf) and np.array_equal(
+            m, np.broadcast_to(mf[:, :, None], m.shape)
+        ):
+            out["mask_frames"] = mi
+            del out["masks"]
+    w = out.get("target_sources")
+    if w is not None:
+        w = np.asarray(w)
+        if w.dtype == np.float32 and np.abs(w).max() < 32767.5:
+            wi = w.astype(np.int16)
+            if np.array_equal(wi.astype(np.float32), w):
+                out["target_sources"] = wi
+    v = out.get("video_features")
+    if v is not None and np.asarray(v).dtype == np.float32:
+        out["video_features"] = np.asarray(v).astype(np.float16)
+    return out
 
 
 def expand_batch(batch: dict, audio_feat_dim: int) -> dict:
-    """Inverse of the compact transport batch (`avsi/parallel/mesh.py:163-178`):
-    per-frame int8 masks -> (B, T, audio_feat_dim) f32 masks; int16 waves
-    and f16 video -> f32."""
+    """Inverse of `compact_batch`, on the device: per-frame int8 masks ->
+    (B, T, audio_feat_dim) f32 masks; int16 waves and f16 video -> f32."""
     out = dict(batch)
     mf = out.pop("mask_frames", None)
     if mf is not None:
@@ -72,27 +120,149 @@ def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto
 
 
 def make_infer_step(model, config, stats, oracle_phase: bool, phase_recon: str,
-                    gl_iters: int, passthrough: bool = False,
+                    gl_iters: int, gl_opts: dict | None = None, passthrough: bool = False,
                     gap_atten: dict | None = None, device=None):
     """Step `(params, batch) -> (wav int16 (B, audio_len), loss (B,), hole loss (B,))`
-    over a compact batch of numpy arrays or tensors."""
-    if passthrough:
-        raise NotImplementedError("passthrough is not ported yet")
-    if gap_atten:
-        raise NotImplementedError("gap_atten is not ported yet")
+    over a compact batch of numpy arrays or tensors (pinned CPU tensors are
+    uploaded without blocking the host).
+
+    gap_atten {"alpha", "trust", "ramp"} attenuates deep-gap magnitudes
+    after the per-sample losses and before the waveform; passthrough blends
+    the original samples back on known frames before the int16 clip."""
     device = resolve_device(device)
     stats_t = tuple(torch.as_tensor(s, dtype=torch.float32).to(device) for s in stats)
     af = int(config["audio_feat_dim"])
 
     @torch.inference_mode()
     def step(params, batch):
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
         batch = expand_batch(batch, af)
         out = model.forward(params, batch, config, stats_t)
         loss_ps, hole_ps = common.per_sample_losses(out, batch)
+        if gap_atten:
+            out = postfilter.apply_gap_attenuation(out, batch, stats_t, **gap_atten)
         wav = common.reconstruct_waveform(
-            model, out, batch, config, stats_t, oracle_phase, phase_recon, gl_iters
+            model, out, batch, config, stats_t, oracle_phase, phase_recon, gl_iters, gl_opts
         )
+        if passthrough:
+            wav = common.apply_passthrough(model, wav, batch)
         return torch.clamp(wav, -32768, 32767).to(torch.int16), loss_ps, hole_ps
 
     return step
+
+
+def _upload_source(cb: dict, device) -> dict:
+    """A compact host batch as the step's input: pinned CPU tensors on a GPU
+    (so the upload runs behind the host), the numpy arrays on the CPU."""
+    if device.type != "cuda":
+        return cb
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in cb.items()}
+
+
+def _fetch_async(results) -> tuple[list, object]:
+    """Start the copy of a step's results to pinned host memory; returns the
+    host tensors and the CUDA event that marks the copy done (None on the
+    CPU, where the results are already on the host)."""
+    if not results[0].is_cuda:
+        return list(results), None
+    host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True) for r in results]
+    for h, r in zip(host, results):
+        h.copy_(r, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def infer(
+    model_path: str,
+    data_path_test: str,
+    audio_path: str,
+    out_file_prefix: str,
+    norm: bool = True,
+    oracle_phase: bool = False,
+    batch_size: int = 1,
+    phase_recon: str = "gl",
+    gl_iters: int = 50,
+    gl_opts: dict | None = None,
+    data_shards: int = 0,
+    passthrough: bool = False,
+    gap_atten: dict | None = None,
+    lstm_impl: str = "auto",
+    device=None,
+) -> dict:
+    """Enhance every utterance of the TFRecord files under `data_path_test`
+    with the checkpoint at `model_path`; write each to
+    `<audio_path>/<sample_path>/enhanced/<out_file_prefix>.wav`.
+
+    One batch in flight: batch k+1 is uploaded and its step launched before
+    batch k's results are read (their copy to pinned memory runs behind the
+    next step); the wav files are written by a pool of 8 threads.  The last
+    batch is padded with copies of its last utterance (`pad_final`), which
+    are neither written nor counted.  Returns {"num_samples", "loss",
+    "loss_hole", "utt_per_sec"}, the losses the means of the per-utterance
+    losses."""
+    batch_size = batch_size or 1
+    if data_shards and int(data_shards) > 1:
+        raise NotImplementedError("infer(data_shards > 1): data-parallel meshes are not "
+                                  "ported yet")
+    device = resolve_device(device)
+    config, stats, model, params = load_model_bundle(model_path, norm, lstm_impl=lstm_impl,
+                                                     device=device)
+    dm = DataManager(
+        num_audio_samples=config["audio_len"],
+        audio_feat_size=config["audio_feat_dim"],
+        video_feat_size=config["video_feat_dim"],
+        with_embedding=model.needs_embeddings,
+    )
+    files = list_tfrecord_files(data_path_test)
+    if not files:
+        raise ValueError(f"no tfrecords under {data_path_test}")
+    step = make_infer_step(model, config, stats, oracle_phase, phase_recon, gl_iters, gl_opts,
+                           passthrough, gap_atten, device=device)
+    hop = model.frame_step
+
+    def write_one(path, data):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        wavio.write_wav_int16(path, data)
+
+    total, losses, holes, futures = 0, [], [], []
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+
+        def drain(pending):
+            """Wait for a step's results on the host and queue its writes."""
+            nonlocal total
+            batch, (wav, loss, hole), done = pending
+            if done is not None:
+                done.synchronize()
+            wav = wav.numpy()
+            n_real = batch.get("num_real", len(batch["sequence_lengths"]))
+            losses.extend(loss.numpy()[:n_real].tolist())
+            holes.extend(hole.numpy()[:n_real].tolist())
+            for i in range(n_real):
+                path = os.path.join(audio_path, batch["sample_paths"][i], "enhanced",
+                                    out_file_prefix + ".wav")
+                seq_len = int(batch["sequence_lengths"][i])
+                futures.append(pool.submit(write_one, path, wav[i][: seq_len * hop]))
+            total += n_real
+
+        pending = None
+        for batch in dm.prefetch_batches(files, batch_size, pad_final=True):
+            results = step(params, _upload_source(compact_batch(batch), device))
+            launched = (batch, *_fetch_async(results))
+            if pending is not None:
+                drain(pending)
+            pending = launched
+        if pending is not None:
+            drain(pending)
+        for f in futures:
+            f.result()
+    dt = time.time() - t0
+    print(f"Wrote {total} enhanced wavs in {dt:.2f}s ({total / dt:.1f} utt/s). "
+          f"Loss: {np.mean(losses):.5f}  Loss hole: {np.mean(holes):.5f}", flush=True)
+    return {
+        "num_samples": total,
+        "loss": float(np.mean(losses)),
+        "loss_hole": float(np.mean(holes)),
+        "utt_per_sec": total / dt,
+    }

@@ -25,10 +25,12 @@ for the flagship.
 `StreamingInpainter` serves one live stream, `stream_utterances_lockstep`
 a fleet of B streams with one window step per window for all of them (its
 front end runs on the device through the matmul-DFT STFT).  Both take
-`device=None`, which means `cuda`, and raise without a card.  Not ported
-yet: the causal gap attenuation (`gap_atten`), the known-region
-passthrough and fleet meshes; they raise.  The reference's `program_cache`
-has no meaning without tracing, and is dropped.
+`device=None`, which means `cuda`, and raise without a card.  Both take the
+two deployment levers of the offline path: `gap_atten`, the causal twin of
+the gap-attenuation postfilter inside the window step, and `passthrough`,
+the known-region blend of the raw pushed samples on the host.  Fleet
+meshes are not ported yet and raise.  The reference's `program_cache` has
+no meaning without tracing, and is dropped.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ from avsi_torch.device import resolve_device
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import core
 from avsi_torch.ops import lstm_fused, lstm_window
+from avsi_torch.ops import passthrough as passthrough_ops
+from avsi_torch.ops import postfilter
 from avsi_torch.ops import stft as stft_ops
 from avsi_torch.ops.lstm_train import project
 from avsi_torch.ops.phase import _princarg
@@ -163,23 +167,27 @@ def greedy_collapse(ids, blank: int, prev: int, out: list) -> int:
     return prev
 
 
-def _refuse_unported(passthrough: bool, gap_atten, mesh=None) -> None:
-    if passthrough:
-        raise NotImplementedError("passthrough is not ported yet")
-    if gap_atten and float(gap_atten["alpha"]) < 1.0:
-        raise NotImplementedError("gap_atten is not ported yet")
-    if mesh is not None:
-        raise NotImplementedError("lockstep fleets over a mesh are not ported yet")
+def _norm_gap_atten(gap_atten) -> tuple | None:
+    """A gap-attenuation request -> (alpha, trust, ramp), or None for off
+    (also alpha >= 1, the reference's "disabled")."""
+    if not gap_atten:
+        return None
+    alpha = float(gap_atten["alpha"])
+    if alpha >= 1.0:
+        return None
+    if not 0.0 <= alpha:
+        raise ValueError(f"gap_atten alpha must be in [0, 1), got {alpha}")
+    return alpha, int(gap_atten.get("trust", 34)), int(gap_atten.get("ramp", 16))
 
 
 class _ProgSpec:
     """The static inputs of the window step."""
 
     __slots__ = ("spec", "int_layer", "chunk", "compute_dtype", "gate_dtype",
-                 "stats", "transcript", "phase_fill", "lstm_impl")
+                 "stats", "transcript", "phase_fill", "lstm_impl", "gap_atten")
 
     def __init__(self, spec, int_layer, chunk, compute_dtype, gate_dtype, stats,
-                 transcript, phase_fill, lstm_impl):
+                 transcript, phase_fill, lstm_impl, gap_atten):
         self.spec = spec
         self.int_layer = int_layer
         self.chunk = chunk
@@ -189,9 +197,13 @@ class _ProgSpec:
         self.transcript = transcript  # also emit CTC argmax ids per chunk
         self.phase_fill = phase_fill  # causal hole-phase extrapolation
         self.lstm_impl = lstm_impl  # "kernel" | "plain" (K5) | "scan"
+        # None or (alpha, trust, ramp): causal deep-gap attenuation; the
+        # window then carries "gap_ld" (B,) and "gap_valid"
+        self.gap_atten = gap_atten
 
 
-def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device) -> _ProgSpec:
+def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device,
+          gap_atten=None) -> _ProgSpec:
     spec = blstm_lib.parse_model_name(config["model"])
     if transcript and not spec.ctc:
         raise ValueError(
@@ -204,6 +216,7 @@ def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device) -> _P
         stats=tuple(torch.as_tensor(np.asarray(s, np.float32)).to(device) for s in stats),
         transcript=bool(transcript), phase_fill=bool(phase_fill),
         lstm_impl=resolve_stream_impl(lstm_impl, device, gdt or cdt, config["net_dim"], cdt),
+        gap_atten=gap_atten,
     )
 
 
@@ -236,9 +249,11 @@ def _window_step(prog, params, window, carries, prev, ssnn_sum, ssnn_cnt):
     carries, new prev, ssnn_sum, ssnn_cnt, CTC ids), all on the device.
 
     window: spec_norm/re/im (B, W, af), mask (B, W), video (B, W, vf) for
-    visual models, embedding (B, E) for -emb models, and for ssnn models the
+    visual models, embedding (B, E) for -emb models, for ssnn models the
     fold inputs ssnn_feats (B, W', 2*af), ssnn_mask (B, W') and ssnn_n (a
-    number: how many leading fold rows count)."""
+    number: how many leading fold rows count), and with gap attenuation
+    gap_ld (B,), each stream's distance since its last known frame before
+    the window, and gap_valid (a number: the rows that are stream frames)."""
     spec = prog.spec
     mask_bins = window["mask"][:, :, None]  # broadcast over the bins
     spec_norm = window["spec_norm"]
@@ -284,6 +299,19 @@ def _window_step(prog, params, window, carries, prev, ssnn_sum, ssnn_cnt):
     inference = core.dense(params["head_ipt"], x_emit).float()
     prediction = sn_emit * m_emit + inference * (1 - m_emit) if spec.restore_unmasked else inference
     mean, std = prog.stats
+    if prog.gap_atten is not None:
+        # the causal twin of `postfilter.apply_gap_attenuation`: the left
+        # distance is carried by the host, the right edge seen within the
+        # lookahead.  Rows past gap_valid (flush fill rows, lockstep pad
+        # frames) count as unknown, as the offline edge convention has it:
+        # their known fill would otherwise end an end-of-utterance gap early
+        alpha, trust, ramp = prog.gap_atten
+        mask = window["mask"]
+        valid = torch.arange(mask.shape[1], device=mask.device) < window["gap_valid"]
+        gain = postfilter.causal_window_gain(mask * valid[None, :], window["gap_ld"], alpha,
+                                             trust, ramp)[:, : prog.chunk]
+        log_gain = torch.log(torch.clamp(gain, min=1e-6))[:, :, None]
+        prediction = prediction + log_gain / std[: prediction.shape[-1]] * (1 - m_emit)
     mag = torch.exp(prediction * std + mean)  # (B, C, af)
     re = window["re"][:, : prog.chunk]
     im = window["im"][:, : prog.chunk]
@@ -314,7 +342,8 @@ def _window_step_raw(prog, params, raw, carries, prev, ssnn_sum, ssnn_cnt):
     mask_ext (B, EXT+W), video (B, W, vf), optional embedding (B, E), and
     host numbers (window-relative frame indices): t_valid (rows from it on
     are past the stream and zeroed, the class's zero-feature padding) and,
-    for ssnn, fold_lo, fold_n, clamp_lo, clamp_hi."""
+    for ssnn, fold_lo, fold_n, clamp_lo, clamp_hi; with gap attenuation
+    gap_ld (B,) and gap_valid, passed on to `_window_step`."""
     mean, std = prog.stats
     n_ext = raw["mask_ext"].shape[1]
     w_len = n_ext - _EXT_CTX
@@ -336,6 +365,8 @@ def _window_step_raw(prog, params, raw, carries, prev, ssnn_sum, ssnn_cnt):
     }
     if "embedding" in raw:
         window["embedding"] = raw["embedding"]
+    if "gap_ld" in raw:
+        window["gap_ld"], window["gap_valid"] = raw["gap_ld"], raw["gap_valid"]
     if prog.spec.conditioning == "ssnn":
         masked_ext = sn_ext * raw["mask_ext"][:, :, None]
         # w_len + _DELTA_N fold rows: at the non-final -> final transition
@@ -431,13 +462,30 @@ class StreamingInpainter:
         incremental greedy decode in `self.transcript`.  lstm_impl: "auto"
         (K5 on a GPU, its plain version on the CPU; the scan under bf16
         gates), "kernel", "plain" or "scan" (`resolve_stream_impl`).
-        params are moved to `device` (default cuda; raises without one)."""
-        _refuse_unported(passthrough, gap_atten)
+        params are moved to `device` (default cuda; raises without one).
+
+        passthrough=True keeps the original pushed samples on fully-known
+        frames, crossfaded on the known side of each gap boundary: a host
+        blend per emitted chunk with one frame of mask context on each
+        side, equal to the offline passthrough whenever the next frame's
+        mask is in the buffer at emit time (always for lookahead >= 1, and
+        at lookahead 0 for any push coarser than one hop).  Otherwise, a gap
+        that starts exactly at a chunk boundary gets a hard splice there
+        instead of the fade, which the unseen mask would have decided.
+
+        gap_atten {"alpha", "trust", "ramp"} (None, or alpha >= 1: off):
+        the causal deep-gap attenuation, the live twin of the offline
+        postfilter.  The left gap-edge distance is exact (carried across
+        windows); the right edge is seen within the lookahead, past which
+        frames stay attenuated where the offline filter would ramp back up.
+        Equal to the offline filter at a whole-utterance window."""
         self.device = resolve_device(device)
         self.chunk, self.look = resolve_window(config, chunk_frames, lookahead_frames)
         self.window = self.chunk + self.look
+        self.passthrough = bool(passthrough)
+        self.gap_atten = _norm_gap_atten(gap_atten)
         self._prog = _prog(config, stats, self.chunk, transcript, phase_fill, lstm_impl,
-                           self.device)
+                           self.device, self.gap_atten)
         self.spec = self._prog.spec
         self.want_transcript = self._prog.transcript
         self.lstm_impl = self._prog.lstm_impl
@@ -475,6 +523,14 @@ class StreamingInpainter:
         self._buf_base = 0  # absolute frame index of mask/video/masked row 0
         self.transcript: list[int] = []  # collapsed CTC label ids so far
         self._ctc_prev = self._ctc_blank  # collapse state across chunks
+        # passthrough: raw pushed samples not yet emitted (from absolute
+        # sample _orig_base on) and the last emitted frame's known flag
+        self._orig = np.zeros((0,), np.float32)
+        self._orig_base = 0
+        self._pt_prev_known = 1.0
+        # gap attenuation: distance since the last known frame after the
+        # last emitted frame (frame -1 counts as unknown)
+        self._gap_ld = postfilter._BIG
 
     # ------------------------------------------------------------------- api
 
@@ -503,6 +559,8 @@ class StreamingInpainter:
         ):
             raise ValueError("not enough video feature rows supplied")
         self._mask_buf = np.concatenate([self._mask_buf, frame_masks])
+        if self.passthrough:
+            self._orig = np.concatenate([self._orig, wave])
         if self.spec.input_type != "a" and video is not None:
             self._video_buf = np.concatenate([self._video_buf, video])
         if n_frames:
@@ -636,16 +694,25 @@ class StreamingInpainter:
             host["video"] = take(self._video_buf[base : base + buffered])
         if fold is not None:
             host["ssnn_feats"], host["ssnn_mask"] = fold[0][None], fold[1][None]
+        if self.gap_atten is not None:  # f32 holds every distance up to _BIG exactly
+            host["gap_ld"] = np.full((1,), self._gap_ld, np.float32)
         window = _upload(host, self.device)
         if fold is not None:
             window["ssnn_n"] = fold[2]
         if self._ext_emb is not None:
             window["embedding"] = self._ext_emb
+        if self.gap_atten is not None:
+            window["gap_valid"] = buffered  # rows past it are flush fill
 
         prev_before = self._prev_dev
         wav, mag, phase, self._carry, self._prev_dev, self._ssnn_sum, self._ssnn_cnt, ids = (
             _window_step(self._prog, self.params, window, self._carry, self._prev_dev,
                          self._ssnn_sum, self._ssnn_cnt))
+        if self.gap_atten is not None:
+            # advance the left distance over the emitted frames' masks,
+            # which the host holds
+            for m in self._mask_buf[base : base + n_emit]:
+                self._gap_ld = 0 if m > 0.5 else min(self._gap_ld + 1, postfilter._BIG)
         for k in fr:
             fr[k] = fr[k][n_emit:]
         # one device-to-host fetch per window
@@ -662,8 +729,39 @@ class StreamingInpainter:
         if self.want_transcript:
             self._ctc_prev = greedy_collapse(ids_h[0, :n_emit], self._ctc_blank,
                                              self._ctc_prev, self.transcript)
+        if self.passthrough:
+            out = self._passthrough_blend(out, n_emit)
         self._trim_buffers()
         return out
+
+    def _passthrough_blend(self, out, n_emit):
+        """The known-region passthrough of one emitted chunk.  The blend
+        weight depends on the masks within one frame, so [previous frame,
+        emitted frames, next frame] of mask context gives the
+        whole-utterance weight (`passthrough_weight_np`).  A next frame not
+        yet pushed counts as known: exact at the end of the stream (pad_end
+        frames are intact); mid-stream it cuts the pre-gap ramp of a gap
+        that starts at the boundary (see the class docstring)."""
+        if n_emit <= 0 or len(out) == 0:
+            return out
+        f0 = self._frames_out - n_emit  # first emitted frame (absolute)
+        lo = f0 - self._buf_base
+        m = self._mask_buf[lo : lo + n_emit + 1]  # emitted frames (+ the next, if pushed)
+        ctx = np.ones(n_emit + 2, np.float32)
+        ctx[0] = self._pt_prev_known
+        ctx[1 : 1 + len(m)] = m
+        w = passthrough_ops.passthrough_weight_np(
+            ctx, FRAME_STEP, (n_emit + 2) * FRAME_STEP)[FRAME_STEP : FRAME_STEP + len(out)]
+        s0 = f0 * FRAME_STEP - self._orig_base
+        orig = self._orig[s0 : s0 + len(out)]
+        if len(orig) < len(out):  # the flush's zero padding past the pushed tail
+            orig = np.pad(orig, (0, len(out) - len(orig)))
+        self._pt_prev_known = float(m[n_emit - 1])
+        cut = s0 + len(out)
+        if cut > 0:
+            self._orig = self._orig[cut:]
+            self._orig_base += cut
+        return (orig * (1.0 - w) + out * w).astype(np.float32)
 
     def _trim_buffers(self):
         """Bound memory on long-lived streams: drop mask/video/masked rows
@@ -751,11 +849,19 @@ def stream_utterances_lockstep(
     external-embedding models.  Returns (B, T * 192); with transcript=True
     (CTC models) (wav, transcripts), a list of B collapsed greedy CTC
     label-id lists.  The samples, masks and video are uploaded once; each
-    window fetches its emitted samples (and ids), as a live fleet would."""
-    _refuse_unported(passthrough, gap_atten, mesh)
+    window fetches its emitted samples (and ids), as a live fleet would.
+
+    gap_atten and passthrough: as `StreamingInpainter`'s.  The left
+    distances of the gap attenuation come from the whole masks on the host
+    and are uploaded with them; the passthrough blends the whole utterances
+    at the end, which equals the single stream's per-chunk blend (the
+    weight's reach is one frame).  mesh: not ported yet, raises."""
+    if mesh is not None:
+        raise NotImplementedError("lockstep fleets over a mesh are not ported yet")
     device = resolve_device(device)
     chunk, look = resolve_window(config, chunk_frames, lookahead_frames)
-    prog = _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device)
+    gap_atten = _norm_gap_atten(gap_atten)
+    prog = _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device, gap_atten)
     spec = prog.spec
     af, vf = int(config["audio_feat_dim"]), int(config["video_feat_dim"])
     window_n = chunk + look
@@ -780,10 +886,17 @@ def stream_utterances_lockstep(
     samp_len = (t0_max + window_n + _EXT_CTX - 1) * FRAME_STEP + FRAME_LENGTH
     samp = np.zeros((b_sz, samp_len), np.float32)
     samp[:, _EXT_CTX * FRAME_STEP : _EXT_CTX * FRAME_STEP + n_samples] = waves
+    fm = np.asarray(frame_masks, np.float32)
     mask_glob = np.concatenate(
-        [np.zeros((b_sz, _EXT_CTX), np.float32), np.asarray(frame_masks, np.float32),
+        [np.zeros((b_sz, _EXT_CTX), np.float32), fm,
          np.ones((b_sz, t0_max + window_n - t_frames), np.float32)], axis=1)
     host = {"samples": samp, "mask": mask_glob}
+    if gap_atten is not None:
+        # column t: the left distance after frame t - 1, from the true masks
+        # (the EXT context and the pad_end frames never feed the depth)
+        host["gap_ld"] = np.concatenate(
+            [np.full((b_sz, 1), postfilter._BIG, np.float32),
+             postfilter.left_distances_np(fm).astype(np.float32)], axis=1)
     if spec.input_type != "a":
         host["video"] = np.zeros((b_sz, t0_max + window_n, vf), np.float32)
         host["video"][:, :t_frames] = videos
@@ -810,6 +923,9 @@ def stream_utterances_lockstep(
         }
         if "embedding" in glob:
             raw["embedding"] = glob["embedding"]
+        if "gap_ld" in glob:
+            raw["gap_ld"] = glob["gap_ld"][:, t0]
+            raw["gap_valid"] = min(t_frames - t0, window_n)
         if spec.conditioning == "ssnn":
             visible = min(t0 + window_n, t_frames)
             upto = visible if final else max(0, visible - _DELTA_N)
@@ -824,6 +940,13 @@ def stream_utterances_lockstep(
         outs.append(wav_h)
         id_chunks.append(ids_h)
     wav_out = np.concatenate(outs, axis=1)[:, : t_frames * FRAME_STEP]
+    if passthrough:
+        num = wav_out.shape[1]
+        w = np.stack([passthrough_ops.passthrough_weight_np(fm[i], FRAME_STEP, num)
+                      for i in range(b_sz)])
+        orig = np.zeros((b_sz, num), np.float32)
+        orig[:, : min(num, n_samples)] = waves[:, :num]
+        wav_out = (orig * (1.0 - w) + wav_out * w).astype(np.float32)
     if not transcript:
         return wav_out
     all_ids = np.concatenate(id_chunks, axis=1)[:, :t_frames]

@@ -8,9 +8,11 @@ embedding); stacked BLSTM; dense heads 2H -> 257 (inpainting) and
 2H -> num_asr_labels (CTC).  See the reference module for the per-variant
 semantics, which are reproduced here unchanged.
 
-Not ported yet: the latency-controlled (LC) branch of the offline forward
-(`lc_chunk`), which LC training needs.  A model trained with it streams
-through `avsi_torch.infer.streaming` at its trained window.
+A config with `lc_chunk` (and `lc_lookahead`) runs the latency-controlled
+branch in training and inference alike: the stack is `core.lc_blstm_stack`
+at that window, and ssnn models condition window k on the causal running
+average the streaming server provides there, so the offline forward is the
+function `avsi_torch.infer.streaming` serves at the trained window.
 """
 
 from __future__ import annotations
@@ -171,6 +173,39 @@ def _ssnn_embedding(params: list, audio_features: torch.Tensor, masks: torch.Ten
     return masked.sum(dim=1) / (emb_mask.sum(dim=1) + 1.0)[:, None]
 
 
+def _ssnn_window_embeddings(params: list, audio_features: torch.Tensor, masks: torch.Tensor,
+                            chunk: int, look: int, frames_no_pad: int) -> torch.Tensor:
+    """Causal per-window SSNN embeddings, (B, T, af) -> (B, n_chunks, 200)
+    (`avsi/models/blstm.py:202-247`).  Before window k runs, the streaming
+    server has folded frames [0, u_k):
+
+      u_k = k*C + W - 2      while the window fills from pushed samples
+                             (k*C + W <= frames_no_pad; the last 2 frames'
+                             deltas are not final yet);
+      u_k = min(k*C + W, T)  for the windows drained by the flush.
+
+    The folded frames' deltas equal the offline symmetric-clamped ones, so a
+    prefix sum over the offline per-frame MLP outputs is the live fold."""
+    t = audio_features.shape[1]
+    h = _ssnn_frame_outputs(params, audio_features)
+    emb_mask = masks[:, :, 0]  # (B, T)
+    # prefix[:, u] = sum over frames < u (a leading zero row)
+    prefix = F.pad(torch.cumsum(h * emb_mask[:, :, None], dim=1), (0, 0, 1, 0))
+    cnt = F.pad(torch.cumsum(emb_mask, dim=1), (1, 0))
+    end = torch.arange(-(-t // chunk), device=h.device) * chunk + chunk + look
+    u = torch.where(end <= frames_no_pad, torch.clamp(end - 2, 0, t), torch.clamp(end, max=t))
+    return prefix[:, u] / (cnt[:, u] + 1.0)[:, :, None]
+
+
+def _lc_layer_seq(params: dict, inject_first: bool) -> list:
+    """The flattened (layer_params, inject_embedding_before) pairs of the LC
+    stack: the embedding enters where streaming's `_layer_list` puts it."""
+    if "blstm" in params:
+        return [(p, inject_first and i == 0) for i, p in enumerate(params["blstm"])]
+    return ([(p, False) for p in params["blstm1"]]
+            + [(p, i == 0) for i, p in enumerate(params["blstm2"])])
+
+
 def _tile(emb: torch.Tensor, t: int) -> torch.Tensor:
     return emb[:, None, :].expand(emb.shape[0], t, emb.shape[1])
 
@@ -189,30 +224,48 @@ def forward(
 
     train=True runs the differentiated BLSTM layers (K3/K4 under autograd)
     and dropout after the stack, drawn from `gen`; train=False the fused
-    forward-only stack (K1/K2) and no dropout."""
+    forward-only stack (K1/K2) and no dropout.  With `lc_chunk` > 0 the
+    stack is the LC scan (`core.lc_blstm_stack`) in both, as in the
+    reference."""
+    lc = None
     if int(config.get("lc_chunk", 0) or 0) > 0:
-        raise NotImplementedError("the latency-controlled (LC) branch is not ported yet")
+        lc = (int(config["lc_chunk"]), int(config.get("lc_lookahead", 0) or 0))
     spec = spec or parse_model_name(config["model"])
     compute_dtype, gate_dtype = dtypes(config)
     feats = features(batch, stats, config)
     net_in = _net_inputs(spec, feats, batch, audio_features)
-    impl = lstm_fused.resolve_impl(config.get("lstm_impl"), net_in.device,
-                                   config["net_dim"], compute_dtype)
     t = net_in.shape[1]
     int_layer = int(config.get("integration_layer", 0)) if spec.conditioning else 0
 
     def stack(layers, x):
+        impl = lstm_fused.resolve_impl(config.get("lstm_impl"), x.device, config["net_dim"],
+                                       compute_dtype)
         return core.blstm_stack(layers, x, compute_dtype, gate_dtype, impl=impl,
                                 forward_only=not train)
 
     emb = None
     if spec.conditioning == "ssnn":
         af_in = feats["audio_features"] if audio_features is None else audio_features
-        emb = _ssnn_embedding(params["ssnn"], af_in, batch["masks"])
+        if lc is not None:
+            # the causal per-window running average the streaming server
+            # provides, not the whole-utterance average it never sees
+            n_samples = batch["target_sources"].shape[1]
+            frames_no_pad = max(0, (n_samples - FRAME_LENGTH) // FRAME_STEP + 1)
+            emb = _ssnn_window_embeddings(params["ssnn"], af_in, batch["masks"], lc[0], lc[1],
+                                          frames_no_pad)
+        else:
+            emb = _ssnn_embedding(params["ssnn"], af_in, batch["masks"])
     elif spec.conditioning == "emb":
         emb = batch["embeddings"]
 
-    if emb is not None and int_layer == 0:
+    if lc is not None:
+        # the whole flattened stack through the window-space recursion:
+        # chaining per-sub-stack calls would differ from serving at the
+        # lookahead frames
+        layer_seq = _lc_layer_seq(params, emb is not None and int_layer == 0)
+        rnn_out = core.lc_blstm_stack(layer_seq, net_in, emb, lc[0], lc[1], compute_dtype,
+                                      gate_dtype)
+    elif emb is not None and int_layer == 0:
         rnn_out = stack(params["blstm"], torch.cat([net_in, _tile(emb, t)], dim=2))
     elif emb is not None:
         mid = stack(params["blstm1"], net_in)

@@ -1,7 +1,7 @@
 """Model building blocks: dense layers and the bidirectional LSTM stack.
 
-Port of `avsi/models/core.py` (dense, dropout, the BLSTM stack; the LC
-window recursion waits for the streaming slice).  Parameters are
+Port of `avsi/models/core.py` (dense, dropout, the BLSTM stack and the
+latency-controlled (LC) stack of LC training).  Parameters are
 plain nested dicts/lists of tensors with the reference's layout: a BLSTM
 layer is {"wx": (2, D, 4H), "wh": (2, H, 4H), "b": (2, 4H)}, leading axis
 (forward, backward), gate order i, f, g, o.
@@ -14,6 +14,13 @@ layer, including its `gate_dtype` rule (gate nonlinearities evaluated in
 differentiated layer (`avsi_torch.ops.lstm_train.BiLSTMLayer`, K3/K4) per
 layer when one will; "scan" takes this eager twin, which autograd
 differentiates.
+
+`lc_blstm_stack` is the train-time twin of the streaming windows: the
+reference runs it as `lax.scan`s with no Pallas kernel whatever `lstm_impl`
+says, so its full port is the eager scan on `_lstm_cell` under autograd.
+Under bf16 it computes the scan's function (gates rounded to `gate_dtype`),
+not the kernels'.  The reference rematerializes each cell in the backward
+(`jax.checkpoint`); autograd here keeps the cells' activations.
 """
 
 from __future__ import annotations
@@ -144,6 +151,124 @@ def blstm_stack(layers: list[dict], x: torch.Tensor, compute_dtype=torch.float32
     for layer in layers:
         out = layer_fn(layer, out, compute_dtype)
     return out
+
+
+def _lc_layer_pair(params: dict, y: torch.Tensor, yhat: torch.Tensor, chunk: int,
+                   look: int, compute_dtype, gate_dtype, need_look: bool = True):
+    """One LC-BLSTM layer in window space (`avsi/models/core.py:143-267`).
+
+    The streaming server runs the whole stack over each chunk + look
+    window, so an upper layer's input at a window's lookahead frames is the
+    lower layer's window-local recomputation.  Each layer is a pair:
+
+      y    (B, n * chunk, D)  canonical values at the emitted frames;
+      yhat (B, n, look, D)    window k's values at its lookahead frames
+                              [k*C + C, k*C + W).
+
+    The forward direction is one scan over y (its carry passes only through
+    emitted frames) plus an n-window-batched continuation over yhat from the
+    chunk-boundary states; the backward direction is the n-window-batched
+    zero-initialized scan over each whole window.  need_look=False (the last
+    layer) skips the lookahead outputs, which nothing reads."""
+    b_sz, t_pad, _ = y.shape
+    hidden = params["wh"].shape[1]
+    n_chunks = t_pad // chunk
+    w_len = chunk + look
+    cd = compute_dtype
+    wx32 = params["wx"].to(cd).float()
+    wh32 = params["wh"].to(cd).float()
+    bias = params["b"].float()
+
+    def project(x, d):
+        """x (..., D) -> gate input (..., 4H) of direction d, f32
+        accumulation, stored at the compute dtype."""
+        return (torch.matmul(x.to(cd).float(), wx32[d]) + bias[d]).to(cd)
+
+    def scan(xw, h, c, d, keep_c=False):
+        """The cell of direction d over xw (N, L, 4H) from carries (N, H)."""
+        hs, cs = [], []
+        for t in range(xw.shape[1]):
+            h, c = _lstm_cell(h[None], c[None], xw[None, :, t], wh32[d : d + 1], cd, gate_dtype)
+            h, c = h[0], c[0]
+            hs.append(h)
+            if keep_c:
+                cs.append(c)
+        return torch.stack(hs, dim=1), (torch.stack(cs, dim=1) if keep_c else None)
+
+    # forward, canonical: the exact scan over the emitted frames, keeping c
+    # for the chunk-boundary states
+    zero = y.new_zeros(b_sz, hidden, dtype=torch.float32)
+    need_c = need_look and look > 0
+    fwd, cs_f = scan(project(y, 0), zero, zero, 0, keep_c=need_c)  # (B, T', H)
+
+    fwd_look = None
+    if need_c:
+        # forward, window-local lookahead: continue from the state at each
+        # window's last emitted frame (k*C + C - 1), n windows batched
+        hb = fwd[:, chunk - 1 :: chunk].reshape(b_sz * n_chunks, hidden)
+        cb = cs_f[:, chunk - 1 :: chunk].reshape(b_sz * n_chunks, hidden)
+        xw_l = project(yhat, 0).reshape(b_sz * n_chunks, look, 4 * hidden)
+        fwd_look = scan(xw_l, hb, cb, 0)[0].reshape(b_sz, n_chunks, look, hidden)
+
+    # backward: zero-initialized at each window's end, n windows batched
+    x_win = torch.cat([y.reshape(b_sz, n_chunks, chunk, -1), yhat], dim=2)  # (B, n, W, D)
+    xw_b = project(x_win, 1).reshape(b_sz * n_chunks, w_len, 4 * hidden).flip(1)
+    zero_b = y.new_zeros(b_sz * n_chunks, hidden, dtype=torch.float32)
+    hs_b = scan(xw_b, zero_b, zero_b, 1)[0].flip(1).reshape(b_sz, n_chunks, w_len, hidden)
+    bwd = hs_b[:, :, :chunk].reshape(b_sz, t_pad, hidden)
+
+    y_out = torch.cat([fwd, bwd], dim=-1).to(y.dtype)
+    if not need_c:
+        return y_out, y.new_zeros(b_sz, n_chunks, look, 2 * hidden)
+    return y_out, torch.cat([fwd_look, hs_b[:, :, chunk:]], dim=-1).to(y.dtype)
+
+
+def lc_blstm_stack(layer_seq: list, x: torch.Tensor, emb: torch.Tensor | None, chunk: int,
+                   lookahead: int, compute_dtype=torch.float32, gate_dtype=None) -> torch.Tensor:
+    """Latency-controlled BLSTM stack, (B, T, D) -> (B, T, 2 * H_last)
+    (`avsi/models/core.py:270-341`): the train-time twin of the streaming
+    window step.  The forward state runs on across chunks, the backward
+    state restarts from zero at each window's end, the windows past the
+    sequence end see zero features, and each window runs through the whole
+    stack (see `_lc_layer_pair`).
+
+    layer_seq: (layer_params, inject_embedding_before) pairs, the layout of
+    streaming's `_layer_list`.  emb: (B, E), one conditioner per utterance,
+    or (B, n_chunks, E), window k's emitted and lookahead frames all seeing
+    emb[:, k] (the ssnn running average the streaming server provides)."""
+    b_sz, t_len, _ = x.shape
+    gate_dtype = gate_dtype or compute_dtype
+    chunk, look = int(chunk), int(lookahead)
+    n_chunks = -(-t_len // chunk)
+    t_pad = n_chunks * chunk
+    x_pad = torch.nn.functional.pad(x, (0, 0, 0, t_pad + look - t_len))
+    y = x_pad[:, :t_pad]
+    idx = (torch.arange(n_chunks, device=x.device)[:, None] * chunk + chunk
+           + torch.arange(look, device=x.device)[None, :])  # (n, look)
+    yhat = x_pad[:, idx]  # (B, n, look, D)
+
+    for i, (layer_params, inject) in enumerate(layer_seq):
+        if inject and emb is not None:
+            e_dim = emb.shape[-1]
+            if emb.dim() == 3:  # per-window conditioner (B, n_chunks, E)
+                tiled_y = emb.repeat_interleave(chunk, dim=1).to(y.dtype)
+                tiled_yh = emb[:, :, None, :].expand(b_sz, n_chunks, look, e_dim).to(yhat.dtype)
+            else:
+                tiled_y = emb[:, None, :].expand(b_sz, y.shape[1], e_dim).to(y.dtype)
+                tiled_yh = emb[:, None, None, :].expand(b_sz, n_chunks, look, e_dim).to(yhat.dtype)
+            y = torch.cat([y, tiled_y], dim=2)
+            yhat = torch.cat([yhat, tiled_yh], dim=3)
+        y, yhat = _lc_layer_pair(layer_params, y, yhat, chunk, look, compute_dtype, gate_dtype,
+                                 need_look=i < len(layer_seq) - 1)
+    return y[:, :t_len]
+
+
+def lc_bilstm_layer(params: dict, x: torch.Tensor, chunk: int, lookahead: int,
+                    compute_dtype=torch.float32, gate_dtype=None) -> torch.Tensor:
+    """One latency-controlled layer, (B, T, D) -> (B, T, 2H): the one-layer
+    stack (for one layer the window-local and canonical inputs coincide)."""
+    return lc_blstm_stack([(params, False)], x, None, chunk, lookahead, compute_dtype,
+                          gate_dtype)
 
 
 def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,

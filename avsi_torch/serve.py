@@ -14,13 +14,20 @@ LC-BLSTM stream on the same weights (`avsi_torch.infer.streaming`).
   GET /healthz    -> 200 "ok"
   GET /info       -> model/geometry/weights_version/device JSON
   GET /metrics    -> Prometheus text (counters, live streams, uptime)
+  POST /reload    body: optional checkpoint directory (default: the one
+      served) -> {"weights_version": n}: hot-swaps the weights; the
+      geometry and the parameter tree must match (400 otherwise); open
+      streams keep the weights they started with
 
 Live streams (visual models append f16 video rows to each push payload,
 CTC models can ask for framed incremental transcripts with `transcript=1`):
 
   POST /stream/open?chunk=8&look=16&transcript=0&fill=0
       -> {"id": ..., "chunk_frames": ..., "frame_step": 192, ...}
-      (blstm-*-emb models: the open body carries the float32 speaker vector)
+      (blstm-*-emb models: the open body carries the float32 speaker vector;
+       &atten=0.5[&atten_trust=34&atten_ramp=16] turns the causal deep-gap
+       attenuation on for the stream, &atten=1 turns it off; absent, the
+       service's `gap_atten` applies)
   POST /stream/<id>   body: [int32 n_samples][int32 n_frames]
       [n_samples x int16 wave][n_frames x uint8 frame_mask]
       (+ [n_frames x video_feat_dim x float16 video] for visual models)
@@ -31,9 +38,9 @@ CTC models can ask for framed incremental transcripts with `transcript=1`):
 
 At most `max_streams` sessions live at once (429 beyond); a session idle
 for `stream_idle_s` is reaped (404 afterwards, as for an unknown id).
-`/enhance` and every stream push take one device lock.  Not ported yet,
-answered 501: `/reload`, and `/stream/open?atten=` below 1 (the causal gap
-attenuation).
+`/enhance` and every stream push take one device lock.  The service-wide
+`passthrough` and `gap_atten` options apply to /enhance (the offline
+levers) and to every stream (their causal twins).
 """
 
 from __future__ import annotations
@@ -52,6 +59,11 @@ from avsi_torch.device import resolve_device
 from avsi_torch.infer.inpaint import load_model_bundle, make_infer_step
 from avsi_torch.infer.streaming import StreamingInpainter
 from avsi_torch.models.blstm import parse_model_name
+from avsi_torch.train.checkpoints import named_leaves
+
+# the configuration keys a reload must keep: the shapes of requests and weights
+GEOMETRY = ("model", "audio_len", "audio_feat_dim", "video_feat_dim", "net_dim",
+            "integration_layer")
 
 
 class InpaintingService:
@@ -62,11 +74,20 @@ class InpaintingService:
         phase_recon: str = "gl",
         gl_iters: int = 30,
         norm: bool = True,
+        passthrough: bool = False,
+        gap_atten: dict | None = None,
         lstm_impl: str = "auto",
         device=None,
     ):
+        """passthrough and gap_atten ({"alpha", "trust", "ramp"}) are the
+        service-wide deployment levers: the offline ones on /enhance, their
+        causal twins on every stream unless `open_stream(gap_atten=...)`
+        says otherwise."""
         self.device = resolve_device(device)
         self._lstm_impl = lstm_impl
+        self._model_path, self._norm = model_path, norm
+        self._phase_recon, self._gl_iters = phase_recon, gl_iters
+        self._passthrough, self._gap_atten = bool(passthrough), gap_atten or None
         self.config, stats, model, self.params = load_model_bundle(
             model_path, norm, lstm_impl=lstm_impl, device=self.device
         )
@@ -79,9 +100,7 @@ class InpaintingService:
         self.emb_dim = (
             int(self.config.get("embedding_dim", 512)) if model.needs_embeddings else 0
         )
-        self._step = make_infer_step(
-            model, self.config, stats, False, phase_recon, gl_iters, device=self.device
-        )
+        self._step = self._make_step(model, self.config, stats)
         self._lock = threading.Lock()  # one device stream: /enhance and pushes
         self.weights_version = 0
         self.started = time.monotonic()
@@ -90,6 +109,47 @@ class InpaintingService:
         self.n_device_steps = 0
         self.n_stream_pushes = 0
         self.warmup()
+
+    def _make_step(self, model, config, stats):
+        return make_infer_step(model, config, stats, False, self._phase_recon, self._gl_iters,
+                               passthrough=self._passthrough, gap_atten=self._gap_atten,
+                               device=self.device)
+
+    def reload(self, model_path: str | None = None) -> int:
+        """Hot-swap the weights from `model_path` (default: the checkpoint
+        served now, which after a reload from a path is that path).
+
+        Refused (ValueError) when the checkpoint's geometry (`GEOMETRY`)
+        or its parameter tree (the flat keys and shapes) differs from the
+        served one.  When its stats or the rest of its config differ, the
+        step is rebuilt and warmed outside the device lock.  The swap
+        replaces references under the lock and never writes into the
+        served tensors, so streams opened before it keep the weights and
+        stats they started with.  Returns the new `weights_version`."""
+        cfg, stats, model, params = load_model_bundle(
+            model_path or self._model_path, self._norm, lstm_impl=self._lstm_impl,
+            device=self.device)
+        for key in GEOMETRY:
+            if cfg.get(key) != self.config.get(key):
+                raise ValueError(f"reload geometry mismatch on {key}: {cfg.get(key)!r} vs "
+                                 f"serving {self.config.get(key)!r}")
+        new_tree = {k: tuple(v.shape) for k, v in named_leaves(params).items()}
+        old_tree = {k: tuple(v.shape) for k, v in named_leaves(self.params).items()}
+        if new_tree != old_tree:
+            diff = sorted(set(new_tree.items()) ^ set(old_tree.items()))
+            raise ValueError(f"reload params-tree mismatch: {diff[:4]}")
+        rebuild = cfg != self.config or not all(
+            np.array_equal(a, b) for a, b in zip(stats, self.stats))
+        step = self._step
+        if rebuild:
+            step = self._make_step(model, cfg, stats)
+            step(params, self._template_batch(self.micro_batch))[0].cpu()
+        with self._lock:
+            self.params, self.stats, self.config, self._step = params, stats, cfg, step
+            if model_path:
+                self._model_path = model_path
+            self.weights_version += 1
+            return self.weights_version
 
     def _template_batch(self, n: int) -> dict:
         batch = {
@@ -158,20 +218,27 @@ class InpaintingService:
                     transcript: bool = False,
                     phase_fill: bool = False,
                     embedding: np.ndarray | None = None,
-                    gap_atten: dict | None = None) -> StreamingInpainter:
+                    gap_atten: dict | None | str = "service-default") -> StreamingInpainter:
         """A live LC-BLSTM stream on this service's weights and device.
         chunk/lookahead default to the model's trained LC window, else
         C=8/L=16 (`streaming.resolve_window`); transcript=True (CTC models)
         keeps an incremental greedy decode on the stream; phase_fill=True
         fills the hole's phase causally; `embedding` is the speaker vector
-        of blstm-*-emb models.  The stream takes the service's requested
-        `lstm_impl` through streaming's own policy.  Nothing is compiled
-        per stream: the kernels were built by the service's warm-up."""
+        of blstm-*-emb models; `gap_atten` overrides the service's causal
+        attenuation for this stream (None turns it off).  The stream takes
+        the service's passthrough, and its requested `lstm_impl` through
+        streaming's own policy.  Nothing is compiled per stream: the
+        kernels were built by the service's warm-up."""
+        if gap_atten == "service-default":
+            gap_atten = self._gap_atten
+        with self._lock:  # one coherent (config, stats, params) against a reload
+            config, stats, params = self.config, self.stats, self.params
         return StreamingInpainter(
-            self.config, self.stats, self.params,
+            config, stats, params,
             chunk_frames=chunk_frames, lookahead_frames=lookahead_frames,
             embedding=embedding, transcript=transcript, phase_fill=phase_fill,
-            lstm_impl=self._lstm_impl, gap_atten=gap_atten, device=self.device,
+            passthrough=self._passthrough, lstm_impl=self._lstm_impl, gap_atten=gap_atten,
+            device=self.device,
         )
 
 
@@ -237,12 +304,14 @@ def _open_options(query: str, raw: bytes, service: InpaintingService) -> dict:
     if transcript and not spec.ctc:
         raise ValueError(f"model {service.config['model']} has no CTC head; "
                          "transcript=1 needs a -ctc variant")
-    gap_atten = None
-    if "atten" in q:  # atten=1 is off; below 1 the stream refuses it
+    gap_atten = "service-default"
+    if "atten" in q:  # atten=1 is off; absent, the service's setting holds
         alpha = float(q["atten"][0])
         if not 0.0 <= alpha <= 1.0:
             raise ValueError("atten must be in [0,1]")
-        gap_atten = {"alpha": alpha}
+        gap_atten = None if alpha >= 1.0 else {
+            "alpha": alpha, "trust": int(q.get("atten_trust", ["34"])[0]),
+            "ramp": int(q.get("atten_ramp", ["16"])[0])}
     emb = None
     if raw:
         if spec.conditioning != "emb":
@@ -351,7 +420,7 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571,
                 "id": sid, "chunk_frames": inp.chunk, "lookahead_frames": inp.look,
                 "frame_step": 192, "frame_length": 384,
                 "video_feat_dim": 0 if inp.spec.input_type == "a" else inp.vf,
-                "transcript": inp.want_transcript, "gap_atten": None,
+                "transcript": inp.want_transcript, "gap_atten": inp.gap_atten,
             }).encode())
 
         def _push(self, sid: str, closing: bool, raw: bytes):
@@ -390,9 +459,10 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571,
             self._reply(200, body)
 
         def do_POST(self):
-            # client errors -> 400 with the message; a part not ported yet
-            # -> 501; anything else -> opaque 500.  Once a reply has started,
-            # never write a second one into the connection.
+            # client errors (a /reload path that does not exist, too) -> 400
+            # with the message; a model not ported yet (a /reload to one)
+            # -> 501; anything else -> opaque 500.  Once a reply has
+            # started, never write a second one into the connection.
             self._replied = False
             path, _, query = self.path.partition("?")
             try:
@@ -409,10 +479,11 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8571,
                     parts = path.split("/")[2:]
                     self._push(parts[0], parts[1:] == ["close"], raw)
                 elif path == "/reload":
-                    raise NotImplementedError("/reload is not ported yet")
+                    version = service.reload(raw.decode().strip() or None)
+                    self._reply(200, json.dumps({"weights_version": version}).encode())
                 else:
                     self._reply(404, b"not found")
-            except (ValueError, KeyError, IndexError, struct.error) as e:
+            except (ValueError, KeyError, IndexError, struct.error, FileNotFoundError) as e:
                 if not self._replied:
                     self._reply(400, str(e).encode())
             except NotImplementedError as e:

@@ -12,7 +12,10 @@ self-contained checkpoint directory (config + stats), and resuming from
 On the device, each train step runs the model forward with `train=True`
 (the BLSTM layers through K3 and K4 under autograd, `ops/lstm_train.py`),
 the losses, the backward and the optimizer update; validation runs the
-fused forward-only stack (K1 + K2).  The step takes the whole host batch
+fused forward-only stack (K1 + K2).  A config with `lc_chunk` trains the
+latency-controlled model that the streams serve: training and validation
+run the LC stack (`models/core.lc_blstm_stack`, an eager scan under
+autograd, as the reference scans it whatever `lstm_impl` says).  The step takes the whole host batch
 to the device as it is: the reference's compaction of masks to int8 frames
 and of waves to int16 is a TPU transfer trick, and the masks the model
 sees are the same either way.
@@ -20,7 +23,7 @@ sees are the same either way.
 Not ported yet, each refused with NotImplementedError where a config asks
 for it: data-parallel and tensor-parallel meshes and multi-host runs, the
 device-resident corpus cache, `profile_steps` traces, TensorBoard media,
-LC training, ASR models (`is_asr`) and `av-blstm-twosteps`.  The SIGTERM
+ASR models (`is_asr`) and `av-blstm-twosteps`.  The SIGTERM
 preemption checkpoint is not ported either; the port writes no
 TensorBoard events.
 """
@@ -40,16 +43,13 @@ from avsi_torch.data.reader import DataManager
 from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
-from avsi_torch.infer.inpaint import expand_batch
+from avsi_torch.infer.inpaint import DEVICE_BATCH_KEYS, expand_batch
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import ctc as ctc_ops
 from avsi_torch.ops import lstm_fused
 from avsi_torch.train import checkpoints
 from avsi_torch.train import state as state_lib
-
-DEVICE_KEYS = ("sequence_lengths", "labels_lengths", "target_sources", "labels",
-               "video_features", "masks", "embeddings")
 
 
 def _log(logfile: str, msg: str) -> None:
@@ -67,7 +67,6 @@ def _refuse_unported(config: dict) -> None:
             bool(int(config.get("device_cache_corpus", 0))),
         "profiler traces (profile_steps)": bool(int(config.get("profile_steps", 0))),
         "TensorBoard media (tb_media)": bool(int(config.get("tb_media", 0))),
-        "latency-controlled (LC) training (lc_chunk)": int(config.get("lc_chunk", 0) or 0) > 0,
         "av-blstm-twosteps training (model_ckp_vnet)": bool(config.get("model_ckp_vnet")),
     }
     for what, asked in asks.items():
@@ -79,7 +78,8 @@ def device_batch(batch: dict, device, audio_feat_dim: int) -> dict:
     """Host batch (numpy) -> tensors on `device`, plus the host-side CTC
     feasibility of each row (`ctc_infeasible`, numpy) so the loss needs no
     device sync to find infeasible alignments."""
-    out = {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in DEVICE_KEYS if k in batch}
+    out = {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in DEVICE_BATCH_KEYS
+           if k in batch}
     out = expand_batch(out, audio_feat_dim)
     out["ctc_infeasible"] = ctc_ops.infeasible_rows(
         np.asarray(batch["sequence_lengths"]), np.asarray(batch["labels"]),

@@ -49,7 +49,23 @@ Phases, in order; any failure exits non-zero:
      fleet of 16 streams of 3 s (`stream_utterances_lockstep`): 96 K5
      launches at B=16, stream 0 held against its single stream and the
      fleet against the CPU fleet, stream-seconds per wall second;
-  7. training path: a fixed-mode TFRecord corpus written with the port's
+  7. offline path: `avsi_torch.infer.inpaint.infer` over a test set of 20
+     utterances written with the port's codec (half with the 67-frame gap,
+     half with a 133-frame one, the 1,600 ms gaps that the attenuation's
+     defaults reach), batches of 8 (3, the last padded), 50 Griffin-Lim
+     iterations: plain, with `passthrough` and with `gap_atten={"alpha":
+     0.5}`.  Each run: 20 int16 wavs of 48,000 samples, K1 1 and K2 2
+     launches per batch and nothing else, utterances/s, and its wavs and
+     losses held against the same `infer()` on the CPU;
+  8. the levers in the service: `serve(passthrough=True, gap_atten=...)`,
+     its /enhance against `service.enhance`; a stream opened with
+     `/stream/open?atten=0.5` (133-frame gap) held against the same pushes
+     on the CPU; `/reload` to a second checkpoint (another seed), then a
+     bare `/reload`: weights_version 2, /enhance equal to that checkpoint's
+     own step, the stream opened before the reloads equal to a CPU stream of
+     the first checkpoint; a `/reload` of another geometry answers 400 and
+     serving goes on;
+  9. training path: a fixed-mode TFRecord corpus written with the port's
      codec (96 training + 32 validation utterances of 48,000 samples),
      `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
      (6 train steps, 2 validation steps); launch counts of K3 and K4 (3 per
@@ -58,20 +74,33 @@ Phases, in order; any failure exits non-zero:
      step time; one train step on the GPU held against the same step on
      the CPU (loss and every gradient), at B=8 and at the training batch
      of 32;
-  8. profiles, after every host-side figure above was timed (host time
+ 10. LC training: `train()` with `scripts/config/blstm_lc_stream.config`'s
+     model settings (lc_chunk 8, lc_lookahead 16, batch 8, ctc_loss 0.05)
+     in f32 at full width, one epoch over the first 48 training and 8
+     validation utterances of that corpus (6 train steps, 1 validation
+     step): finite losses, no K1-K6 launch (the LC stack is a
+     scan, as in the reference), `sinet.npz` read back, seconds per step;
+     one LC train step on the GPU against the CPU (loss and gradients); the
+     trained bundle's whole-utterance LC forward on the GPU against its
+     `StreamingInpainter` on the GPU at the trained window (K5 against the
+     scan: train equals serve);
+ 11. profiles, after every host-side figure above was timed (host time
      reads slower after profiler sessions in the same process): one
      serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
      K2's launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2
      call profiled at each (the projection GEMM and the cluster recurrence
      apart), then the requests timed again after those 9 sessions; one
      window step (the second of a whole fleet run) and one push of a live
-     stream that completes a window; one train step; one K4 call at B=8,
-     32 and 128, f32 and bf16, its walk and its dWh apart;
-  9. one JSON line of kernel figures (K1-K6, each with its launches on its
+     stream that completes a window; one plain `infer()` run and each
+     lever's device work on a batch of 8; one train step; one LC train
+     step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
+     its dWh apart;
+ 12. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
 
-Exits non-zero, printing no result, when no CUDA device is available.
+Each phase prints its wall time ("phase ... s").  Exits non-zero, printing
+no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -85,6 +114,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -100,10 +130,12 @@ from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_
 from avsi_torch.infer import inpaint, streaming  # noqa: E402
 from avsi_torch.models import blstm, registry  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
+from avsi_torch.ops import passthrough, postfilter  # noqa: E402
 from avsi_torch.serve import serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
 from avsi_torch.train import loop as train_loop  # noqa: E402
 from avsi_torch.train import state as train_state  # noqa: E402
+from avsi_torch.utils import wav as wavio  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, and the
 # rate for each operand type (f32 outside the tensor cores; bf16 tensor cores)
@@ -117,6 +149,12 @@ TRAIN_BATCH, N_TRAIN, N_VAL, EPOCHS = 32, 96, 32, 2
 CHUNK, LOOK, PUSH, FLEET = 8, 16, 1536, 16  # live streams: C, L, samples per push, fleet B
 W = CHUNK + LOOK  # 24 frames per LC window
 N_WINDOWS = -(-T_FRAMES // CHUNK)  # 32 windows per 250-frame utterance
+LONG_GAP = slice(60, 193)  # 133 frames (1,600 ms): deeper than gap_atten's trust + ramp, 50
+N_TEST, INFER_BATCH, INFER_GL = 20, 8, 50  # offline test set, its batch, Griffin-Lim iterations
+INFER_MODES = {"plain": {}, "passthrough": {"passthrough": True},
+               "gap_atten": {"gap_atten": {"alpha": 0.5}}}
+LC_CHUNK, LC_LOOK, LC_BATCH = 8, 16, 8  # scripts/config/blstm_lc_stream.config
+N_LC_TRAIN, N_LC_VAL = 48, 8  # the first utterances of each split: 6 LC steps and 1 validation
 KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main path)
     "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180",
                           "avsi_torch/csrc/lstm_fused.cu", 8),
@@ -488,11 +526,11 @@ def time_stack() -> None:
               f"cuDNN nn.LSTM f32 {lib:.3f} ms; max_abs_err vs cuDNN {err:.2e}", flush=True)
 
 
-def write_checkpoint(d: str) -> None:
+def write_checkpoint(d: str, seed: int = 0, net_dim=None) -> None:
     """A flagship bundle: config.txt, stats .npy and sinet.npz (random
-    weights from a seed, in the reference's npz key layout)."""
-    cfg = flagship_config()
-    rng = np.random.RandomState(0)
+    weights and stats from `seed`, in the reference's npz key layout)."""
+    cfg = flagship_config(net_dim=net_dim)
+    rng = np.random.RandomState(seed)
     np.save(os.path.join(d, "audio_features_mean.npy"), rng.uniform(0, 5, 257).astype(np.float32))
     np.save(os.path.join(d, "audio_features_std.npy"), rng.uniform(0.5, 2, 257).astype(np.float32))
     cfg.update(num_asr_labels=33, root_folder=d, exp_folder=d,
@@ -502,13 +540,14 @@ def write_checkpoint(d: str) -> None:
     config_lib.save_configfile(cfg, os.path.join(d, "config.txt"))
     checked = config_lib.check_trainconfiguration(cfg)
     model = registry.get_model(cfg["model"])
-    checkpoints.save_checkpoint(d, "sinet", model.init(torch.Generator().manual_seed(0), checked))
+    params = model.init(torch.Generator().manual_seed(seed), checked)
+    checkpoints.save_checkpoint(d, "sinet", params)
 
 
-def request(rng) -> tuple[np.ndarray, np.ndarray]:
+def request(rng, gap: slice = GAP) -> tuple[np.ndarray, np.ndarray]:
     wave = np.clip(3000 * rng.randn(AUDIO_LEN), -32768, 32767).astype(np.int16)
     mask = np.ones(T_FRAMES, np.uint8)
-    mask[GAP] = 0
+    mask[gap] = 0
     return wave, mask
 
 
@@ -532,9 +571,9 @@ def spread_ms(seconds) -> str:
     return f"median {np.median(ms):.1f}, min {ms.min():.1f}, max {ms.max():.1f} ms"
 
 
-def start_server(d: str, device: str = "cuda"):
+def start_server(d: str, device: str = "cuda", **kw):
     """`serve()` on the flagship bundle in a thread: (server, base url)."""
-    server = serve(d, port=0, device=device)
+    server = serve(d, port=0, device=device, **kw)
     server.thread = threading.Thread(target=server.serve_forever, daemon=True)
     server.thread.start()
     return server, f"http://127.0.0.1:{server.server_address[1]}"
@@ -598,7 +637,7 @@ def main_path(d: str, device: str = "cuda") -> dict:
 
 
 def serving_profiles(d: str) -> None:
-    """Phase 8 (the process's first profiler sessions): one serving step
+    """Phase 11 (the process's first profiler sessions): one serving step
     profiled (3 projection GEMMs and 3 cluster recurrences), K1 and K2
     calls profiled at each batch and dtype (`fused_plans_and_profiles`),
     then the requests timed again, to show what profiler sessions leave
@@ -632,14 +671,16 @@ def serving_profiles(d: str) -> None:
         stop_server(server)
 
 
-def profile(label: str, fn, top: int = 12) -> dict:
+def profile(label: str, fn, top: int = 12, cpu: bool = True) -> dict:
     """Where one step's time goes: torch.profiler's device time per kernel
     name, and the device's busy share of the step's wall time.  Returns the
-    launches per kernel name."""
+    launches per kernel name.  cpu=False records the device alone (a step
+    of tens of thousands of launches takes far less to trace)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -765,7 +806,7 @@ def dwh_splits_compared() -> None:
 
 
 def k4_profiles() -> None:
-    """Phase 8: one K4 call profiled at each timed batch and dtype, so that
+    """Phase 11: one K4 call profiled at each timed batch and dtype, so that
     its walk (`rec_cluster_bwd`) and its dWh (the chunks' products and their
     sum) show apart."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -800,7 +841,7 @@ def k4_profiles() -> None:
 
 
 def fused_plans_and_profiles() -> None:
-    """Phase 8: the launch plan K1 and K2 take at each timed batch and
+    """Phase 11: the launch plan K1 and K2 take at each timed batch and
     dtype, and one K1 and one K2 call profiled at each, so the
     projection's and the recurrence's device times show apart."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -883,12 +924,12 @@ def rel_l2(got, want) -> float:
     return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
 
 
-def stream_pushes(rng) -> list[tuple]:
-    """One 48,000-sample utterance with the gap at frames 80-146, as a live
-    client sends it: 1,536-sample pushes, each with the mask bytes and f16
-    video rows of the frames its samples complete; the last push also
-    carries the pad_end frame's row."""
-    wave, mask = request(rng)
+def stream_pushes(rng, gap: slice = GAP) -> list[tuple]:
+    """One 48,000-sample utterance with the gap at `gap` (frames 80-146), as
+    a live client sends it: 1,536-sample pushes, each with the mask bytes
+    and f16 video rows of the frames its samples complete; the last push
+    also carries the pad_end frame's row."""
+    wave, mask = request(rng, gap)
     video = rng.randn(T_FRAMES, 136).astype(np.float16)
     pushes, fed = [], 0
     for lo in range(0, AUDIO_LEN, PUSH):
@@ -900,15 +941,25 @@ def stream_pushes(rng) -> list[tuple]:
     return pushes
 
 
+def push_body(part, mask, video) -> bytes:
+    """A /stream/<id> payload: the samples, mask bytes and f16 video rows."""
+    return (struct.pack("<ii", len(part), len(mask)) + part.tobytes() + mask.tobytes()
+            + video.tobytes())
+
+
+def http_post(url: str, body: bytes = b"") -> bytes:
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
 def stream_path(d: str) -> dict:
     """Phase 6: one live stream through the service's /stream/* on the GPU.
     Returns the launch counts of this path."""
     server, url = start_server(d)
 
     def post(path, body=b""):
-        req = urllib.request.Request(url + path, data=body, method="POST")
-        with urllib.request.urlopen(req, timeout=300) as r:
-            return r.read()
+        return http_post(url + path, body)
 
     pushes = stream_pushes(np.random.RandomState(6))
     try:
@@ -916,8 +967,7 @@ def stream_path(d: str) -> dict:
         samples, ids, lat = [], [], []
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        bodies = [struct.pack("<ii", len(p), len(m)) + p.tobytes() + m.tobytes() + v.tobytes()
-                  for p, m, v in pushes]
+        bodies = [push_body(*p) for p in pushes]
         for path, body in [(f"/stream/{sid}", b) for b in bodies] + [(f"/stream/{sid}/close", b"")]:
             t1 = time.perf_counter()
             reply = post(path, body)
@@ -1075,7 +1125,7 @@ def fleet_path(d: str) -> dict:
 
 
 def fleet_profiles(d: str) -> None:
-    """Phase 8: one window step inside a whole fleet run (the second of its
+    """Phase 11: one window step inside a whole fleet run (the second of its
     32), and one push of a live stream that completes exactly one window."""
     run, (config, stats, params), (waves, masks, videos) = fleet_runner(d)
     profile_window_step(lambda: run("cuda"), f"window step 2 of {N_WINDOWS} inside a "
@@ -1087,6 +1137,174 @@ def fleet_profiles(d: str) -> None:
     profile("one single-stream push completing one window (W=24)",
             lambda: inp.push(waves[0, n0 : n0 + PUSH], masks[0, W : W + CHUNK],
                              videos[0, W : W + CHUNK]))
+
+
+# ------------------------------------------------------------ offline path and levers
+
+def write_test_set(root: str) -> tuple[str, np.ndarray, np.ndarray]:
+    """N_TEST utterances in one TFRecord file written with the port's codec:
+    48,000 int16-valued samples, the 67-frame gap (even rows) or the
+    133-frame one (odd rows), 136-d video, 5 labels.  Returns (its
+    directory, the waves, the frame masks)."""
+    rng = np.random.RandomState(12)
+    test_dir = os.path.join(root, "test-set")
+    os.makedirs(test_dir)
+    waves, masks = [], []
+    with tfrecord.TFRecordWriter(os.path.join(test_dir, "test.tfrecord")) as w:
+        for i in range(N_TEST):
+            wave, frames = request(rng, GAP if i % 2 == 0 else LONG_GAP)
+            labels = np.zeros(50, np.float32)
+            labels[:5] = rng.randint(0, 33, 5)
+            w.write(tfrecord.serialize_sample_fixed(
+                T_FRAMES, 5, wave.astype(np.float32), rng.randn(T_FRAMES, 136).astype(np.float32),
+                np.repeat(frames[:, None], 257, axis=1).astype(np.float32), labels, f"utt{i:03d}"))
+            waves.append(wave)
+            masks.append(frames)
+    return test_dir, np.stack(waves), np.stack(masks)
+
+
+def read_wavs(out_dir: str, prefix: str) -> list[np.ndarray]:
+    """The N_TEST wavs `infer()` wrote under `prefix`."""
+    return [wavio.read_wav_int16(os.path.join(out_dir, f"utt{i:03d}", "enhanced",
+                                              prefix + ".wav"))[1] for i in range(N_TEST)]
+
+
+def infer_path(d: str, root: str) -> tuple[np.ndarray, list]:
+    """Phase 7: `inpaint.infer()` on the GPU plain, with passthrough and with
+    gap attenuation, each against the same `infer()` on the CPU.
+    Tolerances: mean losses rel err 1e-4, each int16 wav relative L2 1e-2
+    (50 Griffin-Lim iterations carry f32 differences of the two devices'
+    sums, as `reference_check`).  Returns the test set's waves and gaps."""
+    test_dir, waves, _ = write_test_set(root)
+    gaps = [GAP if i % 2 == 0 else LONG_GAP for i in range(N_TEST)]
+    out_dir = os.path.join(root, "enhanced")
+    n_batches = -(-N_TEST // INFER_BATCH)
+    want_counts = {"bilstm_fused_proj": n_batches, "bilstm_fused_proj2": 2 * n_batches}
+    wavs = {}
+    for mode, kw in INFER_MODES.items():
+        _build.reset_launch_counts()
+        res = inpaint.infer(d, test_dir, out_dir, f"gpu_{mode}", batch_size=INFER_BATCH,
+                            gl_iters=INFER_GL, **kw)
+        counts = {k: v for k, v in _build.launch_counts.items() if v}
+        wavs[mode] = read_wavs(out_dir, f"gpu_{mode}")
+        if res["num_samples"] != N_TEST or counts != want_counts:
+            fail(f"infer() {mode} wrote {res['num_samples']} wavs with launches {counts}; want "
+                 f"{N_TEST} and {want_counts} (K1 1 and K2 2 per batch)")
+        if any(w.shape != (AUDIO_LEN,) or not np.any(w) for w in wavs[mode]):
+            fail(f"infer() {mode} wrote wavs of lengths {[len(w) for w in wavs[mode]]}")
+        ref = inpaint.infer(d, test_dir, out_dir, f"cpu_{mode}", batch_size=INFER_BATCH,
+                            gl_iters=INFER_GL, device="cpu", **kw)
+        rel = max(rel_l2(g, c) for g, c in zip(wavs[mode], read_wavs(out_dir, f"cpu_{mode}")))
+        loss_err = max(abs(res[k] / ref[k] - 1) for k in ("loss", "loss_hole"))
+        print(f"offline path: infer() {mode}: {N_TEST} wavs of {AUDIO_LEN} samples in {n_batches} "
+              f"batches of {INFER_BATCH} (the last padded), Griffin-Lim {INFER_GL}; launches "
+              f"{counts}; {res['utt_per_sec']:.2f} utterances/s; vs infer() on the CPU: losses max "
+              f"rel err {loss_err:.2e} (tol 1e-4), int16 wav relative L2 max {rel:.2e} (tol 1e-2); "
+              f"card {card_line()}", flush=True)
+        if loss_err > 1e-4 or rel > 1e-2:
+            fail(f"infer() {mode} on the GPU disagrees with the CPU")
+    # the levers act: passthrough returns the original samples up to a frame
+    # before each gap; the attenuation leaves the 67-frame gaps alone (depth
+    # <= trust) and quiets the middle of the 133-frame ones
+    kept = all(np.array_equal(wavs["passthrough"][i][: (g.start - 1) * 192],
+                              waves[i][: (g.start - 1) * 192].astype(np.float32))
+               for i, g in enumerate(gaps))
+    short = max(rel_l2(wavs["gap_atten"][i], wavs["plain"][i]) for i in range(0, N_TEST, 2))
+    deep = slice((LONG_GAP.start + 50) * 192, (LONG_GAP.stop - 50) * 192)
+    quieter = max(np.std(wavs["gap_atten"][i][deep]) / np.std(wavs["plain"][i][deep])
+                  for i in range(1, N_TEST, 2))
+    print(f"offline path: passthrough keeps the known samples before each gap: {kept}; "
+          f"gap_atten vs plain: 67-frame gaps relative L2 {short:.2e}, deep middle of the "
+          f"133-frame gaps at most {quieter:.3f} of the plain rms", flush=True)
+    if not kept or short > 1e-6 or quieter > 0.8:
+        fail("the offline levers do not act as they should")
+    return waves, gaps
+
+
+def lever_profiles(waves: np.ndarray, gaps: list) -> None:
+    """Phase 11: the device time each lever adds to a batch of INFER_BATCH,
+    profiled: the gap attenuation of the predicted log-magnitude and the
+    passthrough blend of the waveform."""
+    masks = np.ones((INFER_BATCH, T_FRAMES, 257), np.float32)
+    for i in range(INFER_BATCH):
+        masks[i, gaps[i]] = 0.0
+    masks = torch.from_numpy(masks).cuda()
+    gen = torch.Generator().manual_seed(16)
+    out = {"prediction": torch.randn(INFER_BATCH, T_FRAMES, 257, generator=gen).cuda()}
+    stats = (torch.zeros(257).cuda(), (1 + torch.rand(257, generator=gen)).cuda())
+    wav = (3000 * torch.randn(INFER_BATCH, AUDIO_LEN, generator=gen)).cuda()
+    orig = torch.from_numpy(waves[:INFER_BATCH].astype(np.float32)).cuda()
+    postfilter.apply_gap_attenuation(out, {"masks": masks}, stats, alpha=0.5)
+    passthrough.known_region_passthrough(wav, orig, masks, 192)
+    profile(f"gap attenuation of a batch of {INFER_BATCH}", lambda: postfilter.apply_gap_attenuation(
+        out, {"masks": masks}, stats, alpha=0.5), top=4)
+    profile(f"passthrough blend of a batch of {INFER_BATCH}",
+            lambda: passthrough.known_region_passthrough(wav, orig, masks, 192), top=4)
+
+
+def levers_service_path(d: str, root: str) -> None:
+    """Phase 8: a service with both levers, its streams and `/reload`.
+    Tolerances: /enhance against `service.enhance` and against the second
+    checkpoint's own step relative L2 1e-6 (the same kernels on the same
+    card); the stream against the CPU 1e-3, as `stream_path`."""
+    d2, d3 = os.path.join(root, "ckpt2"), os.path.join(root, "ckpt3")
+    os.makedirs(d2)
+    os.makedirs(d3)
+    write_checkpoint(d2, seed=1)
+    write_checkpoint(d3, seed=2, net_dim=[250, 250, 200])
+    atten = {"alpha": 0.5}
+    server, url = start_server(d, passthrough=True, gap_atten=atten)
+    service = server.service
+    wave, mask = request(np.random.RandomState(13), LONG_GAP)
+    body = struct.pack("<ii", AUDIO_LEN, T_FRAMES) + wave.tobytes() + mask.tobytes()
+    pushes = stream_pushes(np.random.RandomState(14), LONG_GAP)
+    half = len(pushes) // 2
+    try:
+        rel_enhance = rel_l2(np.frombuffer(http_post(url + "/enhance", body), "<i2"),
+                             service.enhance(wave.astype(np.float32), mask.astype(np.float32)))
+        opened = json.loads(http_post(url + "/stream/open?atten=0.5"))
+        sid = opened["id"]
+        replies = [http_post(f"{url}/stream/{sid}", push_body(*p)) for p in pushes[:half]]
+        versions = [json.loads(http_post(url + "/reload", d2.encode()))["weights_version"],
+                    json.loads(http_post(url + "/reload"))["weights_version"]]
+        replies += [http_post(f"{url}/stream/{sid}", push_body(*p)) for p in pushes[half:]]
+        replies.append(http_post(f"{url}/stream/{sid}/close"))
+        after = np.frombuffer(http_post(url + "/enhance", body), "<i2")
+        try:
+            http_post(url + "/reload", d3.encode())
+            geometry_code = 200
+        except urllib.error.HTTPError as e:
+            geometry_code = e.code
+        still = np.frombuffer(http_post(url + "/enhance", body), "<i2")
+        version = service.weights_version
+    finally:
+        stop_server(server)
+    config2, stats2, model2, params2 = inpaint.load_model_bundle(d2, device="cuda")
+    step2 = inpaint.make_infer_step(model2, config2, stats2, False, "gl", 30, passthrough=True,
+                                    gap_atten=atten, device="cuda")
+    batch = service._template_batch(service.micro_batch)
+    batch["target_sources"][0] = wave
+    batch["mask_frames"][0] = mask
+    rel_reload = rel_l2(after, step2(params2, batch)[0][0].cpu().numpy())
+    config, stats, _, params = inpaint.load_model_bundle(d, device="cpu")
+    inp = streaming.StreamingInpainter(config, stats, params, passthrough=True, gap_atten=atten,
+                                       device="cpu")
+    ref = [inp.push(p.astype(np.float32), m.astype(np.float32), v.astype(np.float32))
+           for p, m, v in pushes] + [inp.flush()]
+    rel_stream = rel_l2(np.concatenate([np.frombuffer(r, "<i2") for r in replies]),
+                        np.clip(np.concatenate(ref), -32768, 32767).astype(np.int16))
+    print(f"levers service (passthrough, gap_atten {atten}): /enhance vs service.enhance relative "
+          f"L2 {rel_enhance:.2e} (tol 1e-6); /stream/open?atten=0.5 -> gap_atten "
+          f"{opened['gap_atten']}; /reload to a second checkpoint, then a bare /reload: versions "
+          f"{versions}, /enhance vs its own step relative L2 {rel_reload:.2e} (tol 1e-6); the "
+          f"stream opened before them vs the CPU stream of the first checkpoint relative L2 "
+          f"{rel_stream:.2e} (tol 1e-3); /reload of net_dim [250, 250, 200] -> {geometry_code}, "
+          f"then /enhance unchanged: {np.array_equal(after, still)}, weights_version {version}",
+          flush=True)
+    if (rel_enhance > 1e-6 or opened["gap_atten"] != [0.5, 34, 16] or versions != [1, 2]
+            or rel_reload > 1e-6 or rel_stream > 1e-3 or geometry_code != 400
+            or not np.array_equal(after, still) or version != 2):
+        fail("the service's levers or /reload misbehave")
 
 
 # ------------------------------------------------------------ training path
@@ -1125,7 +1343,7 @@ def train_config(root: str) -> dict:
 
 
 def train_path(root: str) -> dict:
-    """Phase 7: `avsi_torch.train.loop.train` on the GPU.  Returns the
+    """Phase 9: `avsi_torch.train.loop.train` on the GPU.  Returns the
     launch counts of this path."""
     write_corpus(root)
     config_file = os.path.join(root, "train.config")
@@ -1177,19 +1395,22 @@ def _train_step_setup(config: dict, device: str, params: dict):
     return state, train_loop.make_train_step(model, config, stats, device)
 
 
-def profile_train_step(root: str, config: dict) -> None:
-    """Where one train step of 32 goes (after one warm-up step)."""
+def profile_train_step(root: str, config: dict, label: str = "train step",
+                       cpu: bool = True) -> None:
+    """Where one train step at the config's batch goes (after one warm-up
+    step)."""
     dm = DataManager(seed=0)
-    batch = next(iter(dm.batches(tfrecord.list_tfrecord_files(
-        os.path.join(root, "training-set")), TRAIN_BATCH)))
     config = config_lib.check_trainconfiguration(config)
+    batch_size = int(config["batch_size"])
+    batch = next(iter(dm.batches(tfrecord.list_tfrecord_files(
+        os.path.join(root, "training-set")), batch_size)))
     params = registry.get_model(config["model"]).init(torch.Generator().manual_seed(0), config)
     state, step = _train_step_setup(config, "cuda", params)
     step(state, batch, None)
-    profile(f"one train step of {TRAIN_BATCH}", lambda: step(state, batch, None), top=14)
+    profile(f"one {label} of {batch_size}", lambda: step(state, batch, None), top=14, cpu=cpu)
 
 
-def train_reference_check(config: dict, batch_size: int) -> None:
+def train_reference_check(config: dict, batch_size: int, label: str = "flagship") -> None:
     """One train step from the same params and batch (full width) on the
     GPU (kernels) and on the CPU (plain versions).  Tolerances: loss
     rtol 1e-4; each gradient leaf relative L2 <= 1e-3 (f32 sums in another
@@ -1207,11 +1428,112 @@ def train_reference_check(config: dict, batch_size: int) -> None:
     (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
     rel = {k: ((gg[k] - w).norm() / max(w.norm(), 1e-30)).item() for k, w in gc.items()}
     worst = max(rel, key=rel.get)
-    print(f"reference: GPU train step vs CPU train step (B={batch_size}, flagship): loss {lg:.6f} vs "
+    print(f"reference: GPU train step vs CPU train step (B={batch_size}, {label}): loss {lg:.6f} vs "
           f"{lc:.6f} (rel err {abs(lg / lc - 1):.2e}, tol 1e-4); gradients relative L2 max "
           f"{rel[worst]:.2e} ({worst}, tol 1e-3) over {len(rel)} leaves", flush=True)
     if abs(lg / lc - 1) > 1e-4 or rel[worst] > 1e-3:
         fail(f"GPU train step disagrees with the CPU step at B={batch_size}: {rel}")
+
+
+# ------------------------------------------------------------ LC training
+
+def lc_train_config(root: str) -> dict:
+    """The model settings of scripts/config/blstm_lc_stream.config (the
+    flagship, lc_chunk 8, lc_lookahead 16, batch 8, ctc_loss 0.05) in f32,
+    one epoch over the first N_LC_TRAIN and N_LC_VAL utterances of the
+    training corpus (`root/lc`), the NaN check every step."""
+    cfg = train_config(root)
+    cfg.update(batch_size=LC_BATCH, lc_chunk=LC_CHUNK, lc_lookahead=LC_LOOK, ctc_loss=0.05,
+               root_folder=os.path.join(root, "lc"), exp_folder=os.path.join(root, "exp_lc"),
+               max_n_epochs=1, n_earlystop_epochs=1)
+    return cfg
+
+
+def lc_corpus(root: str) -> None:
+    """`root/lc`: links to the first N_LC_TRAIN training and N_LC_VAL
+    validation files of the corpus (one utterance each)."""
+    for split, n in (("training-set", N_LC_TRAIN), ("validation-set", N_LC_VAL)):
+        os.makedirs(os.path.join(root, "lc", split))
+        for i in range(n):
+            os.symlink(os.path.join(root, split, f"{i:03d}.tfrecord"),
+                       os.path.join(root, "lc", split, f"{i:03d}.tfrecord"))
+
+
+def lc_train_path(root: str) -> str:
+    """Phase 10: `train()` of the LC model on the GPU.  Returns the trained
+    checkpoint directory."""
+    lc_corpus(root)
+    config_file = os.path.join(root, "lc.config")
+    config_lib.save_configfile(lc_train_config(root), config_file)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_loop.train(config_file)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.launch_counts.items() if v}
+    steps = N_LC_TRAIN // LC_BATCH
+    if summary["steps"] != steps or counts:
+        fail(f"LC training ran {summary['steps']} steps with launches {counts}; want {steps} "
+             "steps and no K1-K6 launch (the LC stack scans)")
+    exp = os.path.join(root, "exp_lc")
+    log = open(os.path.join(exp, "training_log.txt")).read()
+    losses = [float(v) for line in log.splitlines() if line.startswith("epoch ")
+              for v in (f.split("=")[1] for f in line.split("\t") if "loss" in f or "ctc" in f)]
+    if not losses or not np.all(np.isfinite(losses)):
+        fail(f"LC training_log.txt holds non-finite or missing losses:\n{log}")
+    netmodel = os.path.join(exp, "netmodel")
+    config = inpaint.load_model_bundle(netmodel, device="cuda")[0]
+    if (config["lc_chunk"], config["lc_lookahead"]) != (LC_CHUNK, LC_LOOK):
+        fail(f"the LC bundle reads back window {config['lc_chunk']}, {config['lc_lookahead']}")
+    steady = summary["step_seconds"][1:]
+    print(f"LC training path: C={LC_CHUNK} L={LC_LOOK}, {summary['steps']} train steps of "
+          f"{LC_BATCH} + {-(-N_LC_VAL // LC_BATCH)} validation steps in {wall:.1f} s; launches "
+          f"{counts or 'none'}; best val {summary['best_val']:.5f}", flush=True)
+    print("LC training path: log\n" + log.strip(), flush=True)
+    print(f"LC training path: steady-state {np.mean(steady):.4f} s/step "
+          f"({', '.join(f'{t:.4f}' for t in steady)}), {LC_BATCH / np.mean(steady):.1f} training "
+          f"utterances/s (steps after the first); card {card_line()}", flush=True)
+    return netmodel
+
+
+def lc_serve_check(netmodel: str) -> None:
+    """Phase 10: train equals serve on the card.  The trained LC bundle's
+    whole-utterance forward (the LC scan) and its masked-phase waveform
+    against `StreamingInpainter` at the trained window (K5, 3 launches a
+    window).  Tolerance: max error 1e-3 of the peak sample (f32 sums in
+    another order over 3 layers x 256 steps)."""
+    config, stats, model, params = inpaint.load_model_bundle(netmodel, device="cuda")
+    pushes = stream_pushes(np.random.RandomState(15))
+    wave, mask, video = (np.concatenate([p[k] for p in pushes]).astype(np.float32)
+                         for k in range(3))
+    inp = streaming.StreamingInpainter(config, stats, params, device="cuda")
+    _build.reset_launch_counts()
+    got = streaming.stream_utterance(inp, wave, mask, video)
+    k5 = _build.launch_counts["bilstm_recurrence_carry"]
+    batch = {"sequence_lengths": torch.full((1,), T_FRAMES, dtype=torch.int32),
+             "labels_lengths": torch.ones(1, dtype=torch.int32),
+             "target_sources": torch.from_numpy(wave[None]), "labels": torch.zeros(1, 50),
+             "video_features": torch.from_numpy(video[None]),
+             "masks": torch.from_numpy(np.repeat(mask[None, :, None], 257, axis=2))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    stats_t = tuple(torch.from_numpy(np.asarray(s, np.float32)).cuda() for s in stats)
+    with torch.no_grad():
+        out = model.forward(params, batch, config, stats_t)
+        offline = model.enhanced_sources(out, batch, config, stats_t)[0].cpu().numpy()
+    err = np.abs(got[:AUDIO_LEN] - offline).max() / np.abs(offline).max()
+    print(f"LC train equals serve: the trained bundle's LC forward (scan) vs its stream at "
+          f"C={inp.chunk} L={inp.look} ({k5} K5 launches), both on the GPU: max error "
+          f"{err:.2e} of the peak (tol 1e-3), relative L2 {rel_l2(got[:AUDIO_LEN], offline):.2e}",
+          flush=True)
+    if (inp.chunk, inp.look) != (LC_CHUNK, LC_LOOK) or k5 != 3 * N_WINDOWS or err > 1e-3:
+        fail("the LC forward disagrees with the stream it trains for")
+
+
+def phase(name: str, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1228,34 +1550,50 @@ def main() -> int:
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     resolve_device()  # float32 products in full float32 (no TF32)
-    errs, rows = check_and_time_kernels()
+    errs, rows = phase("kernels checked and timed", check_and_time_kernels)
     cudnn_comparisons(rows)
-    plan_rules_compared()
-    dwh_splits_compared()
-    check_coincide()
-    check_k3_against_k1()
-    check_wide_layers()
+    phase("plan rules", plan_rules_compared)
+    phase("dWh chunks", dwh_splits_compared)
+    phase("coincide", check_coincide)
+    phase("K3 vs K1", check_k3_against_k1)
+    phase("wide layers", check_wide_layers)
     for batch in (8, TRAIN_BATCH):
-        check_layer_grads(batch)
-    time_stack()
+        phase(f"layer grads B={batch}", check_layer_grads, batch)
+    phase("stack", time_stack)
 
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
         write_checkpoint(d)
         # every path's host-side figures (requests/s, push latency, fleet
-        # stream-s per s, train step wall) before the process first runs the
-        # profiler: host time reads slower after profiler sessions
-        counts = main_path(d)
-        reference_check(d)
-        counts["bilstm_recurrence_carry"] = stream_path(d)["bilstm_recurrence_carry"]
-        full_window_check(d)
-        fleet_path(d)
-        counts.update({k: v for k, v in train_path(root).items() if k in TRAINING})
+        # stream-s per s, utterances/s, train step wall) before the process
+        # first runs the profiler: host time reads slower after profiler
+        # sessions
+        counts = phase("serving", main_path, d)
+        phase("serving reference", reference_check, d)
+        counts["bilstm_recurrence_carry"] = phase("stream", stream_path, d)[
+            "bilstm_recurrence_carry"]
+        phase("full window", full_window_check, d)
+        phase("fleet", fleet_path, d)
+        test_set = phase("offline infer()", infer_path, d, root)
+        phase("levers service and /reload", levers_service_path, d, root)
+        counts.update({k: v for k, v in phase("training", train_path, root).items()
+                       if k in TRAINING})
         for batch in (8, TRAIN_BATCH):
-            train_reference_check(train_config(root), batch)
-        serving_profiles(d)
-        fleet_profiles(d)
-        profile_train_step(root, train_config(root))
-    k4_profiles()
+            phase(f"training reference B={batch}", train_reference_check, train_config(root), batch)
+        netmodel = phase("LC training", lc_train_path, root)
+        phase("LC training reference", train_reference_check, lc_train_config(root), LC_BATCH,
+              f"flagship LC C={LC_CHUNK} L={LC_LOOK}")
+        phase("LC train equals serve", lc_serve_check, netmodel)
+        phase("serving profiles", serving_profiles, d)
+        phase("fleet profiles", fleet_profiles, d)
+        phase("offline profile", profile, f"one plain infer() over {N_TEST} utterances "
+              f"(device activity only)", lambda: inpaint.infer(
+                  d, os.path.join(root, "test-set"), os.path.join(root, "enhanced"), "profiled",
+                  batch_size=INFER_BATCH, gl_iters=INFER_GL), 12, False)
+        phase("lever profiles", lever_profiles, *test_set)
+        phase("train step profile", profile_train_step, root, train_config(root))
+        phase("LC train step profile", profile_train_step, root, lc_train_config(root),
+              "LC train step", False)
+    phase("K4 profiles", k4_profiles)
 
     kernels = []
     for name, (_, replaces, source, batch) in KERNELS.items():

@@ -7,7 +7,9 @@ Both services load the same checkpoint directory (config.txt, the stats
 runs `lstm_impl="pallas"` (the Pallas kernels in interpret mode off the
 TPU); the port's runs `device="cpu"`, the plain versions of its kernels.
 Tolerance: the int16 Griffin-Lim waveforms agree to relative L2 <= 1e-3;
-a stream served over HTTP is bit for bit the in-process stream.
+a stream served over HTTP is bit for bit the in-process stream, and so is
+every output that a /reload must leave as a fresh service on the same
+checkpoint would give it.
 """
 
 import json
@@ -33,26 +35,32 @@ AUDIO_LEN = 4800
 T_FRAMES = 25
 
 
-@pytest.fixture(scope="module")
-def bundle(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("bundle"))
-    cfg = jflagship.flagship_config(net_dim=[16, 16, 16], audio_len=AUDIO_LEN)
-    rng = np.random.RandomState(0)
+def _write_bundle(d, seed=5, stats_seed=0, net_dim=(16, 16, 16), num_asr_labels=33):
+    """A checkpoint directory written by the reference: config.txt, random
+    stats from `stats_seed`, and `sinet.npz` from the reference's init."""
+    os.makedirs(d, exist_ok=True)
+    cfg = jflagship.flagship_config(net_dim=list(net_dim), audio_len=AUDIO_LEN)
+    rng = np.random.RandomState(stats_seed)
     np.save(os.path.join(d, "audio_features_mean.npy"),
             rng.uniform(0.0, 5.0, 257).astype(np.float32))
     np.save(os.path.join(d, "audio_features_std.npy"),
             rng.uniform(0.5, 2.0, 257).astype(np.float32))
     cfg.update(
-        num_asr_labels=33,  # the checker adds the CTC blank
+        num_asr_labels=num_asr_labels,  # the checker adds the CTC blank
         root_folder=d, exp_folder=d,
         audio_feat_mean=os.path.join(d, "audio_features_mean.npy"),
         audio_feat_std=os.path.join(d, "audio_features_std.npy"),
     )
     jconfig.save_configfile(cfg, os.path.join(d, "config.txt"))
     checked = jconfig.check_trainconfiguration(cfg)
-    params = jregistry.get_model(cfg["model"]).init(jax.random.PRNGKey(5), checked)
+    params = jregistry.get_model(cfg["model"]).init(jax.random.PRNGKey(seed), checked)
     jckpt.save_checkpoint(d, "sinet", params)
     return d
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    return _write_bundle(str(tmp_path_factory.mktemp("bundle")))
 
 
 def _requests(n, seed=0):
@@ -109,12 +117,13 @@ def test_http_round_trip(bundle):
         with pytest.raises(urllib.error.HTTPError) as exc:  # malformed
             _post(port, "/enhance", struct.pack("<ii", 123, T_FRAMES))
         assert exc.value.code == 400
-        with pytest.raises(urllib.error.HTTPError) as exc:
-            _post(port, "/reload", b"")
-        assert exc.value.code == 501
+        # a bare /reload reloads the served checkpoint: same output
+        assert json.loads(_post(port, "/reload", b"")) == {"weights_version": 1}
+        np.testing.assert_array_equal(np.frombuffer(_post(port, "/enhance", body), "<i2"), out)
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics") as r:
             metrics = _metrics(r.read())
-        assert metrics["avsi_utterances_enhanced_total"] == 2
+        assert metrics["avsi_utterances_enhanced_total"] == 3
+        assert metrics["avsi_weights_version"] == 1
     finally:
         server.shutdown()
         server.server_close()
@@ -209,10 +218,13 @@ def test_stream_session_matches_in_process_stream(bundle):
 
 def test_stream_sessions_limits_and_errors(bundle):
     """429 at max_streams, 404 for an unknown id, the idle reaper, the
-    /metrics counters, 400 for bad options, 501 for the gap attenuation."""
+    /metrics counters, 400 for bad options; atten=0.5 opens a stream with
+    the gap attenuation (trust and ramp at their defaults)."""
     with _Server(bundle, max_streams=2, stream_idle_s=1.0) as srv:
-        code, body = srv.status("/stream/open?atten=0.5")
-        assert code == 501 and b"not ported yet" in body
+        atten = json.loads(srv.post("/stream/open?atten=0.5"))
+        assert atten["gap_atten"] == [0.5, 34, 16]
+        assert srv.post(f"/stream/{atten['id']}/close") == b""  # nothing pushed
+        assert srv.status("/stream/open?atten=1.5")[0] == 400
         assert srv.status("/stream/open?chunk=0")[0] == 400
         first = json.loads(srv.post("/stream/open"))
         assert (first["chunk_frames"], first["lookahead_frames"]) == (8, 16)
@@ -227,4 +239,97 @@ def test_stream_sessions_limits_and_errors(bundle):
         time.sleep(1.5)  # both sessions idle past the TTL
         assert srv.status(f"/stream/{first['id']}", body)[0] == 404
         assert srv.metrics()["avsi_live_streams"] == 0
-        json.loads(srv.post("/stream/open?atten=1"))  # atten=1 is off
+        assert json.loads(srv.post("/stream/open?atten=1"))["gap_atten"] is None  # off
+
+
+LEVERS = {"passthrough": True, "gap_atten": {"alpha": 0.25, "trust": 2, "ramp": 3}}
+
+
+def test_levers_service_matches_reference(bundle):
+    """A service started with both deployment levers: /enhance against the
+    reference's service with the same options (relative L2 <= 1e-3), and
+    its streams take them (their causal twins) by default."""
+    waves, masks = _requests(3, seed=3)
+    ref = JaxService(bundle, micro_batch=2, gl_iters=3, lstm_impl="pallas", **LEVERS)
+    svc = InpaintingService(bundle, micro_batch=2, gl_iters=3, device="cpu", **LEVERS)
+    want = ref.enhance_batch(waves, masks)
+    got = svc.enhance_batch(waves, masks)
+    diff = got.astype(np.float64) - want
+    assert np.linalg.norm(diff) <= 1e-3 * np.linalg.norm(want.astype(np.float64))
+    plain = InpaintingService(bundle, micro_batch=2, gl_iters=3, device="cpu")
+    assert np.abs(plain.enhance_batch(waves, masks).astype(np.float64) - got).max() > 0
+    inp = svc.open_stream(5, 7)
+    assert inp.passthrough and inp.gap_atten == (0.25, 2, 3)
+    assert svc.open_stream(5, 7, gap_atten=None).gap_atten is None
+
+
+def test_stream_atten_session_matches_in_process_stream(bundle):
+    """/stream/open?atten=0.5&atten_trust=2&atten_ramp=3 serves, bit for bit,
+    the in-process stream with that gap attenuation, which differs from the
+    stream without it."""
+    rng = np.random.RandomState(4)
+    waves, masks = _requests(1, seed=4)
+    wave, mask = waves[0].astype(np.int16), masks[0]
+    video = rng.randn(T_FRAMES, 136).astype(np.float16)
+    with _Server(bundle) as srv:
+        info = json.loads(srv.post("/stream/open?chunk=4&look=2&atten=0.5&atten_trust=2"
+                                   "&atten_ramp=3"))
+        assert info["gap_atten"] == [0.5, 2, 3]
+        body = _push_body(wave, mask, video)
+        got = np.concatenate([np.frombuffer(srv.post(f"/stream/{info['id']}", body), "<i2"),
+                              np.frombuffer(srv.post(f"/stream/{info['id']}/close"), "<i2")])
+        from avsi_torch.infer.streaming import stream_utterance
+        service = srv.server.service
+        args = (wave.astype(np.float32), mask, video.astype(np.float32))
+        want = stream_utterance(service.open_stream(4, 2, gap_atten={"alpha": 0.5, "trust": 2,
+                                                                      "ramp": 3}), *args)
+        off = stream_utterance(service.open_stream(4, 2), *args)
+    np.testing.assert_array_equal(got, np.clip(want, -32768, 32767).astype(np.int16))
+    assert np.abs(want - off).max() > 0
+
+
+def test_reload(bundle, tmp_path):
+    """reload to a checkpoint of another seed and other stats: version 1,
+    /enhance then equals a fresh service on it (the step was rebuilt for
+    the stats), a stream opened before the reload finishes equal to a
+    stream of the old checkpoint, and a bare reload reloads the new path.
+    Over HTTP: another geometry and another parameter tree answer 400, a
+    missing path 400, and serving goes on."""
+    other = _write_bundle(str(tmp_path / "other"), seed=9, stats_seed=1)
+    wide = _write_bundle(str(tmp_path / "wide"), net_dim=(16, 16, 24))
+    tree = _write_bundle(str(tmp_path / "tree"), num_asr_labels=20)
+    waves, masks = _requests(2, seed=5)
+    video = np.random.RandomState(5).randn(T_FRAMES, 136).astype(np.float32)
+    svc = InpaintingService(bundle, micro_batch=2, gl_iters=3, device="cpu")
+    old_stream = svc.open_stream(5, 7)
+    mid = old_stream.push(waves[0][:2400], masks[0][:11], video[:11])
+    assert svc.reload(other) == 1 and svc.weights_version == 1
+    fresh_new = InpaintingService(other, micro_batch=2, gl_iters=3, device="cpu")
+    np.testing.assert_array_equal(svc.enhance_batch(waves, masks),
+                                  fresh_new.enhance_batch(waves, masks))
+    rest = old_stream.push(waves[0][2400:], masks[0][11:], video[11:])
+    old_out = np.concatenate([mid, rest, old_stream.flush()])
+    fresh_old = InpaintingService(bundle, micro_batch=2, gl_iters=3, device="cpu")
+    from avsi_torch.infer.streaming import stream_utterance
+    args = (waves[0], masks[0], video)
+    np.testing.assert_array_equal(old_out, stream_utterance(fresh_old.open_stream(5, 7), *args))
+    new_out = stream_utterance(svc.open_stream(5, 7), *args)
+    np.testing.assert_array_equal(new_out, stream_utterance(fresh_new.open_stream(5, 7), *args))
+    assert np.abs(new_out - old_out).max() > 0  # the two checkpoints differ
+    assert svc.reload() == 2 and svc._model_path == other  # a bare reload: the new path
+    np.testing.assert_array_equal(svc.enhance_batch(waves, masks),
+                                  fresh_new.enhance_batch(waves, masks))
+
+    with _Server(bundle) as srv:
+        code, body = srv.status("/reload", wide.encode())
+        assert code == 400 and b"net_dim" in body
+        code, body = srv.status("/reload", tree.encode())
+        assert code == 400 and b"params-tree" in body
+        assert srv.status("/reload", str(tmp_path / "nowhere").encode())[0] == 400
+        assert json.loads(srv.post("/reload", other.encode())) == {"weights_version": 1}
+        assert srv.metrics()["avsi_weights_version"] == 1
+        wave = waves[1].astype(np.int16)
+        body = (struct.pack("<ii", AUDIO_LEN, T_FRAMES) + wave.tobytes()
+                + masks[1].astype(np.uint8).tobytes())
+        np.testing.assert_array_equal(np.frombuffer(srv.post("/enhance", body), "<i2"),
+                                      fresh_new.enhance(wave.astype(np.float32), masks[1]))

@@ -379,11 +379,18 @@ def test_resolve_stream_impl():
 
 
 def test_unported_options_and_device_default(monkeypatch):
+    """passthrough and gap_atten now work (their outputs differ from the
+    plain stream's); fleet meshes are still refused; no device means the
+    GPU."""
     config, _, _, params_t, stats = _setup("a-blstm")
     waves, masks, _, _ = _inputs(config)
-    for kw in ({"passthrough": True}, {"gap_atten": {"alpha": 0.5}}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            streaming.StreamingInpainter(config, stats, params_t, device="cpu", **kw)
+    plain = streaming.stream_utterance(
+        streaming.StreamingInpainter(config, stats, params_t, device="cpu"), waves[0], masks[0])
+    for kw in ({"passthrough": True}, {"gap_atten": {"alpha": 0.5, "trust": 0, "ramp": 1}}):
+        inp = streaming.StreamingInpainter(config, stats, params_t, device="cpu", **kw)
+        got = streaming.stream_utterance(inp, waves[0], masks[0])
+        assert got.shape == plain.shape and np.isfinite(got).all()
+        assert np.abs(got - plain).max() > 1e-3 * np.abs(plain).max(), kw
     with pytest.raises(NotImplementedError, match="not ported yet"):
         streaming.stream_utterances_lockstep(config, stats, params_t, waves, masks,
                                              mesh=object(), device="cpu")
@@ -395,3 +402,94 @@ def test_unported_options_and_device_default(monkeypatch):
         streaming.StreamingInpainter(config, stats, params_t)
     with pytest.raises(RuntimeError, match="GPU"):
         streaming.stream_utterances_lockstep(config, stats, params_t, waves, masks)
+
+
+# ----------------------------------------------------------- deployment levers
+
+LEVERS = {"passthrough": True, "gap_atten": {"alpha": 0.3, "trust": 2, "ramp": 3}}
+
+
+def _lever_inputs(config, batch_size=1):
+    """A gap deep enough to attenuate (frames 6-17), and for a second
+    stream one that runs to the end of the utterance (the flush fill and
+    pad frames must count as unknown there)."""
+    waves, masks, videos, embs = _inputs(config, batch_size=batch_size, seed=21, gap=(6, 18))
+    if batch_size > 1:
+        masks[1] = 1.0
+        masks[1, 14:] = 0.0
+    return waves, masks, videos, embs
+
+
+@pytest.mark.parametrize("chunk,look", [(5, 7), (4, 0), (8, 1)])
+@pytest.mark.parametrize("levers", ["passthrough", "gap_atten", "both"])
+def test_levers_match_reference(chunk, look, levers):
+    """The single stream with passthrough, gap attenuation or both against
+    the reference's, at lookaheads 7, 0 and 1 (tolerance TOL f32)."""
+    kw = LEVERS if levers == "both" else {levers: LEVERS[levers]}
+    config, _, params_j, params_t, stats = _setup(FLAGSHIP)
+    waves, masks, videos, _ = _lever_inputs(config, batch_size=2)
+    for i in range(2):
+        inp_j, inp_t = _pair(config, stats, params_j, params_t, chunk_frames=chunk,
+                             lookahead_frames=look, **kw)
+        want = jstreaming.stream_utterance(inp_j, waves[i], masks[i], videos[i])
+        got = streaming.stream_utterance(inp_t, waves[i], masks[i], videos[i])
+        _close(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("look", [7, 0])
+def test_levers_push_size_invariance(look):
+    """With both levers the output does not depend on how samples arrive
+    (push sizes coarser than one hop, as the passthrough's exactness needs
+    at lookahead 0)."""
+    config, _, _, params_t, stats = _setup(FLAGSHIP)
+    waves, masks, videos, _ = _lever_inputs(config)
+    inp = streaming.StreamingInpainter(config, stats, params_t, chunk_frames=5,
+                                       lookahead_frames=look, device="cpu", **LEVERS)
+    outs = [streaming.stream_utterance(inp, waves[0], masks[0], videos[0], samples_per_push=n)
+            for n in (397, 1536, AL)]
+    for other in outs[1:]:
+        np.testing.assert_allclose(outs[0], other, atol=1e-5 * np.abs(outs[0]).max(), rtol=0)
+
+
+def test_lockstep_levers_match_reference_and_single_stream():
+    """The fleet with both levers against the reference's fleet (TOL f32),
+    and each stream against its own single stream (1e-4)."""
+    config, _, params_j, params_t, stats = _setup(FLAGSHIP)
+    waves, masks, videos, _ = _lever_inputs(config, batch_size=2)
+    got, want = _lockstep_pair(config, stats, params_j, params_t, waves, masks, videos,
+                               chunk_frames=5, lookahead_frames=7, **LEVERS)
+    _close(got, want, TOL["float32"])
+    inp = streaming.StreamingInpainter(config, stats, params_t, chunk_frames=5,
+                                       lookahead_frames=7, device="cpu", **LEVERS)
+    for i in range(2):
+        _close(got[i], streaming.stream_utterance(inp, waves[i], masks[i], videos[i]), 1e-4)
+
+
+def test_whole_window_gap_atten_is_the_offline_postfilter():
+    """At a whole-utterance window (C=T, L=0) the causal attenuation is the
+    offline postfilter: the stream equals the port's offline
+    phase_recon="none" step with the same gap_atten (int16 relative L2
+    <= 1e-3), and differs from the stream without it."""
+    config, _, _, params_t, stats = _setup(FLAGSHIP)
+    waves, masks, videos, _ = _lever_inputs(config)
+    videos = videos.astype(np.float16)
+    atten = LEVERS["gap_atten"]
+    inp = streaming.StreamingInpainter(config, stats, params_t, chunk_frames=T, lookahead_frames=0,
+                                       gap_atten=atten, device="cpu")
+    got = np.clip(streaming.stream_utterance(inp, waves[0], masks[0], videos[0]), -32768, 32767)
+    step = tinpaint.make_infer_step(tregistry.get_model(FLAGSHIP), config, stats, False, "none", 0,
+                                    gap_atten=atten, device="cpu")
+    batch = {
+        "sequence_lengths": np.array([T], np.int32), "labels_lengths": np.ones(1, np.int32),
+        "target_sources": waves.astype(np.int16), "labels": np.zeros((1, 50), np.float32),
+        "video_features": videos, "mask_frames": masks.astype(np.int8),
+    }
+    want = step(params_t, batch)[0][0].numpy().astype(np.float64)
+    assert np.linalg.norm(got[:AL].astype(np.int16) - want) <= 1e-3 * np.linalg.norm(want)
+    inp_off = streaming.StreamingInpainter(config, stats, params_t, chunk_frames=T,
+                                           lookahead_frames=0, device="cpu")
+    off = streaming.stream_utterance(inp_off, waves[0], masks[0], videos[0])
+    deep = slice(10 * 192, 14 * 192)  # frames 5-6 deep in the gap: gain 0.3 or near it
+    assert np.abs(got[deep]).max() < 0.6 * np.abs(off[deep]).max()
+    known = slice(0, 5 * 192)
+    np.testing.assert_array_equal(got[known], np.clip(off[known], -32768, 32767))
