@@ -11,7 +11,12 @@ LC-BLSTM streams (`avsi_torch.serve`, `avsi_torch.infer.streaming`: one
 stream per session, or a lockstep fleet), with the `passthrough` and
 `gap_atten` levers and `/reload`; enhances a TFRecord test set offline
 (`avsi_torch.infer.inpaint.infer`); and trains it, the latency-controlled
-model of the streams included (`avsi_torch.train.loop.train`).  The bidirectional LSTM runs hand-written
+model of the streams included (`avsi_torch.train.loop.train`).  It trains
+and runs the CTC ASR judge (`models/asr.py`, `infer/asr.py`, with a host
+prefix beam search built from `native/avsi_ctc.cc`), the fused
+inpaint-then-recognize pipeline (`infer/siasr.py`), the oracle-mask
+baseline (`infer/masking.py`) and the two-step model
+(`models/twosteps.py`).  The bidirectional LSTM runs hand-written
 CUDA kernels for sm_90a, built with `nvcc` at first use: the forward-only
 stack for serving and validation (`avsi_torch/csrc/lstm_fused.cu`, the
 ports of the Pallas kernels `bilstm_fused_proj` / `bilstm_fused_proj2`),

@@ -1,9 +1,11 @@
 """Shared inference helpers (port of `avsi/infer/common.py`): waveform
 reconstruction with the MODEL's STFT geometry, the known-region
-passthrough, and per-sample losses."""
+passthrough, per-sample losses, and the offline loops' one batch in
+flight (`pipelined`)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from avsi_torch.ops import passthrough as passthrough_ops
@@ -59,3 +61,46 @@ def per_sample_losses(outputs: dict, batch: dict) -> tuple[torch.Tensor, torch.T
     )
     total = torch.mean(diff, dim=(1, 2))
     return total, hole
+
+
+def upload_source(cb: dict, device) -> dict:
+    """A compact host batch as a step's input: pinned CPU tensors on a GPU
+    (so the upload runs behind the host), the numpy arrays on the CPU."""
+    if device.type != "cuda":
+        return cb
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in cb.items()}
+
+
+def _fetch_async(results) -> tuple[list, object]:
+    """Start the copy of a step's results to pinned host memory; returns the
+    host tensors and the CUDA event that marks the copy done (None on the
+    CPU, where the results are already on the host)."""
+    if not results[0].is_cuda:
+        return list(results), None
+    host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True) for r in results]
+    for h, r in zip(host, results):
+        h.copy_(r, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def pipelined(batches, launch):
+    """Yield (batch, its step's results as numpy arrays) with one batch in
+    flight: `launch(batch)` of batch k+1 (upload and step) is issued before
+    batch k's results are read, and their copy to pinned memory runs behind
+    that step."""
+    def finish(pending):
+        batch, host, done = pending
+        if done is not None:
+            done.synchronize()
+        return batch, [h.numpy() for h in host]
+
+    pending = None
+    for batch in batches:
+        launched = (batch, *_fetch_async(launch(batch)))
+        if pending is not None:
+            yield finish(pending)
+        pending = launched
+    if pending is not None:
+        yield finish(pending)

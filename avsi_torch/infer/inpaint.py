@@ -92,12 +92,15 @@ def expand_batch(batch: dict, audio_feat_dim: int) -> dict:
 
 
 def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto",
-                      device=None):
-    """Load (config, stats, model, params) from a checkpoint directory.
+                      device=None, is_asr: bool = False):
+    """Load (config, stats, model, params) from a checkpoint directory:
+    `sinet`, or with `is_asr` the ASR model's `asrnet`.
 
     `lstm_impl`: "auto" runs the CUDA kernels on a GPU and their plain
     versions on the CPU; "scan" forces the eager scan twin (see
-    `lstm_fused.resolve_impl`).  Params land on `device` (default cuda)."""
+    `lstm_fused.resolve_impl`).  Params land on `device` (default cuda).
+    Inpainting stats are cut to the model's bins; ASR stats are 80-bin
+    log-mel stats, never cut (identity stats of width 80 with `norm=False`)."""
     device = resolve_device(device)
     config = config_lib.check_trainconfiguration(
         config_lib.load_configfile(os.path.join(model_path, "config.txt"))
@@ -108,14 +111,15 @@ def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto
         stats = stats_lib.load_stats(
             os.path.join(model_path, "audio_features_mean.npy"),
             os.path.join(model_path, "audio_features_std.npy"),
-            feat_dim=int(config["audio_feat_dim"]),
+            feat_dim=None if is_asr else int(config["audio_feat_dim"]),
         )
     else:
-        dim = config["audio_feat_dim"]
+        dim = 80 if is_asr else config["audio_feat_dim"]
         stats = (np.zeros(dim, np.float32), np.ones(dim, np.float32))
-    model = registry.get_model(config["model"])
+    model = (registry.get_asr_model if is_asr else registry.get_model)(config["model"])
     template = model.init(torch.Generator().manual_seed(0), config)
-    params, _ = checkpoints.restore_checkpoint(model_path, "sinet", device, template)
+    params, _ = checkpoints.restore_checkpoint(model_path, "asrnet" if is_asr else "sinet",
+                                               device, template)
     return config, stats, model, params
 
 
@@ -149,28 +153,6 @@ def make_infer_step(model, config, stats, oracle_phase: bool, phase_recon: str,
         return torch.clamp(wav, -32768, 32767).to(torch.int16), loss_ps, hole_ps
 
     return step
-
-
-def _upload_source(cb: dict, device) -> dict:
-    """A compact host batch as the step's input: pinned CPU tensors on a GPU
-    (so the upload runs behind the host), the numpy arrays on the CPU."""
-    if device.type != "cuda":
-        return cb
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in cb.items()}
-
-
-def _fetch_async(results) -> tuple[list, object]:
-    """Start the copy of a step's results to pinned host memory; returns the
-    host tensors and the CUDA event that marks the copy done (None on the
-    CPU, where the results are already on the host)."""
-    if not results[0].is_cuda:
-        return list(results), None
-    host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True) for r in results]
-    for h, r in zip(host, results):
-        h.copy_(r, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
 
 
 def infer(
@@ -228,33 +210,18 @@ def infer(
     total, losses, holes, futures = 0, [], [], []
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=8) as pool:
-
-        def drain(pending):
-            """Wait for a step's results on the host and queue its writes."""
-            nonlocal total
-            batch, (wav, loss, hole), done = pending
-            if done is not None:
-                done.synchronize()
-            wav = wav.numpy()
+        for batch, (wav, loss, hole) in common.pipelined(
+                dm.prefetch_batches(files, batch_size, pad_final=True),
+                lambda b: step(params, common.upload_source(compact_batch(b), device))):
             n_real = batch.get("num_real", len(batch["sequence_lengths"]))
-            losses.extend(loss.numpy()[:n_real].tolist())
-            holes.extend(hole.numpy()[:n_real].tolist())
+            losses.extend(loss[:n_real].tolist())
+            holes.extend(hole[:n_real].tolist())
             for i in range(n_real):
                 path = os.path.join(audio_path, batch["sample_paths"][i], "enhanced",
                                     out_file_prefix + ".wav")
                 seq_len = int(batch["sequence_lengths"][i])
                 futures.append(pool.submit(write_one, path, wav[i][: seq_len * hop]))
             total += n_real
-
-        pending = None
-        for batch in dm.prefetch_batches(files, batch_size, pad_final=True):
-            results = step(params, _upload_source(compact_batch(batch), device))
-            launched = (batch, *_fetch_async(results))
-            if pending is not None:
-                drain(pending)
-            pending = launched
-        if pending is not None:
-            drain(pending)
         for f in futures:
             f.result()
     dt = time.time() - t0

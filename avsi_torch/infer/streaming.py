@@ -491,7 +491,7 @@ class StreamingInpainter:
         self.lstm_impl = self._prog.lstm_impl
         self.af = int(config["audio_feat_dim"])
         self.vf = int(config["video_feat_dim"])
-        self.params = blstm_lib._to(params, self.device)
+        self.params = core.tree_to(params, self.device)
         # host copy for the per-push numpy front end
         self._stats_np = tuple(np.asarray(s, np.float32) for s in stats)
         self._ext_emb = None
@@ -876,7 +876,7 @@ def stream_utterances_lockstep(
         raise ValueError("model needs external speaker embeddings")
     if spec.input_type != "a" and videos is None:
         raise ValueError("model consumes video features")
-    params = blstm_lib._to(params, device)
+    params = core.tree_to(params, device)
 
     # global planes in extended coordinates: EXT zero frames of left
     # context, the stream, then pad_end zeros / intact masks

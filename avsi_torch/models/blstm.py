@@ -86,14 +86,6 @@ def _cond_dim(spec: BLSTMSpec, config: dict) -> int:
     return 0
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 def init(gen: torch.Generator, config: dict, spec: BLSTMSpec | None = None,
          device=None) -> dict:
     """Random params with the reference's shapes and distributions
@@ -126,7 +118,7 @@ def init(gen: torch.Generator, config: dict, spec: BLSTMSpec | None = None,
     params["head_ipt"] = core.dense_init(gen, head_in, af)
     if spec.ctc:
         params["head_asr"] = core.dense_init(gen, head_in, config["num_asr_labels"])
-    return _to(params, device or "cpu")
+    return core.tree_to(params, device or "cpu")
 
 
 def features(batch: dict, stats: tuple, config: dict) -> dict:

@@ -39,6 +39,15 @@ def truncated_normal_init(gen: torch.Generator, shape, stddev: float) -> torch.T
     return t * stddev
 
 
+def tree_to(tree, device):
+    """Nested dicts/lists of tensors moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                stddev: float | None = None) -> dict:
     if stddev is None:

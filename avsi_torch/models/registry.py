@@ -1,19 +1,21 @@
 """Model registry: config `model` name -> ModelDef (port of
-`avsi/models/registry.py`, BLSTM family only in this slice)."""
+`avsi/models/registry.py`): the BLSTM family, `av-blstm-twosteps` and the
+standalone ASR models; the U-Net family is not ported yet."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
-from avsi_torch.models import blstm
+from avsi_torch.models import asr, blstm, twosteps
 
 BLSTM_NAMES = [
     f"{i}-blstm{s}"
     for i in ("a", "v", "av")
     for s in ("", "-ssnn", "-emb", "-ctc", "-ssnn-ctc")
 ]
-NOT_PORTED = ["av-blstm-twosteps", "unet", "unet-pconv"]
+NOT_PORTED = ["unet", "unet-pconv"]
+ASR_MODELS = ["a-blstm", "v-blstm", "av-blstm"]
 
 
 @dataclass
@@ -26,6 +28,8 @@ class ModelDef:
     needs_embeddings: bool = False
     needs_labels: bool = False
     spec: blstm.BLSTMSpec | None = None
+    # params -> tree of bools, True where the optimizer updates (None: all)
+    trainable_mask: Callable | None = None
     # STFT geometry of the model's front end (frame_length, frame_step, fft_length)
     frame_length: int = 384
     frame_step: int = 192
@@ -36,8 +40,12 @@ def get_model(name: str) -> ModelDef:
     """Inpainting model lookup by config name."""
     if name in NOT_PORTED:
         raise NotImplementedError(f"model {name!r} is not ported yet")
+    if name == "av-blstm-twosteps":
+        return ModelDef(name, twosteps.init, twosteps.forward, twosteps.losses,
+                        twosteps.enhanced_sources, trainable_mask=twosteps.trainable_mask)
     if name not in BLSTM_NAMES:
-        raise ValueError(f"Unknown model '{name}'. Expected one of {BLSTM_NAMES + NOT_PORTED}")
+        raise ValueError(f"Unknown model '{name}'. Expected one of "
+                         f"{BLSTM_NAMES + ['av-blstm-twosteps'] + NOT_PORTED}")
     spec = blstm.parse_model_name(name)
 
     def _init(gen, config, device=None):
@@ -59,3 +67,10 @@ def get_model(name: str) -> ModelDef:
         needs_labels=spec.ctc,
         spec=spec,
     )
+
+
+def get_asr_model(name: str) -> ModelDef:
+    """Standalone ASR model lookup by config name."""
+    if name not in ASR_MODELS:
+        raise ValueError(f"Unknown ASR model '{name}'. Expected one of {ASR_MODELS}")
+    return ModelDef(name, asr.init, asr.forward, asr.losses, needs_labels=True)

@@ -18,7 +18,9 @@ first index from 0 to 1 (P below):
   sgd:       P/1/count
 
 `<leaf>` is the param's flat key; both counts are the number of updates
-applied (`TrainState.step`).  The bundle writers (`write_bundle`,
+applied (`TrainState.step`).  A state built with a trainable mask (optax's
+`masked`) prefixes every key with `inner_state/` and holds the trainable
+leaves only.  The bundle writers (`write_bundle`,
 `write_meta`) make a checkpoint directory self-contained, as
 `avsi/train/checkpoints.py:136-165` does.
 """
@@ -108,25 +110,30 @@ _SLOTS = {"adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq")),
           "momentum": (("trace", "momentum_buffer"),), "sgd": ()}
 
 
-def _opt_layout(optimizer) -> tuple[str, str]:
-    """(key prefix P, kind in adam|momentum|sgd) of a port optimizer."""
+def _opt_layout(train_state) -> tuple[str, str, dict]:
+    """(key prefix P, kind in adam|momentum|sgd, {flat key: leaf} of the
+    optimizer's leaves) of a port train state."""
+    optimizer = train_state.optimizer
     group = optimizer.param_groups[0]
-    prefix = "1/" if group["weight_decay"] else "0/"
+    prefix = ("inner_state/" if train_state.masked else "") + (
+        "1/" if group["weight_decay"] else "0/")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    leaves = {k: v for k, v in named_leaves(train_state.params).items() if id(v) in owned}
     if isinstance(optimizer, torch.optim.Adam):
-        return prefix, "adam"
-    return prefix, "momentum" if group["momentum"] else "sgd"
+        return prefix, "adam", leaves
+    return prefix, "momentum" if group["momentum"] else "sgd", leaves
 
 
 def opt_state_to_flat(train_state) -> dict[str, np.ndarray]:
     """The port's optimizer state in the reference's optax keys (zeros for
     a slot not created yet, as optax's init)."""
     opt = train_state.optimizer
-    pre, kind = _opt_layout(opt)
+    pre, kind, leaves = _opt_layout(train_state)
     count = np.asarray(train_state.step, np.int32)
     flat = {pre + "1/count": count}
     if kind == "adam":
         flat[pre + "0/count"] = count
-    for key, leaf in named_leaves(train_state.params).items():
+    for key, leaf in leaves.items():
         state = opt.state.get(leaf, {})
         for jax_name, torch_name in _SLOTS[kind]:
             value = state.get(torch_name)
@@ -139,12 +146,12 @@ def load_opt_state(train_state, flat: dict) -> None:
     """Set the port's optimizer state (and `train_state.step`) from optax
     keys, as the reference or the port wrote them."""
     opt = train_state.optimizer
-    pre, kind = _opt_layout(opt)
+    pre, kind, leaves = _opt_layout(train_state)
     if pre + "1/count" not in flat:
         raise KeyError(f"optimizer state has no {pre}1/count: written for another "
                        f"optimizer or l2 setting than this {kind} (keys {sorted(flat)[:4]})")
     train_state.step = int(flat[pre + "1/count"])
-    for key, leaf in named_leaves(train_state.params).items():
+    for key, leaf in leaves.items():
         state = {torch_name: torch.as_tensor(np.array(flat[f"{pre}0/{jax_name}/{key}"],
                                                       np.float32)).to(leaf)
                  for jax_name, torch_name in _SLOTS[kind]}

@@ -1,4 +1,4 @@
-"""Training loop for the BLSTM inpainting models (port of `avsi/train/loop.py`).
+"""Training loop for the inpainting and ASR models (port of `avsi/train/loop.py`).
 
 `train(config_file)` keeps the reference's behaviour on one device: the
 epoch loop over shuffled `drop_remainder` batches, the NaN/Inf abort every
@@ -7,7 +7,12 @@ optimizer sidecar, per-epoch validation over `pad_final` batches with the
 filler rows dropped on the host, the best-validation checkpoint `sinet`,
 early stopping after `n_earlystop_epochs`, `training_log.txt`, a
 self-contained checkpoint directory (config + stats), and resuming from
-`model_ckp` (params, optimizer state and step).
+`model_ckp` (params, optimizer state and step).  `is_asr` trains a
+standalone CTC ASR model (`models/asr.py`): its bundle keeps the 80-bin
+log-mel stats uncut, validation reports `val_loss` and `val_per` and
+selects by PER, and the best checkpoint is `asrnet`.  `av-blstm-twosteps`
+restores its v-net from `model_ckp_vnet` and trains the av-net only (the
+model's trainable mask).
 
 On the device, each train step runs the model forward with `train=True`
 (the BLSTM layers through K3 and K4 under autograd, `ops/lstm_train.py`),
@@ -22,10 +27,9 @@ sees are the same either way.
 
 Not ported yet, each refused with NotImplementedError where a config asks
 for it: data-parallel and tensor-parallel meshes and multi-host runs, the
-device-resident corpus cache, `profile_steps` traces, TensorBoard media,
-ASR models (`is_asr`) and `av-blstm-twosteps`.  The SIGTERM
-preemption checkpoint is not ported either; the port writes no
-TensorBoard events.
+device-resident corpus cache, `profile_steps` traces and TensorBoard
+media.  The SIGTERM preemption checkpoint is not ported either; the port
+writes no TensorBoard events.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
 from avsi_torch.infer.inpaint import DEVICE_BATCH_KEYS, expand_batch
+from avsi_torch.models import asr as asr_model
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import ctc as ctc_ops
@@ -67,40 +72,42 @@ def _refuse_unported(config: dict) -> None:
             bool(int(config.get("device_cache_corpus", 0))),
         "profiler traces (profile_steps)": bool(int(config.get("profile_steps", 0))),
         "TensorBoard media (tb_media)": bool(int(config.get("tb_media", 0))),
-        "av-blstm-twosteps training (model_ckp_vnet)": bool(config.get("model_ckp_vnet")),
     }
     for what, asked in asks.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def device_batch(batch: dict, device, audio_feat_dim: int) -> dict:
+def device_batch(batch: dict, device, audio_feat_dim: int, frame_stack: int = 1) -> dict:
     """Host batch (numpy) -> tensors on `device`, plus the host-side CTC
     feasibility of each row (`ctc_infeasible`, numpy) so the loss needs no
-    device sync to find infeasible alignments."""
+    device sync to find infeasible alignments.  Feasibility is decided on
+    the logits' frames: an ASR model's `frame_stack` k leaves ceil(T / k)."""
     out = {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in DEVICE_BATCH_KEYS
            if k in batch}
     out = expand_batch(out, audio_feat_dim)
-    out["ctc_infeasible"] = ctc_ops.infeasible_rows(
-        np.asarray(batch["sequence_lengths"]), np.asarray(batch["labels"]),
-        np.asarray(batch["labels_lengths"]),
-    )
+    out["ctc_infeasible"] = asr_model.ctc_infeasible(batch, frame_stack)
     return out
+
+
+def _frame_stack(config: dict, is_asr: bool) -> int:
+    """The logits' time subsampling: an ASR model's `frame_stack`, else 1."""
+    return int(config.get("frame_stack", 1)) if is_asr else 1
 
 
 def _stats_on(stats: tuple, device) -> tuple:
     return tuple(torch.as_tensor(np.asarray(s), dtype=torch.float32).to(device) for s in stats)
 
 
-def make_train_step(model, config: dict, stats: tuple, device):
+def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
     """Step `(state, host batch, gen) -> losses`: forward with train=True,
     losses, backward, one optimizer update of `state` in place.  The
     gradients stay on the params' `.grad` until the next step."""
     stats_t = _stats_on(stats, device)
-    af = int(config["audio_feat_dim"])
+    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
     def train_step(state: state_lib.TrainState, batch: dict, gen) -> dict:
-        dev = device_batch(batch, device, af)
+        dev = device_batch(batch, device, af, k)
         state.optimizer.zero_grad(set_to_none=True)
         out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
         ldict = model.losses(out, dev, config)
@@ -111,17 +118,23 @@ def make_train_step(model, config: dict, stats: tuple, device):
     return train_step
 
 
-def make_eval_step(model, config: dict, stats: tuple, device):
+def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
     """Step `(params, host batch) -> per-sample results` for validation:
     per-sample L1 losses, and for CTC models the per-sequence CTC loss and
-    the greedy decode (per sample, so the host can drop filler rows)."""
+    the greedy decode (per sample, so the host can drop filler rows); an
+    ASR model's CTC loss and decode on its logit lengths."""
     stats_t = _stats_on(stats, device)
-    af = int(config["audio_feat_dim"])
+    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
     @torch.inference_mode()
     def eval_step(params, batch: dict) -> dict:
-        dev = device_batch(batch, device, af)
+        dev = device_batch(batch, device, af, k)
         out = model.forward(params, dev, config, stats_t, train=False)
+        if is_asr:
+            return {"loss_ps": ctc_ops.ctc_loss_per_seq(
+                        out["logits"], out["logit_lengths"], dev["labels"],
+                        dev["labels_lengths"], dev["ctc_infeasible"]),
+                    "decoded": asr_model.decode_greedy(out)}
         total, hole = common.per_sample_losses(out, dev)
         res = {"loss_ps": total, "loss_hole_ps": hole}
         if "asr_logits" in out:
@@ -153,10 +166,11 @@ def _val_pairs(dm: DataManager, val_files: list[str], batch_size: int):
         yield meta, batch
 
 
-def _validate(val_pairs, eval_step, params, select_hole: bool) -> tuple[float, str]:
+def _validate(val_pairs, eval_step, params, select_hole: bool,
+              is_asr: bool = False) -> tuple[float, str]:
     """Per-epoch validation: a window of batches in flight (the device runs
     ahead while the host reads earlier results), filler rows dropped.
-    Returns (selection metric, report)."""
+    Returns (selection metric, report): an ASR model's is its PER."""
     def pipelined(depth=8):
         window: deque = deque()
         for meta, batch in val_pairs:
@@ -166,6 +180,18 @@ def _validate(val_pairs, eval_step, params, select_hole: bool) -> tuple[float, s
         while window:
             yield window.popleft()
 
+    if is_asr:
+        losses, pers, weights = [], [], []
+        for meta, res in pipelined():
+            n = meta["num_real"]
+            if n:
+                losses.extend(res["loss_ps"].cpu().numpy()[:n].tolist())
+                pers.append(_host_per(res["decoded"].cpu().numpy(), meta) * n)
+                weights.append(n)
+        if not weights:
+            return math.inf, "val=none"
+        per = float(np.sum(pers) / np.sum(weights))
+        return per, f"val_loss={np.mean(losses):.5f}\tval_per={per:.5f}"
     tot, hole, ctcs, ctc_w, pers = [], [], [], [], []
     for meta, res in pipelined():
         n = meta["num_real"]
@@ -187,8 +213,9 @@ def _validate(val_pairs, eval_step, params, select_hole: bool) -> tuple[float, s
     return metric, report
 
 
-def train(config_file: str, device=None) -> dict:
-    """Train one model per the config file on one device (default cuda).
+def train(config_file: str, is_asr: bool = False, device=None) -> dict:
+    """Train one model per the config file on one device (default cuda);
+    `is_asr` for a standalone ASR model (`registry.ASR_MODELS`).
 
     Returns {"best_val", "best_epoch", "steps", "step_seconds"}:
     `step_seconds` holds each train step's host time from batch in hand to
@@ -202,11 +229,12 @@ def train(config_file: str, device=None) -> dict:
     os.makedirs(ckpt_dir, exist_ok=True)
     logfile = os.path.join(exp_folder, "training_log.txt")
 
-    # self-contained checkpoint dir: config + stats
+    # self-contained checkpoint dir: config + stats (an ASR model's are
+    # 80-bin log-mel stats, never cut to audio_feat_dim)
     stats = checkpoints.write_bundle(ckpt_dir, config_file, config,
-                                     feat_dim=int(config["audio_feat_dim"]))
+                                     feat_dim=None if is_asr else int(config["audio_feat_dim"]))
     checkpoints.write_meta(ckpt_dir, config)
-    model = registry.get_model(config["model"])
+    model = (registry.get_asr_model if is_asr else registry.get_model)(config["model"])
     seed = int(config.get("seed", 0))
     dm = DataManager(
         num_audio_samples=config["audio_len"],
@@ -222,6 +250,12 @@ def train(config_file: str, device=None) -> dict:
     batch_size = int(config["batch_size"])
 
     params = model.init(torch.Generator().manual_seed(seed), config, device=device)
+    if config["model_ckp_vnet"] and config["model"] == "av-blstm-twosteps":
+        # the v-net of a two-step model from a trained v-blstm's checkpoint
+        params["vnet"], _ = checkpoints.restore_checkpoint(
+            os.path.dirname(config["model_ckp_vnet"]) or ".",
+            os.path.basename(config["model_ckp_vnet"]), device, params["vnet"])
+        print(f"Restored vnet from {config['model_ckp_vnet']}")
     start_step = 0
     ckp_dir = os.path.dirname(config["model_ckp"]) or "."
     ckp_name = os.path.basename(config["model_ckp"])
@@ -229,15 +263,16 @@ def train(config_file: str, device=None) -> dict:
         # warm start / resume: params and step, then the optimizer state
         # when the sidecar exists
         params, start_step = checkpoints.restore_checkpoint(ckp_dir, ckp_name, device, params)
-    state = state_lib.create_train_state(params, config)
+    state = state_lib.create_train_state(
+        params, config, model.trainable_mask(params) if model.trainable_mask else None)
     if ckp_name:
         checkpoints.restore_opt_state(ckp_dir, ckp_name, state)
         print(f"Restored model from {config['model_ckp']} (step {start_step})")
 
     config["lstm_impl"] = lstm_fused.resolve_impl(
         config.get("lstm_impl"), device, config["net_dim"], blstm_lib.dtypes(config)[0])
-    train_step = make_train_step(model, config, stats, device)
-    eval_step = make_eval_step(model, config, stats, device)
+    train_step = make_train_step(model, config, stats, device, is_asr)
+    eval_step = make_eval_step(model, config, stats, device, is_asr)
     gen = torch.Generator(device=device).manual_seed(seed)  # dropout masks
 
     header = " | ".join(f"{k}={config[k]}" for k in (
@@ -289,7 +324,7 @@ def train(config_file: str, device=None) -> dict:
                 raise FloatingPointError(f"NaN/Inf loss in epoch {epoch} — aborting")
 
         val_metric, val_report = _validate(
-            _val_pairs(dm, val_files, batch_size), eval_step, state.params, select_hole)
+            _val_pairs(dm, val_files, batch_size), eval_step, state.params, select_hole, is_asr)
         if not val_files:
             # no validation split: every epoch "improves", so the best
             # checkpoint tracks the latest params
@@ -299,8 +334,9 @@ def train(config_file: str, device=None) -> dict:
              + f"\t{val_report}\ttime={dt:.1f}s")
         if val_metric < best_val:
             best_val, best_epoch, cneg_epochs = val_metric, epoch, 0
-            checkpoints.save_checkpoint(ckpt_dir, "sinet", state.params, step=step)
-            _log(logfile, f"# new best val metric {best_val:.5f} -> saved sinet")
+            name = "asrnet" if is_asr else "sinet"
+            checkpoints.save_checkpoint(ckpt_dir, name, state.params, step=step)
+            _log(logfile, f"# new best val metric {best_val:.5f} -> saved {name}")
         else:
             cneg_epochs += 1
             if cneg_epochs >= int(config["n_earlystop_epochs"]):

@@ -10,8 +10,13 @@ is added to the gradient as `l2 * param` before the optimizer
 
 The optimizer updates the params' leaf tensors in place (PyTorch's way;
 the reference returns new trees), so `TrainState.params` always holds the
-current weights.  The trainable mask (`av-blstm-twosteps` only) waits for
-the rest of the model zoo.
+current weights.
+
+A trainable mask (`av-blstm-twosteps`: the av-net only) keeps the
+masked-out leaves out of the optimizer and takes no gradient for them.
+The reference wraps its chain in `optax.masked`, which adds a masked-out
+leaf's raw gradient to it; under the model's `stop_gradient` that gradient
+is exactly zero, so there too those leaves never change.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ class TrainState:
     params: dict  # nested f32 leaves with requires_grad, updated in place
     optimizer: torch.optim.Optimizer
     step: int = 0  # updates applied so far: optax's count
+    masked: bool = False  # built with a trainable mask (optax.masked's state layout)
 
 
 def learning_rate(config: dict, count: int) -> float:
@@ -42,8 +48,14 @@ def learning_rate(config: dict, count: int) -> float:
     return lr * float(config["lr_decay"]) ** (count // int(config["lr_updating_steps"]))
 
 
-def make_optimizer(config: dict, params: dict) -> torch.optim.Optimizer:
+def make_optimizer(config: dict, params: dict, trainable: dict | None = None
+                   ) -> torch.optim.Optimizer:
+    """The config's optimizer over the leaves of `params`, or over those
+    that the trainable mask `trainable` (the same tree of bools) marks."""
     leaves = list(named_leaves(params).values())
+    if trainable is not None:
+        keep = named_leaves(trainable)
+        leaves = [leaf for key, leaf in named_leaves(params).items() if keep[key]]
     lr = learning_rate(config, 0)
     l2 = float(config.get("l2", 0.0))
     opt_type = config["optimizer_type"]
@@ -56,11 +68,15 @@ def make_optimizer(config: dict, params: dict) -> torch.optim.Optimizer:
     raise ValueError("Optimizer must be either sgd, momentum or adam")
 
 
-def create_train_state(params: dict, config: dict) -> TrainState:
-    """Make every leaf a trainable f32 tensor and build its optimizer."""
-    for leaf in named_leaves(params).values():
-        leaf.requires_grad_(True)
-    return TrainState(params, make_optimizer(config, params))
+def create_train_state(params: dict, config: dict, trainable: dict | None = None
+                       ) -> TrainState:
+    """Make every leaf that `trainable` marks (all, without a mask) a
+    trainable f32 tensor and build its optimizer."""
+    keep = named_leaves(trainable) if trainable is not None else {}
+    for key, leaf in named_leaves(params).items():
+        leaf.requires_grad_(bool(keep.get(key, True)))
+    return TrainState(params, make_optimizer(config, params, trainable),
+                      masked=trainable is not None)
 
 
 def apply_gradients(state: TrainState, config: dict) -> None:

@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero:
      K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed);
      K1 under both cluster sizes at B=8 and 32, K1 and K3 under both batch
      tiles at B=128, K4 with dWh's depth in the rule's chunks, half and
-     twice as many, at B=32 and 128; plus the 3-layer stack;
+     twice as many, at B=32 and 128; plus the 3-layer stack; K1 at the
+     input widths of the recognition and two-step paths (D = 80, 136, 216,
+     240 and 393 at T = 84 and 250, B=8, f32 and bf16), held against its
+     plain version and timed the same way;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
@@ -84,7 +87,25 @@ Phases, in order; any failure exits non-zero:
      trained bundle's whole-utterance LC forward on the GPU against its
      `StreamingInpainter` on the GPU at the trained window (K5 against the
      scan: train equals serve);
- 11. profiles, after every host-side figure above was timed (host time
+ 11. the recognition and two-step paths, on the same corpora: ASR training
+     with `scripts/config/blstm_asr.config`'s settings (a-blstm, net_dim
+     [250, 250], batch 8) over the LC corpus (6 train steps, 1 validation
+     step) with 80-bin log-mel stats computed here from the port's log-mel:
+     K3 and K4 2 per step, `asrnet` chosen by val PER, s/step; one ASR train
+     step on the GPU against the CPU, and one at frame_stack 3; ASR `infer()`
+     over the offline test set, beam 100 and greedy (the native decoder
+     required; K1 and K2 1 per batch; losses against the CPU; the decoder's
+     share of the wall), and the native decoder against its Python twin on
+     two utterances' logits from the card; siasr (the flagship bundle with
+     that judge, plain and with both levers, Griffin-Lim 50, beam 100): K1 2
+     and K2 3 per batch, its wavs equal to `inpaint.infer()`'s, losses
+     against the CPU, utterances/s; `mask_app` (oracle and masked phase): no
+     K1-K6 launch, against the CPU; the two-step model: a v-blstm pretrained
+     6 steps, then `av-blstm-twosteps` trained 6 steps from it
+     (`model_ckp_vnet`): the v-net bit for bit unchanged, K3 6 and K4 3 per
+     step, one step on the GPU against the CPU, and `infer()` with its
+     `sinet` (K1 2 and K2 4 per batch) against the CPU;
+ 12. profiles, after every host-side figure above was timed (host time
      reads slower after profiler sessions in the same process): one
      serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
      K2's launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2
@@ -94,8 +115,8 @@ Phases, in order; any failure exits non-zero:
      stream that completes a window; one plain `infer()` run and each
      lever's device work on a batch of 8; one train step; one LC train
      step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
-     its dWh apart;
- 12. one JSON line of kernel figures (K1-K6, each with its launches on its
+     its dWh apart; one ASR train step; one siasr batch;
+ 13. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
 
@@ -127,9 +148,12 @@ from avsi_torch.device import resolve_device  # noqa: E402
 from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
 from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
-from avsi_torch.infer import inpaint, streaming  # noqa: E402
+from avsi_torch.infer import asr as asr_infer  # noqa: E402
+from avsi_torch.infer import inpaint, masking, siasr, streaming  # noqa: E402
+from avsi_torch.models import asr as asr_model  # noqa: E402
 from avsi_torch.models import blstm, registry  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
+from avsi_torch.ops import ctc as ctc_ops  # noqa: E402
 from avsi_torch.ops import passthrough, postfilter  # noqa: E402
 from avsi_torch.serve import serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
@@ -155,6 +179,14 @@ INFER_MODES = {"plain": {}, "passthrough": {"passthrough": True},
                "gap_atten": {"gap_atten": {"alpha": 0.5}}}
 LC_CHUNK, LC_LOOK, LC_BATCH = 8, 16, 8  # scripts/config/blstm_lc_stream.config
 N_LC_TRAIN, N_LC_VAL = 48, 8  # the first utterances of each split: 6 LC steps and 1 validation
+ASR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "config",
+                          "blstm_asr.config")
+ASR_BEAM = 100  # the judge's beam width (the reference's infer/asr.py default)
+# K1's input widths on the recognition and two-step paths: the ASR's 80 log-mel
+# bins, video 136, av 216, `a` under frame_stack 3 (240 wide at 84 frames), the
+# two-step av-net's 393; (D, T)
+RECOGNITION_K1 = ((80, T_FRAMES), (136, T_FRAMES), (216, T_FRAMES), (240, 84), (393, T_FRAMES),
+                  (80, 84), (136, 84), (216, 84), (240, T_FRAMES), (393, 84))
 KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main path)
     "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180",
                           "avsi_torch/csrc/lstm_fused.cu", 8),
@@ -319,7 +351,7 @@ def cudnn_ms(name: str, inp: dict, batch: int, dtype) -> float:
         with torch.no_grad():
             return time_ms(lambda: lstm(x, hx), reps=10)
     if name == "bilstm_fused_proj":
-        wx, d_in, x = inp["wx"], D1, inp["xt"]
+        wx, d_in, x = inp["wx"], inp["wx"].shape[1], inp["xt"]
     elif name == "bilstm_fused_proj2":
         wx, d_in = torch.cat([inp["wxa"], inp["wxb"]], dim=1), 2 * H
         x = torch.cat([inp["af"], inp["ab"]], dim=-1)
@@ -1383,20 +1415,26 @@ def train_path(root: str) -> dict:
     return counts
 
 
-def _train_step_setup(config: dict, device: str, params: dict):
-    """A fresh train state on `device` holding a copy of `params`, and the
-    train step; `config` is checked (`check_trainconfiguration`)."""
-    model = registry.get_model(config["model"])
+def get_model(config: dict, is_asr: bool = False):
+    return (registry.get_asr_model if is_asr else registry.get_model)(config["model"])
+
+
+def _train_step_setup(config: dict, device: str, params: dict, is_asr: bool = False):
+    """A fresh train state on `device` holding a copy of `params` (under the
+    model's trainable mask), and the train step; `config` is checked
+    (`check_trainconfiguration`)."""
+    model = get_model(config, is_asr)
     config = dict(config, lstm_impl=lstm_fused.resolve_impl(
         None, device, config["net_dim"], blstm.dtypes(config)[0]))
     params = checkpoints.params_from_flat(checkpoints.params_to_flat(params), device)
-    state = train_state.create_train_state(params, config)
+    state = train_state.create_train_state(
+        params, config, model.trainable_mask(params) if model.trainable_mask else None)
     stats = tuple(np.load(config[k]) for k in ("audio_feat_mean", "audio_feat_std"))
-    return state, train_loop.make_train_step(model, config, stats, device)
+    return state, train_loop.make_train_step(model, config, stats, device, is_asr)
 
 
 def profile_train_step(root: str, config: dict, label: str = "train step",
-                       cpu: bool = True) -> None:
+                       cpu: bool = True, is_asr: bool = False) -> None:
     """Where one train step at the config's batch goes (after one warm-up
     step)."""
     dm = DataManager(seed=0)
@@ -1404,27 +1442,30 @@ def profile_train_step(root: str, config: dict, label: str = "train step",
     batch_size = int(config["batch_size"])
     batch = next(iter(dm.batches(tfrecord.list_tfrecord_files(
         os.path.join(root, "training-set")), batch_size)))
-    params = registry.get_model(config["model"]).init(torch.Generator().manual_seed(0), config)
-    state, step = _train_step_setup(config, "cuda", params)
+    params = get_model(config, is_asr).init(torch.Generator().manual_seed(0), config)
+    state, step = _train_step_setup(config, "cuda", params, is_asr)
     step(state, batch, None)
     profile(f"one {label} of {batch_size}", lambda: step(state, batch, None), top=14, cpu=cpu)
 
 
-def train_reference_check(config: dict, batch_size: int, label: str = "flagship") -> None:
+def train_reference_check(config: dict, batch_size: int, label: str = "flagship",
+                          is_asr: bool = False) -> None:
     """One train step from the same params and batch (full width) on the
     GPU (kernels) and on the CPU (plain versions).  Tolerances: loss
     rtol 1e-4; each gradient leaf relative L2 <= 1e-3 (f32 sums in another
     order through 3 layers x 250 steps forward and back).  Gradients, not
-    updated params: adam's first step is +-lr for tiny gradients."""
+    updated params: adam's first step is +-lr for tiny gradients.  A leaf
+    outside the optimizer (a two-step model's v-net) takes no gradient."""
     config = config_lib.check_trainconfiguration(config)
     batch = synthetic_batch(config, batch_size, seed=5, gap_start=GAP.start,
                             gap_frames=GAP.stop - GAP.start)
-    params = registry.get_model(config["model"]).init(torch.Generator().manual_seed(1), config)
+    params = get_model(config, is_asr).init(torch.Generator().manual_seed(1), config)
     res = {}
     for dev in ("cuda", "cpu"):
-        state, step = _train_step_setup(config, dev, params)
+        state, step = _train_step_setup(config, dev, params, is_asr)
         loss = float(step(state, batch, None)["loss"])
-        res[dev] = loss, {k: p.grad.cpu() for k, p in checkpoints.named_leaves(state.params).items()}
+        res[dev] = loss, {k: p.grad.cpu() for k, p in checkpoints.named_leaves(state.params).items()
+                          if p.grad is not None}
     (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
     rel = {k: ((gg[k] - w).norm() / max(w.norm(), 1e-30)).item() for k, w in gc.items()}
     worst = max(rel, key=rel.get)
@@ -1528,6 +1569,380 @@ def lc_serve_check(netmodel: str) -> None:
         fail("the LC forward disagrees with the stream it trains for")
 
 
+# ------------------------------------------------------------ recognition and two-step paths
+
+def recognition_k1_widths() -> dict:
+    """K1 at the input widths the ASR and the two-step model give it, T=84
+    and 250, B=8, f32 and bf16, against its plain version within TOL, and
+    timed beside its plain version, bound and cuDNN.  Returns the rows."""
+    rows = {}
+    for d, t_len in RECOGNITION_K1:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(d + t_len)
+            inp = {"xt": ((torch.rand(t_len, 8, d, generator=gen) * 2 - 1) * 2).cuda().to(dtype),
+                   "wx": ((torch.rand(2, d, 4 * H, generator=gen) * 2 - 1) * d ** -0.5).cuda()
+                   .to(dtype),
+                   "b": ((torch.rand(2, 4 * H, generator=gen) * 2 - 1) * 0.1).cuda(),
+                   "wh": ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5).cuda()
+                   .to(dtype)}
+            name = "bilstm_fused_proj"
+            got = run_kernel(name, inp)
+            torch.cuda.synchronize()
+            err = max_err(name, got, run_kernel(name, inp, plain=True))
+            ms = time_ms(lambda: run_kernel(name, inp), reps=20)
+            plain_ms = time_ms(lambda: run_kernel(name, inp, plain=True), reps=2, warmup=1)
+            bound_ms, bound_by = bound(name, inp, got, dtype)
+            library_ms = cudnn_ms(name, inp, 8, dtype)
+            rows[(d, t_len, dtype)] = ms
+            print(f"recognition width K1 D={d} T={t_len} B=8 {str(dtype)[6:]}: max_abs_err "
+                  f"{err:.3e} (tol {TOL[dtype]:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), cuDNN {library_ms:.3f} ms", flush=True)
+            if err > TOL[dtype]:
+                fail(f"K1 at D={d} T={t_len} ({dtype}) disagrees with its plain version: {err}")
+    return rows
+
+
+def launched() -> dict:
+    return {k: v for k, v in _build.launch_counts.items() if v}
+
+
+def training_log(exp: str) -> str:
+    """The run's training_log.txt, failing on a non-finite or missing loss."""
+    log = open(os.path.join(exp, "training_log.txt")).read()
+    values = [float(f.split("=")[1]) for line in log.splitlines() if line.startswith("epoch ")
+              for f in line.split("\t") if "loss" in f or "ctc" in f or "per" in f]
+    if not values or not np.all(np.isfinite(values)):
+        fail(f"{exp}/training_log.txt holds non-finite or missing losses:\n{log}")
+    return log
+
+
+def write_asr_stats(root: str) -> None:
+    """`root/asr_mean.npy`, `asr_std.npy`: per-bin mean and std of the port's
+    80-bin log-mel over the LC corpus's training utterances, the stats an
+    ASR bundle normalizes with."""
+    files = tfrecord.list_tfrecord_files(os.path.join(root, "lc", "training-set"))
+    ident = (torch.zeros(80).cuda(), torch.ones(80).cuda())
+    with torch.no_grad():
+        feats = torch.cat([
+            asr_model.asr_features(torch.from_numpy(b["target_sources"]).cuda(), ident,
+                                   num_frames=T_FRAMES).reshape(-1, 80)
+            for b in DataManager(seed=0).batches(files, 8)])
+    np.save(os.path.join(root, "asr_mean.npy"), feats.mean(0).cpu().numpy())
+    np.save(os.path.join(root, "asr_std.npy"), feats.std(0).cpu().numpy())
+
+
+def asr_train_config(root: str, **kw) -> dict:
+    """scripts/config/blstm_asr.config (a-blstm, net_dim [250, 250], batch 8,
+    adam 1e-3) over the LC corpus (6 train steps, 1 validation step), one
+    epoch, the NaN check every step."""
+    cfg = config_lib.load_configfile(ASR_CONFIG)
+    cfg.update(root_folder=os.path.join(root, "lc"), exp_folder=os.path.join(root, "exp_asr"),
+               audio_feat_mean=os.path.join(root, "asr_mean.npy"),
+               audio_feat_std=os.path.join(root, "asr_std.npy"), device="cuda",
+               max_n_epochs=1, n_earlystop_epochs=1, nan_check_every=1, **kw)
+    return cfg
+
+
+def asr_train_path(root: str) -> str:
+    """ASR training: `train(is_asr=True)` on the GPU.  Returns the bundle."""
+    write_asr_stats(root)
+    cfg = asr_train_config(root)
+    config_file = os.path.join(root, "asr.config")
+    config_lib.save_configfile(cfg, config_file)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_loop.train(config_file, is_asr=True)
+    wall = time.perf_counter() - t0
+    counts = launched()
+    steps, batch = N_LC_TRAIN // cfg["batch_size"], cfg["batch_size"]
+    val_steps = -(-N_LC_VAL // batch)
+    layers = len(cfg["net_dim"])
+    want = {"bilstm_recurrence_train": layers * steps, "bilstm_recurrence_bwd": layers * steps,
+            "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": (layers - 1) * val_steps}
+    if summary["steps"] != steps or counts != want:
+        fail(f"ASR training ran {summary['steps']} steps with launches {counts}; want {steps} "
+             f"and {want} (K3, K4: 2 per train step; K1 1, K2 1 per validation step)")
+    exp = cfg["exp_folder"]
+    log = training_log(exp)
+    pers = [float(f.split("=")[1]) for line in log.splitlines() if line.startswith("epoch ")
+            for f in line.split("\t") if f.startswith("val_per=")]
+    netmodel = os.path.join(exp, "netmodel")
+    if (not pers or abs(summary["best_val"] - min(pers)) > 1e-5 or "saved asrnet" not in log
+            or not os.path.isfile(os.path.join(netmodel, "asrnet.npz"))):
+        fail(f"ASR training did not select asrnet by val PER (best {summary['best_val']}):\n{log}")
+    config, stats = inpaint.load_model_bundle(netmodel, device="cuda", is_asr=True)[:2]
+    if config["lstm_impl"] != "kernel" or stats[0].shape != (80,):
+        fail(f"the ASR bundle reads back wrongly: {config['lstm_impl']}, stats {stats[0].shape}")
+    steady = summary["step_seconds"][1:]
+    print(f"ASR training path: {cfg['model']} {cfg['net_dim']}, {steps} train steps of {batch} + "
+          f"{val_steps} validation step in {wall:.1f} s; launches {counts}; best val PER "
+          f"{summary['best_val']:.5f}", flush=True)
+    print("ASR training path: log\n" + log.strip(), flush=True)
+    print(f"ASR training path: steady-state {np.mean(steady):.4f} s/step "
+          f"({', '.join(f'{t:.4f}' for t in steady)}), {batch / np.mean(steady):.1f} training "
+          f"utterances/s (steps after the first); card {card_line()}", flush=True)
+    return netmodel
+
+
+def write_dictionary(root: str) -> str:
+    """A 33-phoneme dictionary file (the labels' names in the `.lbl` files)."""
+    path = os.path.join(root, "dictionary.txt")
+    with open(path, "w") as f:
+        f.write(" ".join(f"ph{i:02d}" for i in range(33)) + "\n")
+    return path
+
+
+def count_files(root: str, name: str) -> int:
+    return sum(name in names for _, _, names in os.walk(root))
+
+
+def asr_infer_path(root: str, asr_dir: str) -> None:
+    """ASR `infer()` over the offline test set, beam 100 and greedy, each
+    against the same `infer()` on the CPU (mean loss rtol 1e-4: f32 sums in
+    another order through 2 layers x 250 steps); the native decoder against
+    its Python twin on two utterances' logits fetched from the card."""
+    if ctc_ops.beam_impl() != "native":
+        fail(f"the native CTC decoder did not build: {ctc_ops._native.get('error')}")
+    test_dir, out_dir = os.path.join(root, "test-set"), os.path.join(root, "asr_out")
+    dict_file = write_dictionary(root)
+    n_batches = -(-N_TEST // INFER_BATCH)
+    for mode, beam in (("beam", ASR_BEAM), ("greedy", 0)):
+        _build.reset_launch_counts()
+        res = asr_infer.infer(asr_dir, test_dir, out_dir, f"gpu_{mode}", dict_file,
+                              batch_size=INFER_BATCH, beam_width=beam)
+        counts = launched()
+        files = count_files(out_dir, f"gpu_{mode}.lbl")
+        want = {"bilstm_fused_proj": n_batches, "bilstm_fused_proj2": n_batches}
+        if res["num_samples"] != N_TEST or files != N_TEST or counts != want:
+            fail(f"ASR infer() {mode} wrote {files} .lbl files for {res['num_samples']} "
+                 f"utterances with launches {counts}; want {N_TEST} and {want}")
+        ref = asr_infer.infer(asr_dir, test_dir, out_dir, f"cpu_{mode}", dict_file,
+                              batch_size=INFER_BATCH, beam_width=beam, device="cpu")
+        same = sum(open(os.path.join(out_dir, f"utt{i:03d}", f"gpu_{mode}.lbl")).read()
+                   == open(os.path.join(out_dir, f"utt{i:03d}", f"cpu_{mode}.lbl")).read()
+                   for i in range(N_TEST))
+        loss_err = abs(res["loss"] / ref["loss"] - 1)
+        wall = N_TEST / res["utt_per_sec"]
+        print(f"ASR infer() {mode} (beam width {beam}, decoder {ctc_ops.beam_impl()}): {N_TEST} "
+              f"transcriptions in {n_batches} batches of {INFER_BATCH}; launches {counts}; "
+              f"{res['utt_per_sec']:.2f} utterances/s, decoding {res['decode_seconds']:.3f} s of "
+              f"{wall:.3f} s ({100 * res['decode_seconds'] / wall:.0f}%); PER {res['per']:.4f} "
+              f"(CPU {ref['per']:.4f}, {same} of {N_TEST} transcriptions identical); vs the CPU: "
+              f"loss rel err {loss_err:.2e} (tol 1e-4); card {card_line()}", flush=True)
+        if loss_err > 1e-4:
+            fail(f"ASR infer() {mode} on the GPU disagrees with the CPU")
+    config, stats, _, params = inpaint.load_model_bundle(asr_dir, device="cuda", is_asr=True)
+    step = asr_infer.make_asr_step(config, stats, False, True, device="cuda")
+    batch = next(iter(DataManager(seed=0).batches(tfrecord.list_tfrecord_files(test_dir), 2)))
+    dec, _, lengths = (t.cpu().numpy() for t in step(params, inpaint.compact_batch(batch)))
+    t0 = time.perf_counter()
+    native = ctc_ops.beam_search_decode_batch(dec, lengths, ASR_BEAM)
+    t1 = time.perf_counter()
+    python = [ctc_ops._beam_search_decode_py(dec[i], int(lengths[i]), ASR_BEAM) for i in range(2)]
+    t2 = time.perf_counter()
+    print(f"ASR decoders: native vs Python twin on 2 utterances' logits from the card (T="
+          f"{dec.shape[1]}, {dec.shape[2]} classes, beam {ASR_BEAM}): identical {native == python}; "
+          f"native {1e3 * (t1 - t0):.1f} ms, Python {1e3 * (t2 - t1):.1f} ms", flush=True)
+    if native != python:
+        fail(f"the native beam search disagrees with its Python twin: {native} vs {python}")
+
+
+SIASR_MODES = {"plain": {}, "levers": {"passthrough": True, "gap_atten": {"alpha": 0.5}}}
+
+
+def siasr_path(d: str, root: str, asr_dir: str) -> None:
+    """siasr `infer()`: the flagship SI bundle with the trained ASR judge,
+    plain and with both levers (beam 100, Griffin-Lim 50): 20 wavs and
+    transcriptions, K1 2 and K2 3 launches per batch; its wavs against
+    `inpaint.infer()`'s on the same bundle (relative L2 1e-6: the same
+    kernels on the same card); its losses against the CPU run (rel err
+    1e-4)."""
+    test_dir, out_dir = os.path.join(root, "test-set"), os.path.join(root, "siasr")
+    dict_file = write_dictionary(root)
+    n_batches = -(-N_TEST // INFER_BATCH)
+    want = {"bilstm_fused_proj": 2 * n_batches, "bilstm_fused_proj2": 3 * n_batches}
+    for mode, kw in SIASR_MODES.items():
+        _build.reset_launch_counts()
+        res = siasr.infer(d, asr_dir, test_dir, out_dir, f"gpu_{mode}", dict_file,
+                          batch_size=INFER_BATCH, gl_iters=INFER_GL, beam_width=ASR_BEAM, **kw)
+        counts = launched()
+        if res["num_samples"] != N_TEST or counts != want:
+            fail(f"siasr {mode} wrote {res['num_samples']} with launches {counts}; want {N_TEST} "
+                 f"and {want} (SI: K1 1 + K2 2; ASR: K1 1 + K2 1 per batch)")
+        wavs = read_wavs(out_dir, f"gpu_{mode}")
+        if mode == "plain":
+            alone = read_wavs(os.path.join(root, "enhanced"), "gpu_plain")
+        else:
+            inpaint.infer(d, test_dir, out_dir, "inpaint_levers", batch_size=INFER_BATCH,
+                          gl_iters=INFER_GL, **kw)
+            alone = read_wavs(out_dir, "inpaint_levers")
+        same_wav = max(rel_l2(a, b) for a, b in zip(wavs, alone))
+        transcripts = count_files(os.path.join(out_dir), f"gpu_{mode}.lbl")
+        ref = siasr.infer(d, asr_dir, test_dir, out_dir, f"cpu_{mode}", dict_file,
+                          batch_size=INFER_BATCH, gl_iters=INFER_GL, beam_width=ASR_BEAM,
+                          device="cpu", **kw)
+        loss_err = max(abs(res[k] / ref[k] - 1) for k in ("loss", "loss_hole"))
+        cpu_rel = max(rel_l2(g, c) for g, c in zip(wavs, read_wavs(out_dir, f"cpu_{mode}")))
+        print(f"siasr {mode}: {N_TEST} wavs + {transcripts} transcriptions in {n_batches} batches "
+              f"of {INFER_BATCH}, Griffin-Lim {INFER_GL}, beam {ASR_BEAM}; launches {counts}; "
+              f"{res['utt_per_sec']:.2f} utterances/s (decoding {res['decode_seconds']:.3f} s); "
+              f"PER {res['per']:.4f} (CPU {ref['per']:.4f}); wavs vs inpaint.infer() relative L2 "
+              f"max {same_wav:.2e} (tol 1e-6); vs the CPU: losses max rel err {loss_err:.2e} (tol "
+              f"1e-4), wavs relative L2 max {cpu_rel:.2e}; card {card_line()}", flush=True)
+        if transcripts != N_TEST or same_wav > 1e-6 or loss_err > 1e-4:
+            fail(f"siasr {mode} on the GPU misbehaves")
+
+
+def mask_app_path(root: str) -> None:
+    """`mask_app` over the offline test set, oracle and masked phase: 20
+    masked.wav and no K1-K6 launch, against the CPU run: each wav within 1
+    LSB per sample and relative L2 1e-3 (the resynthesis returns the int16
+    input outside the gaps exactly in exact arithmetic, so the int16 cast
+    truncates values that sit on integers: 1 LSB flips), the hole loss rel
+    err 1e-5."""
+    test_dir = os.path.join(root, "test-set")
+    kw = dict(num_audio_samples=AUDIO_LEN, batch_size=INFER_BATCH,
+              feat_mean_file=os.path.join(root, "mean.npy"),
+              feat_std_file=os.path.join(root, "std.npy"))
+    for oracle in (True, False):
+        tag = "oracle" if oracle else "masked"
+        out = {dev: os.path.join(root, f"masked_{tag}_{dev}") for dev in ("gpu", "cpu")}
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = masking.mask_app(test_dir, out["gpu"], oracle_phase=oracle, **kw)
+        wall = time.perf_counter() - t0
+        counts = launched()
+        ref = masking.mask_app(test_dir, out["cpu"], oracle_phase=oracle, device="cpu", **kw)
+        pairs = [(wavio.read_wav_int16(os.path.join(out["gpu"], f"utt{i:03d}", "masked.wav"))[1],
+                  wavio.read_wav_int16(os.path.join(out["cpu"], f"utt{i:03d}", "masked.wav"))[1])
+                 for i in range(N_TEST)]
+        lsb = max(np.abs(g - c).max() for g, c in pairs)
+        rel = max(rel_l2(g, c) for g, c in pairs)
+        loss_err = abs(res["loss_hole"] / ref["loss_hole"] - 1)
+        files = count_files(out["gpu"], "masked.wav")
+        print(f"mask_app {tag} phase: {files} masked.wav in {wall:.2f} s "
+              f"({N_TEST / wall:.1f} utterances/s); launches {counts or 'none'}; vs the CPU: max "
+              f"{lsb:.0f} LSB, relative L2 max {rel:.2e} (tol 1 LSB, 1e-3), hole loss rel err "
+              f"{loss_err:.2e} (tol 1e-5)", flush=True)
+        if files != N_TEST or counts or lsb > 1 or rel > 1e-3 or loss_err > 1e-5:
+            fail(f"mask_app {tag} misbehaves")
+
+
+def twosteps_config(root: str, model: str, exp: str, **kw) -> dict:
+    """The flagship's width ([250, 250, 250]) and training settings at batch
+    8 over the LC corpus (6 train steps, 1 validation step), one epoch."""
+    cfg = train_config(root)
+    cfg.update(model=model, batch_size=8, root_folder=os.path.join(root, "lc"),
+               exp_folder=os.path.join(root, exp), max_n_epochs=1, n_earlystop_epochs=1, **kw)
+    return cfg
+
+
+def twosteps_path(root: str) -> None:
+    """Two-step training and inference: a v-blstm pretrained for 6 steps,
+    then `av-blstm-twosteps` trained from it (`model_ckp_vnet`) for 6: its
+    v-net bit-equal to the v-blstm's, K3 6 and K4 3 launches per step; then
+    `infer()` with its `sinet` (Griffin-Lim 50): K1 2 and K2 4 per batch,
+    its losses against the CPU (rel err 1e-4); and its step on one batch
+    against the CPU by phase reconstruction (`griffin_lim_divergence`)."""
+    steps, n_layers = N_LC_TRAIN // 8, 3
+    vfile, tfile = os.path.join(root, "vnet.config"), os.path.join(root, "twosteps.config")
+    config_lib.save_configfile(twosteps_config(root, "v-blstm", "exp_v"), vfile)
+    train_loop.train(vfile)
+    vnet = os.path.join(root, "exp_v", "netmodel", "sinet")
+    cfg = twosteps_config(root, "av-blstm-twosteps", "exp_2s", model_ckp_vnet=vnet)
+    config_lib.save_configfile(cfg, tfile)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_loop.train(tfile)
+    wall = time.perf_counter() - t0
+    counts = launched()
+    want = {"bilstm_recurrence_train": 2 * n_layers * steps,
+            "bilstm_recurrence_bwd": n_layers * steps,
+            "bilstm_fused_proj": 2, "bilstm_fused_proj2": 2 * (n_layers - 1)}
+    if summary["steps"] != steps or counts != want:
+        fail(f"two-step training ran {summary['steps']} steps with launches {counts}; want "
+             f"{steps} and {want} (K3 6 and K4 3 per train step; K1 2, K2 4 per validation step)")
+    log = training_log(cfg["exp_folder"])
+    netmodel = os.path.join(cfg["exp_folder"], "netmodel")
+    with np.load(vnet + ".npz") as v, np.load(os.path.join(netmodel, "sinet.npz")) as z:
+        kept = all(np.array_equal(z["vnet/" + k], v[k]) for k in v.files
+                   if not k.startswith("__"))
+        moved = not np.array_equal(z["avnet/blstm/0/wh"], registry.get_model(
+            "av-blstm-twosteps").init(torch.Generator().manual_seed(0), config_lib
+            .check_trainconfiguration(cfg))["avnet"]["blstm"][0]["wh"].numpy())
+    steady = summary["step_seconds"][1:]
+    print(f"two-step training path: v-blstm pretrained, then av-blstm-twosteps from it, {steps} "
+          f"train steps of 8 + 1 validation step in {wall:.1f} s; launches {counts}; v-net "
+          f"bit-equal to the v-blstm's: {kept}; av-net moved: {moved}", flush=True)
+    print("two-step training path: log\n" + log.strip(), flush=True)
+    print(f"two-step training path: steady-state {np.mean(steady):.4f} s/step "
+          f"({', '.join(f'{t:.4f}' for t in steady)}); card {card_line()}", flush=True)
+    if not kept or not moved:
+        fail("two-step training changed its v-net or left its av-net")
+    test_dir, out_dir = os.path.join(root, "test-set"), os.path.join(root, "twosteps_out")
+    n_batches = -(-N_TEST // INFER_BATCH)
+    _build.reset_launch_counts()
+    res = inpaint.infer(netmodel, test_dir, out_dir, "gpu", batch_size=INFER_BATCH,
+                        gl_iters=INFER_GL)
+    counts = launched()
+    ref = inpaint.infer(netmodel, test_dir, out_dir, "cpu", batch_size=INFER_BATCH,
+                        gl_iters=INFER_GL, device="cpu")
+    loss_err = max(abs(res[k] / ref[k] - 1) for k in ("loss", "loss_hole"))
+    rel = [rel_l2(g, c) for g, c in zip(read_wavs(out_dir, "gpu"), read_wavs(out_dir, "cpu"))]
+    want = {"bilstm_fused_proj": 2 * n_batches, "bilstm_fused_proj2": 4 * n_batches}
+    print(f"two-step infer(): {res['num_samples']} wavs in {n_batches} batches of {INFER_BATCH}, "
+          f"Griffin-Lim {INFER_GL}; launches {counts}; {res['utt_per_sec']:.2f} utterances/s; vs "
+          f"the CPU: losses max rel err {loss_err:.2e} (tol 1e-4), wav relative L2 median "
+          f"{np.median(rel):.2e}, max {max(rel):.2e} (see the Griffin-Lim divergence below)",
+          flush=True)
+    if res["num_samples"] != N_TEST or counts != want or loss_err > 1e-4:
+        fail(f"two-step infer() misbehaves (launches {counts}, want {want})")
+    griffin_lim_divergence(netmodel, test_dir)
+
+
+def griffin_lim_divergence(netmodel: str, test_dir: str) -> None:
+    """The two-step bundle's infer step on one batch of INFER_BATCH, GPU
+    against CPU, by phase reconstruction.  Its magnitudes are all the
+    model's (a plain v/av-blstm restores no known bins), and fast
+    Griffin-Lim (momentum 0.99) amplifies the two devices' f32 differences
+    over its iterations; the masked-phase resynthesis ("none") has no
+    iteration.  Held: "none" and 5 iterations within relative L2 1e-3 and
+    1e-2 per utterance; 20 and 50 iterations are printed."""
+    batch = inpaint.compact_batch(next(iter(DataManager(seed=0).batches(
+        tfrecord.list_tfrecord_files(test_dir), INFER_BATCH))))
+    bundles = {dev: inpaint.load_model_bundle(netmodel, device=dev) for dev in ("cuda", "cpu")}
+    worst = {}
+    for recon, iters in (("none", 0), ("gl", 5), ("gl", 20), ("gl", INFER_GL)):
+        wavs = {}
+        for dev, (config, stats, model, params) in bundles.items():
+            step = inpaint.make_infer_step(model, config, stats, False, recon, iters, device=dev)
+            wavs[dev] = step(params, batch)[0].cpu().numpy()
+        worst[(recon, iters)] = max(rel_l2(g, c) for g, c in zip(wavs["cuda"], wavs["cpu"]))
+    print("two-step infer step, GPU vs CPU wav relative L2 (max over a batch of "
+          f"{INFER_BATCH}) by phase reconstruction: "
+          + ", ".join(f"{r if r == 'none' else f'Griffin-Lim {i}'} {e:.2e}"
+                      for (r, i), e in worst.items())
+          + " (tol 1e-3 for none, 1e-2 for Griffin-Lim 5)", flush=True)
+    if worst[("none", 0)] > 1e-3 or worst[("gl", 5)] > 1e-2:
+        fail("the two-step infer step on the GPU disagrees with the CPU")
+
+
+def profile_siasr_batch(d: str, root: str, asr_dir: str) -> None:
+    """Where one siasr batch of INFER_BATCH goes (device work of the fused
+    step, Griffin-Lim 50, after a warm-up call)."""
+    si = inpaint.load_model_bundle(d, device="cuda")
+    asr_cfg, asr_stats, _, asr_params = inpaint.load_model_bundle(asr_dir, device="cuda",
+                                                                  is_asr=True)
+    step = siasr.make_siasr_step(si[2], si[0], si[1], asr_cfg, asr_stats, False, "gl", INFER_GL,
+                                 use_beam=True, device="cuda")
+    batch = next(iter(DataManager(seed=0).batches(
+        tfrecord.list_tfrecord_files(os.path.join(root, "test-set")), INFER_BATCH)))
+    cb = inpaint.compact_batch(batch)
+    step(si[3], asr_params, cb)
+    profile(f"one siasr batch of {INFER_BATCH} (SI + Griffin-Lim {INFER_GL} + ASR)",
+            lambda: step(si[3], asr_params, cb), top=12)
+
+
 def phase(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1560,6 +1975,7 @@ def main() -> int:
     for batch in (8, TRAIN_BATCH):
         phase(f"layer grads B={batch}", check_layer_grads, batch)
     phase("stack", time_stack)
+    phase("K1 at the recognition widths", recognition_k1_widths)
 
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
         write_checkpoint(d)
@@ -1583,6 +1999,17 @@ def main() -> int:
         phase("LC training reference", train_reference_check, lc_train_config(root), LC_BATCH,
               f"flagship LC C={LC_CHUNK} L={LC_LOOK}")
         phase("LC train equals serve", lc_serve_check, netmodel)
+        asr_dir = phase("ASR training", asr_train_path, root)
+        phase("ASR training reference", train_reference_check, asr_train_config(root), 8,
+              "ASR a-blstm 2 x 250", True)
+        phase("ASR training reference frame_stack 3", train_reference_check,
+              asr_train_config(root, frame_stack=3), 8, "ASR a-blstm 2 x 250, frame_stack 3", True)
+        phase("ASR infer()", asr_infer_path, root, asr_dir)
+        phase("siasr", siasr_path, d, root, asr_dir)
+        phase("mask_app", mask_app_path, root)
+        phase("two-step", twosteps_path, root)
+        phase("two-step training reference", train_reference_check,
+              twosteps_config(root, "av-blstm-twosteps", "exp_2s_ref"), 8, "two-step 3 x 250")
         phase("serving profiles", serving_profiles, d)
         phase("fleet profiles", fleet_profiles, d)
         phase("offline profile", profile, f"one plain infer() over {N_TEST} utterances "
@@ -1593,6 +2020,9 @@ def main() -> int:
         phase("train step profile", profile_train_step, root, train_config(root))
         phase("LC train step profile", profile_train_step, root, lc_train_config(root),
               "LC train step", False)
+        phase("ASR train step profile", profile_train_step, root, asr_train_config(root),
+              "ASR train step", True, True)
+        phase("siasr profile", profile_siasr_batch, d, root, asr_dir)
     phase("K4 profiles", k4_profiles)
 
     kernels = []

@@ -468,3 +468,66 @@ def test_lc_window_launches_k5_once_per_layer():
     launched = {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]}
     assert launched == {"bilstm_recurrence_carry": 3}
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-4
+
+
+# The recognition and two-step slice feeds K1 other input widths: the ASR's
+# 80 log-mel bins (`a`), 136 video features (`v`), 216 (`av`), 240 (`a` under
+# frame_stack 3, whose time axis is then ceil(250 / 3) = 84), and 393 (the
+# two-step av-net's 257 + 136); T = 84 and 250, B = 8.
+RECOGNITION_K1 = [(d, t, dtype) for d in (80, 136, 216, 240, 393) for t in (84, 250)
+                  for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", RECOGNITION_K1,
+                         ids=lambda c: f"D{c[0]}-T{c[1]}-{str(c[2])[6:]}")
+def test_k1_at_the_recognition_input_widths(case):
+    _need_cuda()
+    d, t, dtype = case
+    gen = torch.Generator().manual_seed(d + t)
+    x = _w(gen, t, 8, d, scale=2.0).to(dtype)
+    wx = _w(gen, 2, d, 1000, scale=d ** -0.5).to(dtype)
+    wh = _w(gen, 2, 250, 1000, scale=250 ** -0.5).to(dtype)
+    bias = _w(gen, 2, 1000, scale=0.1)
+    got = lstm_fused.bilstm_fused_proj(x, wx, bias, wh)
+    _fused_check(got, lstm_fused.bilstm_fused_proj_plain(x, wx, bias, wh), dtype)
+
+
+@pytest.mark.parametrize("t", [84, 250])
+def test_bilstm_layer_at_the_asr_width_matches_cpu(t):
+    """K3/K4 under `BiLSTMLayer` behind the ASR's first layer (80 log-mel
+    bins in, H=250, B=8; T=84 under frame_stack 3), f32, on the card
+    against the CPU: per-leaf relative L2 <= 1e-4."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(t)
+    p = {"wx": (torch.rand(2, 80, 1000, generator=gen) * 2 - 1) * 80 ** -0.5,
+         "wh": (torch.rand(2, 250, 1000, generator=gen) * 2 - 1) * 250 ** -0.5,
+         "b": 0.1 * torch.randn(2, 1000, generator=gen)}
+    x = torch.randn(8, t, 80, generator=gen)
+    dy = torch.randn(8, t, 500, generator=gen)
+    grads = {}
+    before = dict(_build.launch_counts)
+    for dev in ("cuda", "cpu"):
+        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        (lstm_train.bilstm_layer_train(pd, xd) * dy.to(dev)).sum().backward()
+        grads[dev] = [xd.grad.cpu()] + [pd[k].grad.cpu() for k in ("wx", "wh", "b")]
+    assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
+        "bilstm_recurrence_train": 1, "bilstm_recurrence_bwd": 1}
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert (g - w).norm().item() <= 1e-4 * w.norm().item()
+
+
+def test_log_mel_runs_at_full_f32_on_the_card():
+    """The ASR front end's mel product after `resolve_device` (TF32 off):
+    the card's log-mel equals the CPU's to rtol 1e-5 (TF32 keeps ~3
+    decimal digits of each product and would miss it by ~1e-3)."""
+    _need_cuda()
+    from avsi_torch.device import resolve_device
+    from avsi_torch.ops import mel
+
+    resolve_device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    power = torch.rand(8, 250, 257, generator=gen) ** 4 * 1e8
+    want = mel.log_mel_spectrogram(power)
+    got = mel.log_mel_spectrogram(power.cuda()).cpu()
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -178,8 +178,16 @@ def test_infer_step_matches_reference(bridged):
 
 
 def test_registry_scope():
+    """`unet` stays refused; `av-blstm-twosteps` (refused before it was
+    ported) now resolves, with its trainable mask, and so do the ASR models."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tregistry.get_model("unet")
     with pytest.raises(ValueError):
         tregistry.get_model("no-such-model")
     assert tregistry.get_model("av-blstm-ssnn-ctc").needs_labels
+    twosteps = tregistry.get_model("av-blstm-twosteps")
+    assert twosteps.name == "av-blstm-twosteps" and twosteps.trainable_mask is not None
+    assert [tregistry.get_asr_model(n).needs_labels for n in ("a-blstm", "v-blstm", "av-blstm")] \
+        == [True] * 3
+    with pytest.raises(ValueError):
+        tregistry.get_asr_model("av-blstm-ssnn-ctc")

@@ -178,17 +178,27 @@ def test_resolve_device_needs_cuda_unless_cpu_is_named(monkeypatch):
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|avsi)(\.|\s|$)", re.M)
 
 
+# modules of the recognition and two-step slice, which the walk must reach
+_SLICE_MODULES = ("avsi_torch.data.phonemes", "avsi_torch.ops.mel", "avsi_torch.ops.ctc",
+                  "avsi_torch.ops.masks", "avsi_torch.models.asr", "avsi_torch.models.twosteps",
+                  "avsi_torch.infer.asr", "avsi_torch.infer.siasr", "avsi_torch.infer.masking")
+
+
 def test_port_imports_no_jax_and_no_avsi():
-    """Every port module imports cleanly with no jax and no avsi loaded, and
-    no port source (nor chip_smoke.py) names them in an import."""
+    """Every port module imports cleanly with no jax and no avsi loaded (the
+    walk reaches every module of the recognition and two-step slice), and
+    no port source (nor chip_smoke.py) names them in an import, nor the
+    reference's native loader or its library (the port builds its own
+    CTC decoder)."""
     code = (
         "import importlib, pkgutil, sys, avsi_torch\n"
         "for m in pkgutil.walk_packages(avsi_torch.__path__, 'avsi_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'avsi'))\n"
-        "print('BAD', bad)\n"
-        "assert not bad, bad\n"
+        f"missing = sorted(set({_SLICE_MODULES!r}) - set(sys.modules))\n"
+        "print('BAD', bad, 'MISSING', missing)\n"
+        "assert not bad and not missing, (bad, missing)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
@@ -198,7 +208,9 @@ def test_port_imports_no_jax_and_no_avsi():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     sources = list((REPO / "avsi_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for src in sources:
-        assert not _FORBIDDEN.search(src.read_text()), src
+        text = src.read_text()
+        assert not _FORBIDDEN.search(text), src
+        assert "native_loader" not in text and "libavsi_loader" not in text, src
 
 
 def test_build_hash_covers_every_kernel_source():
