@@ -8,7 +8,8 @@ service run on each fixed-size batch: expand the compact batch, forward,
 per-sample losses, the optional gap attenuation, waveform reconstruction,
 the optional known-region passthrough, int16 clip.  `infer()` enhances a
 TFRecord test set and writes `<audio_path>/<sample>/enhanced/<prefix>.wav`,
-int16, trimmed to seq_len * 192 samples, with one batch in flight.
+int16, trimmed to seq_len * the model's hop (192 samples for the BLSTMs,
+128 for the U-Nets), with one batch in flight.
 
 Not in this slice: `infer(data_shards > 1)` (data-parallel meshes).
 """
@@ -99,7 +100,8 @@ def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto
     `lstm_impl`: "auto" runs the CUDA kernels on a GPU and their plain
     versions on the CPU; "scan" forces the eager scan twin (see
     `lstm_fused.resolve_impl`).  Params land on `device` (default cuda).
-    Inpainting stats are cut to the model's bins; ASR stats are 80-bin
+    Inpainting stats are cut to the model's bins (a U-Net's 129 STFT bins
+    to its 128); ASR stats are 80-bin
     log-mel stats, never cut (identity stats of width 80 with `norm=False`)."""
     device = resolve_device(device)
     config = config_lib.check_trainconfiguration(

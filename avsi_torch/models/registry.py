@@ -1,20 +1,21 @@
 """Model registry: config `model` name -> ModelDef (port of
-`avsi/models/registry.py`): the BLSTM family, `av-blstm-twosteps` and the
-standalone ASR models; the U-Net family is not ported yet."""
+`avsi/models/registry.py`): every inpainting model of the reference (the
+BLSTM family, `av-blstm-twosteps`, `unet` and `unet-pconv`) and the
+standalone ASR models."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
-from avsi_torch.models import asr, blstm, twosteps
+from avsi_torch.models import asr, blstm, twosteps, unet, unet_pconv
 
 BLSTM_NAMES = [
     f"{i}-blstm{s}"
     for i in ("a", "v", "av")
     for s in ("", "-ssnn", "-emb", "-ctc", "-ssnn-ctc")
 ]
-NOT_PORTED = ["unet", "unet-pconv"]
+ALL_INPAINTING_MODELS = BLSTM_NAMES + ["av-blstm-twosteps", "unet", "unet-pconv"]
 ASR_MODELS = ["a-blstm", "v-blstm", "av-blstm"]
 
 
@@ -30,6 +31,10 @@ class ModelDef:
     spec: blstm.BLSTMSpec | None = None
     # params -> tree of bools, True where the optimizer updates (None: all)
     trainable_mask: Callable | None = None
+    # `(params, outputs) -> None`: merges auxiliary forward state (the
+    # U-Nets' batch-norm running statistics) into the params' leaves in
+    # place, after the optimizer update
+    apply_aux_update: Callable | None = None
     # STFT geometry of the model's front end (frame_length, frame_step, fft_length)
     frame_length: int = 384
     frame_step: int = 192
@@ -38,14 +43,19 @@ class ModelDef:
 
 def get_model(name: str) -> ModelDef:
     """Inpainting model lookup by config name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not ported yet")
+    if name in ("unet", "unet-pconv"):
+        mod = unet if name == "unet" else unet_pconv
+        return ModelDef(
+            name, mod.init, mod.forward, mod.losses, mod.enhanced_sources,
+            apply_aux_update=lambda p, out: mod.apply_bn_update(p, out["bn_stats"]),
+            frame_length=unet.FRAME_LENGTH, frame_step=unet.FRAME_STEP,
+            fft_length=unet.FFT_LENGTH,
+        )
     if name == "av-blstm-twosteps":
         return ModelDef(name, twosteps.init, twosteps.forward, twosteps.losses,
                         twosteps.enhanced_sources, trainable_mask=twosteps.trainable_mask)
     if name not in BLSTM_NAMES:
-        raise ValueError(f"Unknown model '{name}'. Expected one of "
-                         f"{BLSTM_NAMES + ['av-blstm-twosteps'] + NOT_PORTED}")
+        raise ValueError(f"Unknown model '{name}'. Expected one of {ALL_INPAINTING_MODELS}")
     spec = blstm.parse_model_name(name)
 
     def _init(gen, config, device=None):

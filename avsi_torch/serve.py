@@ -2,8 +2,11 @@
 
 `InpaintingService` loads a checkpoint directory once and runs the
 inference step at a fixed micro-batch, padding partial batches exactly as
-the reference does (`avsi/serve.py:216-285`); `open_stream` starts a live
-LC-BLSTM stream on the same weights (`avsi_torch.infer.streaming`).
+the reference does (`avsi/serve.py:216-285`), at the model's STFT
+geometry (the BLSTMs' 192-sample hop, the U-Nets' 128); `open_stream`
+starts a live LC-BLSTM stream on the same weights
+(`avsi_torch.infer.streaming`), and refuses a model that has no stream
+path (the U-Nets: HTTP 400, and /enhance goes on serving).
 `serve()` wraps it in a stdlib HTTP server:
 
   POST /enhance   body: raw little-endian payload
@@ -64,6 +67,16 @@ from avsi_torch.train.checkpoints import named_leaves
 # the configuration keys a reload must keep: the shapes of requests and weights
 GEOMETRY = ("model", "audio_len", "audio_feat_dim", "video_feat_dim", "net_dim",
             "integration_layer")
+
+
+def _stream_spec(model: str):
+    """The BLSTM spec of a model that streams; a ValueError (HTTP 400)
+    naming any other model."""
+    try:
+        return parse_model_name(model)
+    except ValueError:
+        raise ValueError(f"model {model} has no live stream path: /stream/* serves the "
+                         "BLSTM models") from None
 
 
 class InpaintingService:
@@ -229,6 +242,7 @@ class InpaintingService:
         the service's passthrough, and its requested `lstm_impl` through
         streaming's own policy.  Nothing is compiled per stream: the
         kernels were built by the service's warm-up."""
+        _stream_spec(self.config["model"])
         if gap_atten == "service-default":
             gap_atten = self._gap_atten
         with self._lock:  # one coherent (config, stats, params) against a reload
@@ -292,7 +306,7 @@ def _parse_push(raw: bytes, inp: StreamingInpainter):
 
 def _open_options(query: str, raw: bytes, service: InpaintingService) -> dict:
     """/stream/open query and body -> `open_stream` keyword arguments."""
-    spec = parse_model_name(service.config["model"])
+    spec = _stream_spec(service.config["model"])
     q = urllib.parse.parse_qs(query)
     chunk = int(q["chunk"][0]) if "chunk" in q else None
     look = int(q["look"][0]) if "look" in q else None

@@ -25,17 +25,30 @@ to the device as it is: the reference's compaction of masks to int8 frames
 and of waves to int16 is a TPU transfer trick, and the masks the model
 sees are the same either way.
 
+A model with batch norm (`unet`, `unet-pconv`) writes its running
+statistics into its params after each optimizer update
+(`ModelDef.apply_aux_update`), and validates with `train=False`.
+
+As the reference does, `train()` writes TensorBoard events to
+`<exp_folder>/tb` (`train/<loss>`, `val/metric` and `train/epoch_time_s`
+each epoch, and with `tb_media`, 1 by default, spectrogram images and
+enhanced audio of a validation batch read once); `profile_steps = N`
+traces steps 3..3+N of epoch 0 with `torch.profiler` into
+`<exp_folder>/profile`; a SIGTERM lets the step in flight finish, skips
+validation, writes the resume checkpoint `ckpt` with its optimizer sidecar
+and returns `preempted: True` (`train_or_exit` then exits with 143).
+
 Not ported yet, each refused with NotImplementedError where a config asks
-for it: data-parallel and tensor-parallel meshes and multi-host runs, the
-device-resident corpus cache, `profile_steps` traces and TensorBoard
-media.  The SIGTERM preemption checkpoint is not ported either; the port
-writes no TensorBoard events.
+for it: data-parallel and tensor-parallel meshes and multi-host runs, and
+the device-resident corpus cache.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import signal
 import time
 from collections import deque
 
@@ -55,6 +68,7 @@ from avsi_torch.ops import ctc as ctc_ops
 from avsi_torch.ops import lstm_fused
 from avsi_torch.train import checkpoints
 from avsi_torch.train import state as state_lib
+from avsi_torch.train.tb import SummaryWriter
 
 
 def _log(logfile: str, msg: str) -> None:
@@ -63,15 +77,55 @@ def _log(logfile: str, msg: str) -> None:
         f.write(msg + "\n")
 
 
+@contextlib.contextmanager
+def _preemption_flag():
+    """Catch SIGTERM (what a scheduler sends before it preempts) as a flag
+    that the step loop polls, so that `train()` finishes the step in
+    flight, writes a full resume checkpoint and returns.  Installed in the
+    main thread only (`signal.signal` raises elsewhere); the previous
+    handler is restored on exit."""
+    flag = {"hit": False}
+
+    def on_term(signum, frame):
+        flag["hit"] = True
+
+    not_installed = object()  # signal.signal returns None for a handler set in C
+    try:
+        prev = signal.signal(signal.SIGTERM, on_term)
+    except ValueError:  # not the main thread
+        prev = not_installed
+    try:
+        yield flag
+    finally:
+        if prev is not not_installed:
+            signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
+
+
+def exit_if_preempted(summary: dict, code: int = 143) -> None:
+    """Exit the process if `summary` came from a SIGTERM-preempted
+    `train()`: its resume checkpoint is written, and a script that trains
+    several models must not start the next one.  143 = 128 + SIGTERM."""
+    if summary.get("preempted"):
+        print("# preempted: resume checkpoint written, exiting", flush=True)
+        raise SystemExit(code)
+
+
+def train_or_exit(*args, **kwargs) -> dict:
+    """`train()`, but exit the process after a SIGTERM preemption instead
+    of returning: the call for scripts that train several models."""
+    summary = train(*args, **kwargs)
+    exit_if_preempted(summary)
+    return summary
+
+
 def _refuse_unported(config: dict) -> None:
-    """Raise where the config asks for what this port does not do yet."""
+    """Raise where the config asks for a mesh or the device-resident corpus
+    cache, which this port does not do yet."""
     asks = {
         "tensor parallelism (num_model_shards > 1)": int(config.get("num_model_shards", 1)) > 1,
         "data-parallel meshes (num_data_shards > 1)": int(config.get("num_data_shards", 0)) > 1,
         "the device-resident corpus cache (device_cache_corpus)":
             bool(int(config.get("device_cache_corpus", 0))),
-        "profiler traces (profile_steps)": bool(int(config.get("profile_steps", 0))),
-        "TensorBoard media (tb_media)": bool(int(config.get("tb_media", 0))),
     }
     for what, asked in asks.items():
         if asked:
@@ -101,8 +155,9 @@ def _stats_on(stats: tuple, device) -> tuple:
 
 def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
     """Step `(state, host batch, gen) -> losses`: forward with train=True,
-    losses, backward, one optimizer update of `state` in place.  The
-    gradients stay on the params' `.grad` until the next step."""
+    losses, backward, one optimizer update of `state` in place, then the
+    model's auxiliary update (batch-norm running statistics) into the same
+    leaves.  The gradients stay on the params' `.grad` until the next step."""
     stats_t = _stats_on(stats, device)
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
@@ -113,6 +168,8 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
         ldict = model.losses(out, dev, config)
         ldict["loss"].backward()
         state_lib.apply_gradients(state, config)
+        if model.apply_aux_update is not None:
+            model.apply_aux_update(state.params, out)
         return {k: v.detach() for k, v in ldict.items()}
 
     return train_step
@@ -217,7 +274,8 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
     """Train one model per the config file on one device (default cuda);
     `is_asr` for a standalone ASR model (`registry.ASR_MODELS`).
 
-    Returns {"best_val", "best_epoch", "steps", "step_seconds"}:
+    Returns {"best_val", "best_epoch", "steps", "preempted",
+    "step_seconds"}:
     `step_seconds` holds each train step's host time from batch in hand to
     the end of its NaN check, a device time only when `nan_check_every`
     is 1 (the check waits for the step's loss)."""
@@ -285,63 +343,177 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
     select_hole = bool(model.spec and model.spec.loss_on_hole_only)
     nan_check_every = int(config.get("nan_check_every", 100))
     log_every = max(200, nan_check_every)
+    tb = SummaryWriter(os.path.join(exp_folder, "tb"))
+    media = _TBMedia(model, config, stats, device, dm, val_files) if (
+        not is_asr and val_files and int(config.get("tb_media", 1))) else None
+    profiler = _StepProfiler(int(config.get("profile_steps", 0)),
+                             os.path.join(exp_folder, "profile"), device, logfile)
     best_val, best_epoch, cneg_epochs = math.inf, -1, 0
     step = start_step
     step_seconds: list[float] = []
-    for epoch in range(int(config["max_n_epochs"])):
-        t_epoch = time.time()
-        loss_accum, n_acc = None, 0
-        for batch in dm.prefetch_batches(train_files, batch_size, shuffle=True,
-                                         drop_remainder=True):
-            t_step = time.perf_counter()
-            ldict = train_step(state, batch, gen)
-            step += 1
-            # losses accumulate on the device; the host reads them only at
-            # the NaN-check and print cadence
-            loss_accum = ldict if loss_accum is None else {
-                k: loss_accum[k] + v for k, v in ldict.items()}
-            n_acc += 1
-            do_nan = bool(nan_check_every) and step % nan_check_every == 0
-            if do_nan or step % log_every == 0:
-                loss = float(ldict["loss"])
-                if do_nan and not np.isfinite(loss):
-                    raise FloatingPointError(f"NaN/Inf loss at step {step} — aborting")
-                if step % log_every == 0:
-                    print(f"epoch {epoch} step {step} "
-                          + " ".join(f"{k}={float(v):.5f}" for k, v in ldict.items()), flush=True)
-            step_seconds.append(time.perf_counter() - t_step)
-            if step % 1000 == 0:
-                checkpoints.save_checkpoint(ckpt_dir, "ckpt", state.params, step=step,
-                                            train_state=state)
-        if n_acc == 0 and epoch == 0:
-            _log(logfile, f"# WARNING: 0 training steps in epoch 0 — batch_size "
-                          f"({batch_size}) likely exceeds the training corpus "
-                          "(drop_remainder drops the lone short batch)")
-        tr = {}
-        if loss_accum is not None:
-            tr = {k: float(v) / n_acc for k, v in loss_accum.items()}
-            if not np.isfinite(tr["loss"]):
-                raise FloatingPointError(f"NaN/Inf loss in epoch {epoch} — aborting")
+    with _preemption_flag() as preempt:
+        try:
+            for epoch in range(int(config["max_n_epochs"])):
+                t_epoch = time.time()
+                loss_accum, n_acc = None, 0
+                for batch in dm.prefetch_batches(train_files, batch_size, shuffle=True,
+                                                 drop_remainder=True):
+                    t_step = time.perf_counter()
+                    profiler.before(step - start_step)
+                    ldict = train_step(state, batch, gen)
+                    step += 1
+                    profiler.after(step - start_step)
+                    # losses accumulate on the device; the host reads them
+                    # only at the NaN-check and print cadence
+                    loss_accum = ldict if loss_accum is None else {
+                        k: loss_accum[k] + v for k, v in ldict.items()}
+                    n_acc += 1
+                    do_nan = bool(nan_check_every) and step % nan_check_every == 0
+                    if do_nan or step % log_every == 0:
+                        loss = float(ldict["loss"])
+                        if do_nan and not np.isfinite(loss):
+                            raise FloatingPointError(f"NaN/Inf loss at step {step} — aborting")
+                        if step % log_every == 0:
+                            print(f"epoch {epoch} step {step} " + " ".join(
+                                f"{k}={float(v):.5f}" for k, v in ldict.items()), flush=True)
+                    step_seconds.append(time.perf_counter() - t_step)
+                    if step % 1000 == 0:
+                        checkpoints.save_checkpoint(ckpt_dir, "ckpt", state.params, step=step,
+                                                    train_state=state)
+                    if preempt["hit"]:
+                        break
+                if preempt["hit"]:
+                    break  # no validation: the checkpoint is written below
+                if n_acc == 0 and epoch == 0:
+                    _log(logfile, f"# WARNING: 0 training steps in epoch 0 — batch_size "
+                                  f"({batch_size}) likely exceeds the training corpus "
+                                  "(drop_remainder drops the lone short batch)")
+                tr = {}
+                if loss_accum is not None:
+                    # in key order, as the reference's device_get of the dict gives them
+                    tr = {k: float(loss_accum[k]) / n_acc for k in sorted(loss_accum)}
+                    if not np.isfinite(tr["loss"]):
+                        raise FloatingPointError(f"NaN/Inf loss in epoch {epoch} — aborting")
 
-        val_metric, val_report = _validate(
-            _val_pairs(dm, val_files, batch_size), eval_step, state.params, select_hole, is_asr)
-        if not val_files:
-            # no validation split: every epoch "improves", so the best
-            # checkpoint tracks the latest params
-            val_metric = -float(epoch)
-        dt = time.time() - t_epoch
-        _log(logfile, f"epoch {epoch}\t" + "\t".join(f"train_{k}={v:.5f}" for k, v in tr.items())
-             + f"\t{val_report}\ttime={dt:.1f}s")
-        if val_metric < best_val:
-            best_val, best_epoch, cneg_epochs = val_metric, epoch, 0
-            name = "asrnet" if is_asr else "sinet"
-            checkpoints.save_checkpoint(ckpt_dir, name, state.params, step=step)
-            _log(logfile, f"# new best val metric {best_val:.5f} -> saved {name}")
-        else:
-            cneg_epochs += 1
-            if cneg_epochs >= int(config["n_earlystop_epochs"]):
-                _log(logfile, f"# early stop at epoch {epoch} (best epoch {best_epoch})")
-                break
+                val_metric, val_report = _validate(
+                    _val_pairs(dm, val_files, batch_size), eval_step, state.params, select_hole,
+                    is_asr)
+                if not val_files:
+                    # no validation split: every epoch "improves", so the best
+                    # checkpoint tracks the latest params
+                    val_metric = -float(epoch)
+                dt = time.time() - t_epoch
+                for k, v in tr.items():
+                    tb.scalar(f"train/{k}", v, epoch)
+                tb.scalar("val/metric", val_metric, epoch)
+                tb.scalar("train/epoch_time_s", dt, epoch)
+                if media is not None:
+                    media.write(tb, state.params, epoch)
+                tb.flush()
+                _log(logfile, f"epoch {epoch}\t" + "\t".join(
+                    f"train_{k}={v:.5f}" for k, v in tr.items()) + f"\t{val_report}\ttime={dt:.1f}s")
+                if val_metric < best_val:
+                    best_val, best_epoch, cneg_epochs = val_metric, epoch, 0
+                    name = "asrnet" if is_asr else "sinet"
+                    checkpoints.save_checkpoint(ckpt_dir, name, state.params, step=step)
+                    _log(logfile, f"# new best val metric {best_val:.5f} -> saved {name}")
+                else:
+                    cneg_epochs += 1
+                    if cneg_epochs >= int(config["n_earlystop_epochs"]):
+                        _log(logfile, f"# early stop at epoch {epoch} (best epoch {best_epoch})")
+                        break
+        except BaseException:
+            # an abnormal exit (NaN abort, device fault, KeyboardInterrupt)
+            # closes an open trace and the event file before it propagates
+            profiler.close()
+            tb.close()
+            raise
+    profiler.finish()
+    if preempt["hit"]:
+        # the step in flight completed: a full resume point (params,
+        # optimizer state, step), the layout of the periodic checkpoint
+        checkpoints.save_checkpoint(ckpt_dir, "ckpt", state.params, step=step, train_state=state)
+        _log(logfile, f"# SIGTERM: preemption checkpoint at step {step} -> "
+                      f"{os.path.join(ckpt_dir, 'ckpt')}; set model_ckp to resume")
     _log(logfile, f"# done: best_val={best_val:.5f} at epoch {best_epoch}")
+    tb.close()
     return {"best_val": best_val, "best_epoch": best_epoch, "steps": step,
-            "step_seconds": step_seconds}
+            "preempted": bool(preempt["hit"]), "step_seconds": step_seconds}
+
+
+class _StepProfiler:
+    """`profile_steps = n`: a `torch.profiler` trace of steps 3..3+n of
+    the run (counted from its first step) into `logdir` as a Chrome trace
+    (`trace.json`); a run that ends inside the window writes what it has
+    and logs a partial trace."""
+
+    FIRST = 3
+
+    def __init__(self, n_steps: int, logdir: str, device, logfile: str):
+        self.n_steps, self.logdir, self.device, self.logfile = n_steps, logdir, device, logfile
+        self.prof = None
+
+    def before(self, done: int) -> None:
+        if self.n_steps and done == self.FIRST and self.prof is None:
+            os.makedirs(self.logdir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after(self, done: int) -> None:
+        if self.prof is not None and done == self.FIRST + self.n_steps:
+            self._stop()
+            self.n_steps = 0
+            _log(self.logfile, f"# profiler trace written to {self.logdir}")
+
+    def _stop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the traced steps' device work ends
+        self.prof.stop()
+        self.prof.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
+        self.prof = None
+
+    def close(self) -> None:
+        """Stop a trace still open (no log line: the run is failing)."""
+        if self.prof is not None:
+            self._stop()
+
+    def finish(self) -> None:
+        """End of the run: a trace still open is closed and logged partial."""
+        if self.prof is not None:
+            self._stop()
+            _log(self.logfile, "# WARNING: run ended before profile_steps steps; "
+                               f"partial trace written to {self.logdir}")
+
+
+class _TBMedia:
+    """TensorBoard media of inpainting models (the reference's
+    models.py:200-219): spectrogram images of target, prediction and mask,
+    and the enhanced audio, of the first `n` validation utterances.  The
+    batch is read and uploaded once per `train()`."""
+
+    def __init__(self, model, config: dict, stats: tuple, device, dm, val_files, n: int = 2):
+        self.model, self.config, self.n = model, config, n
+        self.stats = _stats_on(stats, device)
+        batch = next(iter(dm.batches(val_files, n, pad_final=True)))
+        self.batch = device_batch(batch, device, int(config["audio_feat_dim"]))
+
+    @torch.inference_mode()
+    def write(self, tb: SummaryWriter, params, epoch: int) -> None:
+        out = self.model.forward(params, self.batch, self.config, self.stats, train=False)
+        target, pred = out["target_spec_norm"].cpu().numpy(), out["prediction"].cpu().numpy()
+        masks = self.batch["masks"].cpu().numpy()
+        wav = None
+        if self.model.enhanced_sources:
+            wav = self.model.enhanced_sources(out, self.batch, self.config,
+                                              self.stats).cpu().numpy()
+        for i in range(min(self.n, target.shape[0])):
+            # frequency up, time right
+            tb.image(f"Target_spectrogram/{i}", target[i].T[::-1], epoch)
+            tb.image(f"Enhanced_spectrogram/{i}", pred[i].T[::-1], epoch)
+            tb.image(f"Mask/{i}", masks[i].T[::-1], epoch)
+            if wav is not None:
+                peak = np.abs(wav[i]).max() or 1.0
+                tb.audio(f"Enhanced_audio/{i}", wav[i] / peak * 32000, epoch)

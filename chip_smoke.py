@@ -72,7 +72,8 @@ Phases, in order; any failure exits non-zero:
      codec (96 training + 32 validation utterances of 48,000 samples),
      `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
      (6 train steps, 2 validation steps); launch counts of K3 and K4 (3 per
-     train step) and K1/K2 (1 and 2 per validation step); finite losses,
+     train step) and K1/K2 (1 and 2 per validation step and per epoch's
+     TensorBoard media forward); finite losses,
      `sinet.npz` read back by `inpaint.load_model_bundle`; steady-state
      step time; one train step on the GPU held against the same step on
      the CPU (loss and every gradient), at B=8 and at the training batch
@@ -105,6 +106,21 @@ Phases, in order; any failure exits non-zero:
      (`model_ckp_vnet`): the v-net bit for bit unchanged, K3 6 and K4 3 per
      step, one step on the GPU against the CPU, and `infer()` with its
      `sinet` (K1 2 and K2 4 per batch) against the CPU;
+ 11b. the U-Net paths, each with no K1-K6 launch: a U-Net corpus written
+     with the port's codec (96 training, 32 validation and 20 test
+     utterances of 16,384 samples, 128 x 128 masks, a 10-40 frame gap
+     each) and 129-bin log-magnitude stats computed here with the port's
+     STFT; for `unet` and `unet-pconv`, `train()` with
+     `scripts/config/unet.config`'s settings (batch 32, adam 1e-3) for 2
+     epochs (6 steps): s/step, the TensorBoard tags read back (no
+     `tb_media` key: scalars and media); one train step on the GPU against
+     the CPU (loss, gradients beside the CPU's float64 ones, running BN
+     statistics); `infer()` over the test set (batches of 8, Griffin-Lim
+     50, utterances/s) against the CPU, its step held by phase
+     reconstruction; a service: 8 /enhance requests (requests/s), each
+     equal to its in-process `enhance`, `/stream/open` answered 400, and
+     its masked-phase step against a CPU service; then the generic
+     U-Net's `Trainer` (8 iterations of 8 x 124 x 124) against the CPU;
  12. profiles, after every host-side figure above was timed (host time
      reads slower after profiler sessions in the same process): one
      serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
@@ -115,7 +131,8 @@ Phases, in order; any failure exits non-zero:
      stream that completes a window; one plain `infer()` run and each
      lever's device work on a batch of 8; one train step; one LC train
      step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
-     its dWh apart; one ASR train step; one siasr batch;
+     its dWh apart; one ASR train step; one siasr batch; one U-Net train
+     step of 32 and one U-Net `infer()` batch of 8, each model;
  13. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
@@ -145,17 +162,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from avsi_torch import config as config_lib  # noqa: E402
 from avsi_torch.device import resolve_device  # noqa: E402
+from avsi_torch.data import stats as stats_lib  # noqa: E402
 from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
 from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
 from avsi_torch.infer import asr as asr_infer  # noqa: E402
 from avsi_torch.infer import inpaint, masking, siasr, streaming  # noqa: E402
 from avsi_torch.models import asr as asr_model  # noqa: E402
-from avsi_torch.models import blstm, registry  # noqa: E402
+from avsi_torch.models import blstm, registry, unet_generic  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.ops import ctc as ctc_ops  # noqa: E402
-from avsi_torch.ops import passthrough, postfilter  # noqa: E402
-from avsi_torch.serve import serve  # noqa: E402
+from avsi_torch.ops import passthrough, postfilter, stft  # noqa: E402
+from avsi_torch.serve import InpaintingService, serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
 from avsi_torch.train import loop as train_loop  # noqa: E402
 from avsi_torch.train import state as train_state  # noqa: E402
@@ -187,6 +205,11 @@ ASR_BEAM = 100  # the judge's beam width (the reference's infer/asr.py default)
 # two-step av-net's 393; (D, T)
 RECOGNITION_K1 = ((80, T_FRAMES), (136, T_FRAMES), (216, T_FRAMES), (240, 84), (393, T_FRAMES),
                   (80, 84), (136, 84), (216, 84), (240, T_FRAMES), (393, 84))
+UNET_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "config",
+                           "unet.config")
+UNET_LEN, UNET_T, UNET_BINS, UNET_BATCH = 16384, 128, 128, 32  # unet.config's geometry
+N_UNET_TRAIN, N_UNET_VAL, UNET_EPOCHS = 96, 32, 2  # 6 train steps and 2 validation steps
+UNET_MODELS, UNET_REQUESTS = ("unet", "unet-pconv"), 8
 KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main path)
     "bilstm_fused_proj": ("K1", "avsi/ops/pallas_lstm.py:180",
                           "avsi_torch/csrc/lstm_fused.cu", 8),
@@ -1387,11 +1410,13 @@ def train_path(root: str) -> dict:
     counts = dict(_build.launch_counts)
     steps = EPOCHS * (N_TRAIN // TRAIN_BATCH)
     val_steps = EPOCHS * -(-N_VAL // TRAIN_BATCH)
+    # + the TensorBoard media forward of each epoch (tb_media defaults to 1)
     want = {"bilstm_recurrence_train": 3 * steps, "bilstm_recurrence_bwd": 3 * steps,
-            "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": 2 * val_steps}
+            "bilstm_fused_proj": val_steps + EPOCHS, "bilstm_fused_proj2": 2 * (val_steps + EPOCHS)}
     if summary["steps"] != steps or {k: v for k, v in counts.items() if v} != want:
         fail(f"training ran {summary['steps']} steps with launches {counts}; want {steps} "
-             f"steps and {want} (K3, K4: 3 per train step; K1 1, K2 2 per validation step)")
+             f"steps and {want} (K3, K4: 3 per train step; K1 1, K2 2 per validation step "
+             "and per epoch's TensorBoard media)")
     exp = os.path.join(root, "exp")
     log = open(os.path.join(exp, "training_log.txt")).read()
     losses = [float(v) for line in log.splitlines() if line.startswith("epoch ")
@@ -1856,12 +1881,14 @@ def twosteps_path(root: str) -> None:
     summary = train_loop.train(tfile)
     wall = time.perf_counter() - t0
     counts = launched()
+    # the one validation step and the epoch's TensorBoard media forward
     want = {"bilstm_recurrence_train": 2 * n_layers * steps,
             "bilstm_recurrence_bwd": n_layers * steps,
-            "bilstm_fused_proj": 2, "bilstm_fused_proj2": 2 * (n_layers - 1)}
+            "bilstm_fused_proj": 2 * 2, "bilstm_fused_proj2": 2 * 2 * (n_layers - 1)}
     if summary["steps"] != steps or counts != want:
         fail(f"two-step training ran {summary['steps']} steps with launches {counts}; want "
-             f"{steps} and {want} (K3 6 and K4 3 per train step; K1 2, K2 4 per validation step)")
+             f"{steps} and {want} (K3 6 and K4 3 per train step; K1 2, K2 4 per validation "
+             "step and per epoch's TensorBoard media)")
     log = training_log(cfg["exp_folder"])
     netmodel = os.path.join(cfg["exp_folder"], "netmodel")
     with np.load(vnet + ".npz") as v, np.load(os.path.join(netmodel, "sinet.npz")) as z:
@@ -1900,31 +1927,52 @@ def twosteps_path(root: str) -> None:
     griffin_lim_divergence(netmodel, test_dir)
 
 
-def griffin_lim_divergence(netmodel: str, test_dir: str) -> None:
-    """The two-step bundle's infer step on one batch of INFER_BATCH, GPU
-    against CPU, by phase reconstruction.  Its magnitudes are all the
-    model's (a plain v/av-blstm restores no known bins), and fast
+def griffin_lim_divergence(netmodel: str, test_dir: str, label: str = "two-step",
+                           tols: tuple = (1e-3, 1e-2), median_tol: float | None = None) -> None:
+    """A bundle's infer step on one batch of INFER_BATCH, GPU against CPU,
+    by phase reconstruction (the two-step model, the U-Nets).  Its
+    magnitudes are all the model's (a plain v/av-blstm or a U-Net restores
+    no known bins), and fast
     Griffin-Lim (momentum 0.99) amplifies the two devices' f32 differences
     over its iterations; the masked-phase resynthesis ("none") has no
-    iteration.  Held: "none" and 5 iterations within relative L2 1e-3 and
-    1e-2 per utterance; 20 and 50 iterations are printed."""
+    iteration, but in a hole it resynthesizes each bin with the sign of its
+    real part's zero (the reference's arctan2 of +-0), so a hole bin whose
+    real part is near zero and of opposite signs on the two devices flips
+    (their count is printed); and Griffin-Lim takes the phase of its own
+    estimate, undefined where a hole bin's estimate nears zero.  Held:
+    "none" and 5 iterations within relative L2 `tols` per utterance, and
+    with `median_tol` their median over the batch; 20 and 50 iterations
+    are printed."""
     batch = inpaint.compact_batch(next(iter(DataManager(seed=0).batches(
         tfrecord.list_tfrecord_files(test_dir), INFER_BATCH))))
     bundles = {dev: inpaint.load_model_bundle(netmodel, device=dev) for dev in ("cuda", "cpu")}
-    worst = {}
+    config, _, model = bundles["cpu"][:3]
+    re = {dev: stft.stft_real_imag(torch.from_numpy(batch["target_sources"]).float().to(dev),
+                                   model.frame_length, model.frame_step, model.fft_length)[0]
+          [:, :batch["mask_frames"].shape[1], :int(config["audio_feat_dim"])].cpu()
+          for dev in bundles}
+    hole = torch.from_numpy(batch["mask_frames"] == 0)[..., None].expand_as(re["cpu"])
+    flips = int((torch.signbit(re["cuda"]) != torch.signbit(re["cpu"]))[hole].sum())
+    errs = {}
     for recon, iters in (("none", 0), ("gl", 5), ("gl", 20), ("gl", INFER_GL)):
         wavs = {}
         for dev, (config, stats, model, params) in bundles.items():
             step = inpaint.make_infer_step(model, config, stats, False, recon, iters, device=dev)
             wavs[dev] = step(params, batch)[0].cpu().numpy()
-        worst[(recon, iters)] = max(rel_l2(g, c) for g, c in zip(wavs["cuda"], wavs["cpu"]))
-    print("two-step infer step, GPU vs CPU wav relative L2 (max over a batch of "
+        errs[(recon, iters)] = [rel_l2(g, c) for g, c in zip(wavs["cuda"], wavs["cpu"])]
+    print(f"{label} infer step, GPU vs CPU wav relative L2 (max and median over a batch of "
           f"{INFER_BATCH}) by phase reconstruction: "
-          + ", ".join(f"{r if r == 'none' else f'Griffin-Lim {i}'} {e:.2e}"
-                      for (r, i), e in worst.items())
-          + " (tol 1e-3 for none, 1e-2 for Griffin-Lim 5)", flush=True)
-    if worst[("none", 0)] > 1e-3 or worst[("gl", 5)] > 1e-2:
-        fail("the two-step infer step on the GPU disagrees with the CPU")
+          + ", ".join(f"{r if r == 'none' else f'Griffin-Lim {i}'} {max(e):.2e} / "
+                      f"{np.median(e):.2e}" for (r, i), e in errs.items())
+          + f" (tol {tols[0]:g} for none, {tols[1]:g} for Griffin-Lim 5"
+          + ("" if median_tol is None else f", median {median_tol:g}") + "); per utterance, none "
+          + " ".join(f"{e:.1e}" for e in errs[("none", 0)]) + ", Griffin-Lim 5 "
+          + " ".join(f"{e:.1e}" for e in errs[("gl", 5)]) + "; hole bins whose STFT real part "
+          f"differs in sign between the devices: {flips} of {int(hole.sum())}", flush=True)
+    held = [errs[("none", 0)], errs[("gl", 5)]]
+    if (any(max(e) > tol for e, tol in zip(held, tols))
+            or (median_tol is not None and any(np.median(e) > median_tol for e in held))):
+        fail(f"the {label} infer step on the GPU disagrees with the CPU")
 
 
 def profile_siasr_batch(d: str, root: str, asr_dir: str) -> None:
@@ -1941,6 +1989,350 @@ def profile_siasr_batch(d: str, root: str, asr_dir: str) -> None:
     step(si[3], asr_params, cb)
     profile(f"one siasr batch of {INFER_BATCH} (SI + Griffin-Lim {INFER_GL} + ASR)",
             lambda: step(si[3], asr_params, cb), top=12)
+
+
+# ------------------------------------------------------------ U-Net slice
+
+def unet_waves(rng, n: int) -> np.ndarray:
+    """`n` int16-valued speech-scale waves of UNET_LEN samples: three
+    drifting harmonics of a random pitch, and noise."""
+    t = np.arange(UNET_LEN) / 16000.0
+    f0 = rng.uniform(120, 300, (n, 1))
+    tone = sum(np.sin(2 * np.pi * k * f0 * t * (1 + 0.05 * np.sin(3 * t))) / k for k in (1, 2, 3))
+    return np.round(4000 * tone + 300 * rng.randn(n, UNET_LEN)).astype(np.float32)
+
+
+def unet_gap(i: int) -> slice:
+    """Utterance i's gap: 10-40 frames at varying places."""
+    start = 8 + (13 * i) % 80
+    return slice(start, start + 10 + (7 * i) % 31)
+
+
+def unet_corpus(root: str) -> str:
+    """The U-Net corpus under `root/unet`, written with the port's codec:
+    96 training, 32 validation and N_TEST test utterances of 16,384
+    samples (128 frames at the 128-sample hop) with 128 x 128 masks, one
+    gap of 10-40 frames each, 136-d zero video; and the 129-bin
+    log-magnitude stats of the training utterances from the port's
+    256/128/256 STFT on the card (cut to 128 bins when loaded).  Returns
+    the directory."""
+    base = os.path.join(root, "unet")
+    rng = np.random.RandomState(21)
+    video = np.zeros((UNET_T, 136), np.float32)
+    labels = np.pad(np.array([1.0, 2.0], np.float32), (0, 48))
+    for split, n in (("training-set", N_UNET_TRAIN), ("validation-set", N_UNET_VAL),
+                     ("test-set", N_TEST)):
+        os.makedirs(os.path.join(base, split))
+        for i, wave in enumerate(unet_waves(rng, n)):
+            mask = np.ones((UNET_T, UNET_BINS), np.float32)
+            mask[unet_gap(i)] = 0.0
+            name = f"utt{i:03d}" if split == "test-set" else f"{split}/{i:03d}"
+            with tfrecord.TFRecordWriter(os.path.join(base, split, f"{i:03d}.tfrecord")) as w:
+                w.write(tfrecord.serialize_sample_fixed(UNET_T, 2, wave, video, mask, labels, name))
+    files = tfrecord.list_tfrecord_files(os.path.join(base, "training-set"))
+    with torch.no_grad():
+        logmag = torch.cat([stft.log_magnitude_spectrogram(
+            torch.from_numpy(b["target_sources"]).cuda(), 256, 128, 256)[0].reshape(-1, 129)
+            for b in DataManager(UNET_LEN, seed=0).batches(files, UNET_BATCH)])
+    np.save(os.path.join(base, "mean.npy"), logmag.mean(0).cpu().numpy())
+    np.save(os.path.join(base, "std.npy"), logmag.std(0).cpu().numpy())
+    return base
+
+
+def unet_train_config(base: str, model: str) -> dict:
+    """scripts/config/unet.config (batch 32, adam 1e-3, 16,384 samples,
+    128 bins) for `model` over the U-Net corpus, 2 epochs (6 train steps,
+    2 validation steps), the NaN check every step."""
+    cfg = config_lib.load_configfile(UNET_CONFIG)
+    cfg.update(model=model, root_folder=base, exp_folder=os.path.join(base, f"exp_{model}"),
+               audio_feat_mean=os.path.join(base, "mean.npy"),
+               audio_feat_std=os.path.join(base, "std.npy"), device="cuda",
+               max_n_epochs=UNET_EPOCHS, n_earlystop_epochs=UNET_EPOCHS, nan_check_every=1)
+    return cfg
+
+
+def event_tags(logdir: str) -> list[tuple[int, str]]:
+    """(step, tag) of every summary value in the one event file under
+    `logdir`, read back with the port's TFRecord codec, CRCs checked."""
+    (name,) = [f for f in os.listdir(logdir) if f.startswith("events.out.tfevents.")]
+    out = []
+    for record in tfrecord.read_records(os.path.join(logdir, name), verify_crc=True):
+        event = {f: v for f, _, v in tfrecord._iter_fields(record)}
+        for _, _, value in tfrecord._iter_fields(event.get(5, b"")):
+            fields = {f: v for f, _, v in tfrecord._iter_fields(value)}
+            out.append((event.get(2, 0), fields[1].decode()))
+    return out
+
+
+def unet_train_path(base: str, model: str) -> str:
+    """U-Net training: `train()` on the card with unet.config's settings;
+    no K1-K6 launch; the TensorBoard tags read back (with no `tb_media`
+    key: scalars, and the media of two validation utterances, each epoch);
+    the bundle read back at the U-Net geometry.  Returns the bundle."""
+    config_file = os.path.join(base, f"{model}.config")
+    cfg = unet_train_config(base, model)
+    config_lib.save_configfile(cfg, config_file)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_loop.train(config_file)
+    wall = time.perf_counter() - t0
+    counts = launched()
+    steps = UNET_EPOCHS * (N_UNET_TRAIN // UNET_BATCH)
+    if summary["steps"] != steps or counts:
+        fail(f"{model} training ran {summary['steps']} steps with launches {counts}; want "
+             f"{steps} and no K1-K6 launch")
+    exp = cfg["exp_folder"]
+    log = training_log(exp)
+    tags = event_tags(os.path.join(exp, "tb"))
+    want = {(e, t) for e in range(UNET_EPOCHS) for t in (
+        "train/loss", "train/loss_hole", "train/loss_valid", "val/metric", "train/epoch_time_s",
+        *(f"{m}/{i}" for i in (0, 1) for m in ("Target_spectrogram", "Enhanced_spectrogram",
+                                                "Mask", "Enhanced_audio")))}
+    if len(tags) != len(want) or set(tags) != want:
+        fail(f"{model} training wrote TensorBoard events {tags}; want {sorted(want)}")
+    netmodel = os.path.join(exp, "netmodel")
+    config, stats, bundle_model, params = inpaint.load_model_bundle(netmodel, device="cuda")
+    moved = float((params["dec"][0]["bn"]["mean"]).abs().max())
+    if stats[0].shape != (UNET_BINS,) or bundle_model.frame_step != 128 or not moved:
+        fail(f"the {model} bundle reads back wrongly: stats {stats[0].shape}, hop "
+             f"{bundle_model.frame_step}, running mean moved {moved}")
+    steady = summary["step_seconds"][1:]
+    print(f"{model} training path: {summary['steps']} train steps of {UNET_BATCH} + "
+          f"{UNET_EPOCHS * -(-N_UNET_VAL // UNET_BATCH)} validation steps in {wall:.1f} s; "
+          f"launches {counts or 'none'}; best val {summary['best_val']:.5f}; {len(tags)} "
+          f"TensorBoard events read back ({len({t for _, t in tags})} tags)", flush=True)
+    print(f"{model} training path: log\n" + log.strip(), flush=True)
+    print(f"{model} training path: steady-state {np.mean(steady):.4f} s/step, median "
+          f"{np.median(steady):.4f} ({', '.join(f'{t:.4f}' for t in steady)}), "
+          f"{UNET_BATCH / np.mean(steady):.1f} training utterances/s (steps after the first); "
+          f"card {card_line()}", flush=True)
+    return netmodel
+
+
+def unet_batch(base: str, split: str, n: int) -> dict:
+    files = tfrecord.list_tfrecord_files(os.path.join(base, split))
+    return next(iter(DataManager(UNET_LEN, seed=0).batches(files, n)))
+
+
+def unet_grads_f64(model: str, params: dict, batch: dict, stats: tuple, config: dict) -> dict:
+    """The training-mode loss's gradient of every leaf on the CPU in
+    float64 (the STFT front end in float32, as the step runs it)."""
+    tmodel = registry.get_model(model)
+    p = checkpoints.params_from_flat(checkpoints.params_to_flat(params))
+    leaves = checkpoints.named_leaves(p)
+    for leaf in leaves.values():
+        leaf.data = leaf.data.double()
+        leaf.requires_grad_(True)
+    b = {"target_sources": torch.from_numpy(batch["target_sources"]).float(),
+         "masks": torch.from_numpy(batch["masks"]).double(),
+         "sequence_lengths": torch.from_numpy(batch["sequence_lengths"])}
+    out = tmodel.forward(p, b, config, tuple(torch.from_numpy(s).double() for s in stats),
+                         train=True)
+    tmodel.losses(out, b, config)["loss"].backward()
+    return {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+
+def unet_step_reference(base: str, model: str) -> None:
+    """One U-Net train step (B=32, unet.config's adam) from the same params
+    and batch on the card (cuDNN) and on the CPU, with the CPU's gradient
+    in float64 beside them.  At this size the f32 gradients of both
+    devices carry ~1e-3 of roundoff (relative L2 to the float64 one, each
+    printed), so: loss rel err 1e-4; each gradient leaf GPU vs CPU
+    relative L2 <= 1e-2 and their median <= 3e-3; a leaf whose float64
+    gradient is zero or roundoff (the running statistics; a conv bias under
+    a training-mode batch norm: below 1e-6 of the largest entry) held to
+    that bound on the card; the running BN statistics the step writes atol
+    1e-5.  No K1-K6 launch."""
+    config = config_lib.check_trainconfiguration(unet_train_config(base, model))
+    batch = unet_batch(base, "training-set", UNET_BATCH)
+    stats = stats_lib.load_stats(config["audio_feat_mean"], config["audio_feat_std"],
+                                 feat_dim=UNET_BINS)
+    tmodel = registry.get_model(model)
+    params = tmodel.init(torch.Generator().manual_seed(1), config)
+    res = {}
+    _build.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        state = train_state.create_train_state(
+            checkpoints.params_from_flat(checkpoints.params_to_flat(params), dev), config)
+        step = train_loop.make_train_step(tmodel, config, stats, dev)
+        loss = float(step(state, batch, None)["loss"])
+        leaves = checkpoints.named_leaves(state.params)
+        res[dev] = (loss, {k: p.grad.cpu().double() for k, p in leaves.items()
+                           if p.grad is not None},
+                    {k: p.detach().cpu() for k, p in leaves.items() if k.endswith(("mean", "var"))})
+    counts = launched()
+    exact = unet_grads_f64(model, params, batch, stats, config)
+    (lg, gg, sg), (lc, gc, sc) = res["cuda"], res["cpu"]
+    peak = max(g.abs().max().item() for g in exact.values())
+    live = [k for k, g in exact.items() if g.abs().max().item() > 1e-6 * peak]
+    small = max((gg[k].abs().max().item() / peak for k in exact if k not in live), default=0)
+
+    def rel(a, b):
+        return {k: ((a[k] - b[k]).norm() / b[k].norm()).item() for k in live}
+
+    pair, to_exact = rel(gg, gc), {dev: rel(res[dev][1], exact) for dev in res}
+    stat_err = max((sg[k] - w).abs().max().item() for k, w in sc.items())
+    worst = max(pair, key=pair.get)
+    print(f"reference: {model} GPU train step vs CPU (B={UNET_BATCH}, 128 x 128): loss {lg:.6f} vs "
+          f"{lc:.6f} (rel err {abs(lg / lc - 1):.2e}, tol 1e-4); gradients relative L2 max "
+          f"{pair[worst]:.2e} ({worst}; tol 1e-2), median {np.median(list(pair.values())):.2e} "
+          f"(tol 3e-3) over {len(live)} leaves; against the CPU's float64 gradient: GPU max "
+          f"{max(to_exact['cuda'].values()):.2e} median {np.median(list(to_exact['cuda'].values())):.2e}"
+          f", CPU f32 max {max(to_exact['cpu'].values()):.2e} median "
+          f"{np.median(list(to_exact['cpu'].values())):.2e}; {len(exact) - len(live)} zero or "
+          f"roundoff leaves at most {small:.1e} of the largest entry on the card (tol 1e-6); "
+          f"running BN statistics max abs err {stat_err:.2e} (tol 1e-5); launches "
+          f"{counts or 'none'}", flush=True)
+    if (abs(lg / lc - 1) > 1e-4 or pair[worst] > 1e-2 or np.median(list(pair.values())) > 3e-3
+            or small > 1e-6 or stat_err > 1e-5 or counts):
+        fail(f"the {model} train step on the GPU disagrees with the CPU")
+
+
+def unet_infer_path(base: str, netmodel: str, model: str) -> None:
+    """U-Net `infer()` over N_TEST utterances in batches of 8 with
+    Griffin-Lim 50, on the card and on the CPU: no K1-K6 launch, wavs of
+    seq_len x 128 samples, losses rel err 1e-4, utterances/s; the wavs'
+    GPU-vs-CPU relative L2 printed, and held by phase reconstruction on one
+    batch (`griffin_lim_divergence`): each utterance within relative L2
+    1e-2 with the masked phase and 5e-2 after 5 Griffin-Lim iterations,
+    their medians within 1e-3.  A U-Net's predictions agree to ~4e-6 of
+    their peak on the two devices, but it restores no known bins, so the
+    resynthesis meets the discontinuities `griffin_lim_divergence` names;
+    on an H100 one utterance of 8 reached 1.6e-3 (masked phase) and 1.6e-2
+    (5 iterations) in some runs of unet-pconv, the others ~1e-4."""
+    test_dir, out_dir = os.path.join(base, "test-set"), os.path.join(base, f"out_{model}")
+    _build.reset_launch_counts()
+    res = inpaint.infer(netmodel, test_dir, out_dir, "gpu", batch_size=INFER_BATCH,
+                        gl_iters=INFER_GL)
+    counts = launched()
+    ref = inpaint.infer(netmodel, test_dir, out_dir, "cpu", batch_size=INFER_BATCH,
+                        gl_iters=INFER_GL, device="cpu")
+    gpu, cpu = read_wavs(out_dir, "gpu"), read_wavs(out_dir, "cpu")
+    loss_err = max(abs(res[k] / ref[k] - 1) for k in ("loss", "loss_hole"))
+    rel = [rel_l2(g, c) for g, c in zip(gpu, cpu)]
+    print(f"{model} infer(): {res['num_samples']} wavs of {len(gpu[0])} samples in "
+          f"{-(-N_TEST // INFER_BATCH)} batches of {INFER_BATCH}, Griffin-Lim {INFER_GL}; launches "
+          f"{counts or 'none'}; {res['utt_per_sec']:.2f} utterances/s; vs the CPU: losses max rel "
+          f"err {loss_err:.2e} (tol 1e-4), wav relative L2 median {np.median(rel):.2e}, max "
+          f"{max(rel):.2e}; card {card_line()}", flush=True)
+    if (res["num_samples"] != N_TEST or counts or loss_err > 1e-4
+            or any(len(w) != UNET_T * 128 for w in gpu + cpu)):
+        fail(f"{model} infer() misbehaves (launches {counts})")
+    griffin_lim_divergence(netmodel, test_dir, model, tols=(1e-2, 5e-2), median_tol=1e-3)
+
+
+def unet_serve_path(netmodel: str, model: str) -> None:
+    """The U-Net served on the card: UNET_REQUESTS /enhance requests of
+    16,384 samples and 128 frames (requests/s), each equal to the
+    service's in-process `enhance`; `/stream/open` answers 400 naming the
+    model and /enhance serves after it; the masked-phase step of a card
+    service against a CPU service on the same requests (int16 relative L2
+    1e-3).  No K1-K6 launch."""
+    rng = np.random.RandomState(31)
+    waves = unet_waves(rng, UNET_REQUESTS).astype(np.int16)
+    frames = np.ones((UNET_REQUESTS, UNET_T), np.uint8)
+    for i in range(UNET_REQUESTS):
+        frames[i, unet_gap(i)] = 0
+    _build.reset_launch_counts()
+    server, url = start_server(netmodel, micro_batch=INFER_BATCH)
+    try:
+        replies, lat = [], []
+        for wave, mask in zip(waves, frames):
+            body = struct.pack("<ii", UNET_LEN, UNET_T) + wave.tobytes() + mask.tobytes()
+            t0 = time.perf_counter()
+            replies.append(np.frombuffer(http_post(url + "/enhance", body), "<i2"))
+            lat.append(time.perf_counter() - t0)
+        same = all(np.array_equal(r, server.service.enhance(w.astype(np.float32), m))
+                   for r, w, m in zip(replies, waves, frames))
+        try:
+            http_post(url + "/stream/open?chunk=8&look=16")
+            refused = b"200"
+        except urllib.error.HTTPError as e:
+            refused = f"{e.code} ".encode() + e.read()
+        after = http_post(url + "/enhance", struct.pack("<ii", UNET_LEN, UNET_T)
+                          + waves[0].tobytes() + frames[0].tobytes())
+    finally:
+        stop_server(server)
+    counts = launched()
+    svc = {dev: InpaintingService(netmodel, micro_batch=INFER_BATCH, phase_recon="none",
+                                  device=dev) for dev in ("cuda", "cpu")}
+    out = {dev: s.enhance_batch(waves.astype(np.float32), frames) for dev, s in svc.items()}
+    rel = max(rel_l2(g, c) for g, c in zip(out["cuda"], out["cpu"]))
+    print(f"{model} serving: {UNET_REQUESTS} /enhance requests of {UNET_LEN} samples / {UNET_T} "
+          f"frames (micro-batch {INFER_BATCH}, Griffin-Lim 30), {UNET_REQUESTS / sum(lat):.2f} "
+          f"requests/s (request wall {spread_ms(lat)}); equal to the in-process enhance: {same}; "
+          f"/stream/open answered {refused[:90]!r}; /enhance after it: {len(after) // 2} samples; "
+          f"launches {counts or 'none'}; masked-phase step GPU vs CPU int16 relative L2 max "
+          f"{rel:.2e} (tol 1e-3); card {card_line()}", flush=True)
+    if (not same or not refused.startswith(b"400") or model.encode() not in refused
+            or len(after) != 2 * UNET_LEN or counts or rel > 1e-3):
+        fail(f"{model} serving misbehaves")
+
+
+def unet_profiles(base: str, bundles: dict) -> None:
+    """Where one U-Net train step (B=32) and one `infer()` batch of 8
+    (Griffin-Lim 50) go on the card, each after a warm-up call."""
+    for model, netmodel in bundles.items():
+        config = config_lib.check_trainconfiguration(unet_train_config(base, model))
+        stats = stats_lib.load_stats(config["audio_feat_mean"], config["audio_feat_std"],
+                                     feat_dim=UNET_BINS)
+        tmodel = registry.get_model(model)
+        state = train_state.create_train_state(
+            tmodel.init(torch.Generator().manual_seed(0), config, device="cuda"), config)
+        step = train_loop.make_train_step(tmodel, config, stats, "cuda")
+        batch = unet_batch(base, "training-set", UNET_BATCH)
+        step(state, batch, None)
+        profile(f"one {model} train step of {UNET_BATCH}", lambda: step(state, batch, None), top=10)
+        b_config, b_stats, b_model, params = inpaint.load_model_bundle(netmodel, device="cuda")
+        infer_step = inpaint.make_infer_step(b_model, b_config, b_stats, False, "gl", INFER_GL,
+                                             device="cuda")
+        cb = inpaint.compact_batch(unet_batch(base, "test-set", INFER_BATCH))
+        infer_step(params, cb)[0].cpu()
+        profile(f"one {model} infer() batch of {INFER_BATCH} (Griffin-Lim {INFER_GL})",
+                lambda: infer_step(params, cb)[0].cpu(), top=8)
+
+
+def generic_provider(seed: int):
+    """The generic U-Net's toy task: a bright square on noise, 124 x 124."""
+    rng = np.random.default_rng(seed)
+
+    def provider(n):
+        x = 0.1 * rng.standard_normal((n, 124, 124, 1)).astype(np.float32)
+        y = np.zeros((n, 124, 124), np.int64)
+        for i in range(n):
+            r, c = rng.integers(20, 80, 2)
+            x[i, r:r + 24, c:c + 24, 0] += 1.0
+            y[i, r:r + 24, c:c + 24] = 1
+        return x, np.eye(2, dtype=np.float32)[y]
+
+    return provider
+
+
+def generic_trainer_check(root: str) -> None:
+    """The generic U-Net's `Trainer` (3 levels, 16 root features, momentum
+    with its staircase decay, keep probability 1) for 2 epochs of 4
+    iterations of 8 images on the card and on the CPU from the same
+    params: final params atol 1e-4; seconds per iteration on the card."""
+    params = unet_generic.init(torch.Generator().manual_seed(0), layers=3, features_root=16)
+    out, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = unet_generic.Trainer(
+            checkpoints.params_from_flat(checkpoints.params_to_flat(params), dev), batch_size=8,
+            verification_batch_size=4, optimizer="momentum", device=dev,
+            opt_kwargs={"learning_rate": 0.2, "decay_rate": 0.5, "momentum": 0.2})
+        t0 = time.perf_counter()
+        tr.train(generic_provider(0), os.path.join(root, f"generic_{dev}"), training_iters=4,
+                 epochs=2, dropout=1.0, display_step=4,
+                 prediction_path=os.path.join(root, f"generic_pred_{dev}"))
+        wall[dev] = time.perf_counter() - t0
+        out[dev] = checkpoints.params_to_flat(tr.params)
+    err = max(np.abs(out["cuda"][k] - w).max() for k, w in out["cpu"].items())
+    print(f"generic U-Net Trainer: 8 iterations of 8 x 124 x 124 in {wall['cuda']:.2f} s on the "
+          f"card ({wall['cuda'] / 8:.4f} s/iteration with its per-epoch prediction and checkpoint), "
+          f"{wall['cpu']:.2f} s on the CPU; final params GPU vs CPU max abs err {err:.2e} "
+          f"(tol 1e-4); card {card_line()}", flush=True)
+    if err > 1e-4:
+        fail("the generic U-Net Trainer on the GPU disagrees with the CPU")
 
 
 def phase(name: str, fn, *args):
@@ -2010,6 +2402,14 @@ def main() -> int:
         phase("two-step", twosteps_path, root)
         phase("two-step training reference", train_reference_check,
               twosteps_config(root, "av-blstm-twosteps", "exp_2s_ref"), 8, "two-step 3 x 250")
+        unet_base = phase("U-Net corpus", unet_corpus, root)
+        unet_bundles = {}
+        for model in UNET_MODELS:
+            unet_bundles[model] = phase(f"{model} training", unet_train_path, unet_base, model)
+            phase(f"{model} training reference", unet_step_reference, unet_base, model)
+            phase(f"{model} infer()", unet_infer_path, unet_base, unet_bundles[model], model)
+            phase(f"{model} serving", unet_serve_path, unet_bundles[model], model)
+        phase("generic U-Net Trainer", generic_trainer_check, root)
         phase("serving profiles", serving_profiles, d)
         phase("fleet profiles", fleet_profiles, d)
         phase("offline profile", profile, f"one plain infer() over {N_TEST} utterances "
@@ -2023,6 +2423,7 @@ def main() -> int:
         phase("ASR train step profile", profile_train_step, root, asr_train_config(root),
               "ASR train step", True, True)
         phase("siasr profile", profile_siasr_batch, d, root, asr_dir)
+        phase("U-Net profiles", unet_profiles, unet_base, unet_bundles)
     phase("K4 profiles", k4_profiles)
 
     kernels = []

@@ -531,3 +531,58 @@ def test_log_mel_runs_at_full_f32_on_the_card():
     want = mel.log_mel_spectrogram(power)
     got = mel.log_mel_spectrogram(power.cuda()).cpu()
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("model", ["unet", "unet-pconv"])
+def test_unet_forward_and_gradients_cuda_match_cpu(model, train):
+    """The U-Nets at `unet.config`'s geometry (16,384 samples, 128 x 128,
+    B=4) on the card (cuDNN convolutions, TF32 off by `resolve_device`)
+    against the CPU: prediction max error <= 1e-4 x peak, the running BN
+    statistics atol 1e-5, the loss rtol 1e-5, and every leaf's gradient
+    relative L2 <= 1e-3; a leaf whose CPU gradient is roundoff (a conv
+    bias under a training-mode batch norm, below 1e-6 of the largest
+    entry) is held to that bound.  No K1-K6 launch."""
+    _need_cuda()
+    from avsi_torch.device import resolve_device
+    from avsi_torch.models import registry
+    from avsi_torch.train import checkpoints
+
+    resolve_device("cuda")
+    tmodel = registry.get_model(model)
+    config = {"audio_feat_dim": 128, "audio_len": 16384}
+    params = tmodel.init(torch.Generator().manual_seed(0), config)
+    gen = torch.Generator().manual_seed(1)
+    masks = torch.ones(4, 128, 128)
+    masks[:, 40:60] = 0.0
+    batch = {"target_sources": torch.round(3000 * torch.randn(4, 16384, generator=gen)),
+             "masks": masks, "sequence_lengths": torch.tensor([128, 120, 128, 100])}
+    stats = (torch.rand(128, generator=gen) * 5, 0.5 + torch.rand(128, generator=gen) * 1.5)
+    res = {}
+    before = dict(_build.launch_counts)
+    for dev in ("cuda", "cpu"):
+        p = checkpoints.params_from_flat(checkpoints.params_to_flat(params), dev)
+        leaves = checkpoints.named_leaves(p)
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        out = tmodel.forward(p, {k: v.to(dev) for k, v in batch.items()}, config,
+                             tuple(s.to(dev) for s in stats), train=train)
+        loss = tmodel.losses(out, {k: v.to(dev) for k, v in batch.items()}, config)["loss"]
+        loss.backward()
+        res[dev] = (out["prediction"].detach().cpu(), float(loss), out["bn_stats"],
+                    {k: v.grad.cpu() for k, v in leaves.items() if v.grad is not None})
+    assert _build.launch_counts == before
+    (pg, lg, sg, gg), (pc, lc, sc, gc) = res["cuda"], res["cpu"]
+    assert (pg - pc).abs().max().item() <= 1e-4 * pc.abs().max().item()
+    assert abs(lg / lc - 1) <= 1e-5
+    for part in ("enc", "dec"):
+        for a, b in zip(sg[part], sc[part]):
+            for key in b:
+                assert torch.allclose(a[key].cpu(), b[key], atol=1e-5)
+    assert sorted(gg) == sorted(gc)
+    peak = max(g.abs().max().item() for g in gc.values())
+    for key, want in gc.items():
+        if want.abs().max().item() <= 1e-6 * peak:
+            assert gg[key].abs().max().item() <= 1e-6 * peak, key
+        else:
+            assert (gg[key] - want).norm().item() <= 1e-3 * want.norm().item(), key

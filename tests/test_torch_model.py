@@ -178,12 +178,19 @@ def test_infer_step_matches_reference(bridged):
 
 
 def test_registry_scope():
-    """`unet` stays refused; `av-blstm-twosteps` (refused before it was
-    ported) now resolves, with its trainable mask, and so do the ASR models."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tregistry.get_model("unet")
-    with pytest.raises(ValueError):
+    """Every inpainting model of the reference resolves: `unet` and
+    `unet-pconv` (refused before they were ported) with the 256/128/256
+    STFT geometry and an `apply_aux_update`, `av-blstm-twosteps` with its
+    trainable mask; so do the ASR models.  An unknown name lists them all."""
+    for name in ("unet", "unet-pconv"):
+        model = tregistry.get_model(name)
+        assert model.name == name and model.apply_aux_update is not None
+        assert (model.frame_length, model.frame_step, model.fft_length) == (256, 128, 256)
+        assert model.enhanced_sources is not None and model.spec is None
+    assert tregistry.ALL_INPAINTING_MODELS == jregistry.ALL_INPAINTING_MODELS
+    with pytest.raises(ValueError, match="unet-pconv"):
         tregistry.get_model("no-such-model")
+    assert tregistry.get_model("av-blstm-ssnn").apply_aux_update is None
     assert tregistry.get_model("av-blstm-ssnn-ctc").needs_labels
     twosteps = tregistry.get_model("av-blstm-twosteps")
     assert twosteps.name == "av-blstm-twosteps" and twosteps.trainable_mask is not None

@@ -181,12 +181,15 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|avsi)(\.|\s|$)", re.M)
 # modules of the recognition and two-step slice, which the walk must reach
 _SLICE_MODULES = ("avsi_torch.data.phonemes", "avsi_torch.ops.mel", "avsi_torch.ops.ctc",
                   "avsi_torch.ops.masks", "avsi_torch.models.asr", "avsi_torch.models.twosteps",
-                  "avsi_torch.infer.asr", "avsi_torch.infer.siasr", "avsi_torch.infer.masking")
+                  "avsi_torch.infer.asr", "avsi_torch.infer.siasr", "avsi_torch.infer.masking",
+                  "avsi_torch.models.unet", "avsi_torch.models.unet_pconv",
+                  "avsi_torch.models.unet_generic", "avsi_torch.train.tb")
 
 
 def test_port_imports_no_jax_and_no_avsi():
     """Every port module imports cleanly with no jax and no avsi loaded (the
-    walk reaches every module of the recognition and two-step slice), and
+    walk reaches every module of the recognition and two-step slice and of
+    the U-Net slice, the TensorBoard writer included), and
     no port source (nor chip_smoke.py) names them in an import, nor the
     reference's native loader or its library (the port builds its own
     CTC decoder)."""

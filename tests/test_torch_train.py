@@ -39,6 +39,8 @@ from avsi_torch.train import checkpoints as tckpt
 from avsi_torch.train import loop as tloop
 from avsi_torch.train import state as tstate
 
+from test_torch_tb import read_events, read_scalars
+
 NET_DIM = [16, 16]
 AUDIO_LEN = 4800
 T_FRAMES = 25
@@ -358,13 +360,14 @@ def test_data_manager_matches_reference(tmp_path):
 # ---------------------------------------------------------------- (i) train()
 
 def _train_config(tmp_path, root, exp, **kw):
-    cfg = _config(
+    settings = dict(
         root_folder=root, exp_folder=str(tmp_path / exp),
         audio_feat_mean=os.path.join(root, "mean.npy"),
         audio_feat_std=os.path.join(root, "std.npy"),
         num_asr_labels=33, max_n_epochs=1, n_earlystop_epochs=5, tb_media=0,
-        nan_check_every=1, **kw,
+        nan_check_every=1,
     )
+    cfg = _config(**dict(settings, **kw))
     path = str(tmp_path / f"{exp}.config")
     jconfig_lib.save_configfile(cfg, path)
     return path
@@ -411,23 +414,26 @@ def test_train_resumes_jax_checkpoint_like_jax(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    """Options not ported yet raise; LC training (`lc_chunk`, refused before
-    it was ported) now trains (tests/test_torch_lc_training.py holds it
-    against the reference)."""
+    """Meshes and the device-resident corpus cache, not ported yet, raise;
+    LC training (`lc_chunk`, held against the reference in
+    tests/test_torch_lc_training.py), `profile_steps` and `tb_media`, each
+    refused before it was ported, now train."""
     root = str(tmp_path / "corpus")
-    _write_corpus(root, n_train=2, n_val=0)
+    _write_corpus(root, n_train=2, n_val=1)
     for key, value in (("num_model_shards", 2), ("device_cache_corpus", 1),
                        ("profile_steps", 3), ("lc_chunk", 25), ("tb_media", 1)):
-        cfg = tconfig_lib.load_configfile(_train_config(tmp_path, root, "exp"))
+        cfg = tconfig_lib.load_configfile(_train_config(tmp_path, root, f"exp_{key}"))
         cfg[key] = value
         path = str(tmp_path / "refused.config")
         tconfig_lib.save_configfile(cfg, path)
-        if key == "lc_chunk":
+        if key in ("lc_chunk", "profile_steps", "tb_media"):
             summary = tloop.train(path, device="cpu")
             assert summary["steps"] == 1 and np.isfinite(summary["best_val"])
             continue
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tloop.train(path, device="cpu")
+    tags = {t.split("/")[0] for _, t, _ in read_events(str(tmp_path / "exp_tb_media" / "tb"))}
+    assert {"Target_spectrogram", "Enhanced_spectrogram", "Mask", "Enhanced_audio"} <= tags
 
 
 def test_train_and_bundle_pass_the_config_widths(tmp_path, monkeypatch):
@@ -455,3 +461,123 @@ def test_train_and_bundle_pass_the_config_widths(tmp_path, monkeypatch):
     config = tinpaint.load_model_bundle(netmodel, lstm_impl="scan", device="cpu")[0]
     assert seen[0] == ("scan", "cpu", [16, 418], torch.float32)
     assert config["net_dim"] == [16, 418] and config["lstm_impl"] == "scan"
+
+
+# ---------------------------------------------------------------- (j) trainer services
+
+def test_train_writes_tensorboard_like_jax(tmp_path):
+    """`train()` of both packages with no `tb_media` key in the config (the
+    reference's default is 1): the same events, tags and steps, in order
+    (per epoch the train losses, `val/metric`, `train/epoch_time_s`, then
+    spectrogram images and enhanced audio of two validation utterances);
+    from the same weights, the loss and metric scalars rtol 1e-5."""
+    root = str(tmp_path / "corpus")
+    _write_corpus(root, n_train=4, n_val=3)
+    start = str(tmp_path / "start")
+    jckpt.save_checkpoint(start, "init", _jax_params(_config(), seed=2))  # the same weights
+    paths = {}
+    for name in ("jax", "port"):
+        cfg = jconfig_lib.load_configfile(_train_config(
+            tmp_path, root, name, max_n_epochs=2, model_ckp=os.path.join(start, "init")))
+        del cfg["tb_media"]
+        paths[name] = str(tmp_path / f"{name}.config")
+        jconfig_lib.save_configfile(cfg, paths[name])
+    jloop.train(paths["jax"])
+    tloop.train(paths["port"], device="cpu")
+    ref = read_events(str(tmp_path / "jax" / "tb"))
+    got = read_events(str(tmp_path / "port" / "tb"))
+    assert got == ref
+    assert {(s, t) for s, t, k in got if k in ("image", "audio")} == {
+        (e, f"{tag}/{i}") for e in (0, 1) for i in (0, 1)
+        for tag in ("Target_spectrogram", "Enhanced_spectrogram", "Mask", "Enhanced_audio")}
+    want, mine = read_scalars(str(tmp_path / "jax" / "tb")), read_scalars(str(tmp_path / "port" / "tb"))
+    assert sorted(mine) == sorted(want)
+    for key, value in want.items():
+        if key[1] != "train/epoch_time_s":
+            np.testing.assert_allclose(mine[key], value, rtol=1e-5, err_msg=str(key))
+
+
+def test_preemption_checkpoint_and_resume(tmp_path):
+    """A SIGTERM mid-`train()` lets the step in flight finish, skips
+    validation, writes `ckpt` with its optimizer sidecar, logs the
+    preemption and returns `preempted: True`, with the handler that was
+    installed before restored; a second `train()` from that checkpoint
+    resumes past the saved step.  The signal is sent once epoch 0 is
+    logged, by a thread with a 60 s deadline, and the run has at most 30
+    epochs, so a signal that never lands ends the test instead of hanging
+    it."""
+    import signal
+    import threading
+    import time
+
+    root = str(tmp_path / "corpus")
+    _write_corpus(root, n_train=4, n_val=1)
+    cfg_path = _train_config(tmp_path, root, "exp", max_n_epochs=30, n_earlystop_epochs=30)
+    log = str(tmp_path / "exp" / "training_log.txt")
+
+    def kill_after_epoch0():
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            if os.path.isfile(log) and "epoch 0\t" in open(log).read():
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.02)
+
+    def before(signum, frame):  # the process's handler, restored after train()
+        raise AssertionError("the SIGTERM reached the process's own handler")
+
+    prev = signal.signal(signal.SIGTERM, before)
+    try:
+        t = threading.Thread(target=kill_after_epoch0, daemon=True)
+        t.start()
+        summary = tloop.train(cfg_path, device="cpu")
+        t.join()
+        assert signal.getsignal(signal.SIGTERM) is before
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert summary["preempted"] is True and 2 <= summary["steps"] < 60
+    text = open(log).read()
+    assert "SIGTERM: preemption checkpoint" in text
+    assert text.count("\nepoch ") == summary["steps"] // 2 - (summary["steps"] % 2 == 0)
+    ckpt = str(tmp_path / "exp" / "netmodel" / "ckpt")
+    assert os.path.isfile(ckpt + ".npz") and os.path.isfile(ckpt + ".opt.npz")
+    with np.load(ckpt + ".npz") as z:
+        assert int(z["__extra__/step"]) == summary["steps"]
+
+    cfg2 = _train_config(tmp_path, root, "exp_resume", max_n_epochs=1, model_ckp=ckpt)
+    s2 = tloop.train(cfg2, device="cpu")
+    assert s2["preempted"] is False and s2["steps"] == summary["steps"] + 2
+    assert np.isfinite(s2["best_val"])
+
+
+def test_profile_steps_trace(tmp_path):
+    """`profile_steps = 1` over 6 steps traces step 3 into
+    `<exp>/profile/trace.json` and logs it; `profile_steps = 999` on a
+    2-step run closes the trace it never finished and logs a partial
+    trace."""
+    root = str(tmp_path / "corpus")
+    _write_corpus(root, n_train=4, n_val=1)
+    done = tloop.train(_train_config(tmp_path, root, "full", max_n_epochs=3, profile_steps=1),
+                       device="cpu")
+    assert done["steps"] == 6
+    assert os.path.isfile(str(tmp_path / "full" / "profile" / "trace.json"))
+    assert "# profiler trace written to" in open(str(tmp_path / "full" / "training_log.txt")).read()
+    short = tloop.train(_train_config(tmp_path, root, "short", max_n_epochs=2,
+                                      profile_steps=999), device="cpu")
+    assert np.isfinite(short["best_val"])
+    assert "partial trace" in open(str(tmp_path / "short" / "training_log.txt")).read()
+    assert os.path.isfile(str(tmp_path / "short" / "profile" / "trace.json"))
+
+
+def test_exit_if_preempted_and_train_or_exit(tmp_path, monkeypatch):
+    """`exit_if_preempted` exits with 143 only for a preempted summary, and
+    `train_or_exit` returns a summary that was not preempted."""
+    tloop.exit_if_preempted({"preempted": False})
+    with pytest.raises(SystemExit) as ei:
+        tloop.exit_if_preempted({"preempted": True})
+    assert ei.value.code == 143
+    monkeypatch.setattr(tloop, "train", lambda *a, **k: {"preempted": False, "steps": 1})
+    assert tloop.train_or_exit("cfg")["steps"] == 1
+    monkeypatch.setattr(tloop, "train", lambda *a, **k: {"preempted": True})
+    with pytest.raises(SystemExit):
+        tloop.train_or_exit("cfg")

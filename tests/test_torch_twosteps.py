@@ -84,8 +84,9 @@ def _rel_l2(got, want) -> float:
 def test_forward_matches_reference():
     """Both nets' predictions and the losses: max error <= 1e-5 x peak and
     rtol 1e-5.  The params tree is `vnet/...` and `avnet/...` in both
-    packages; `av-blstm-twosteps` resolves (only the U-Net family stays
-    refused)."""
+    packages; `av-blstm-twosteps` resolves, as every inpainting model of
+    the reference does (the U-Net family, refused until it was ported,
+    too)."""
     config = _config()
     params_j = _jax_params(config)
     jb, host = _batch(config, 0)
@@ -95,7 +96,8 @@ def test_forward_matches_reference():
     model = tregistry.get_model(MODEL)
     params = tckpt.params_from_flat(jckpt._flatten(params_j))
     assert sorted(tckpt.params_to_flat(params)) == sorted(jckpt._flatten(params_j))
-    assert tregistry.NOT_PORTED == ["unet", "unet-pconv"]
+    assert all(tregistry.get_model(n) for n in tregistry.ALL_INPAINTING_MODELS)
+    assert not hasattr(tregistry, "NOT_PORTED")
     batch = {k: torch.from_numpy(v) for k, v in host.items()}
     with torch.inference_mode():
         out = model.forward(params, batch, config, tuple(torch.from_numpy(s) for s in stats))
