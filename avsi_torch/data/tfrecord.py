@@ -1,10 +1,11 @@
-"""TFRecord + tf.train.SequenceExample codec for the fixed-mode corpus.
+"""TFRecord + tf.train.SequenceExample codec of the corpus.
 
-Copy of the fixed-mode part of `avsi/data/tfrecord.py` (the framing with
-its CRC, the protobuf wire format, `serialize_sample_fixed` /
-`parse_sample_fixed` at `:374-414`, the record readers and
+Copy of `avsi/data/tfrecord.py` (the framing with its CRC, the protobuf
+wire format, the fixed-mode `serialize_sample_fixed` / `parse_sample_fixed`
+at `:374-414`, the var-mode `serialize_sample_var` / `parse_sample_var` at
+`:421-481`, the record readers, `read_raw_records` and
 `list_tfrecord_files`), so the port reads and writes the reference's
-corpus without importing it.  The var mode waits.
+corpus, byte for byte, without importing it.
 
 Schema (fixed mode):
   context:  sequence_length int64, labels_length int64,
@@ -12,6 +13,10 @@ Schema (fixed mode):
             [embedding float[512]]            (emb variant)
   lists:    labels float[50][1], video_features float[250][136],
             mask float[250][257]
+
+Var mode keeps only the lengths (and the embedding) in the context; the
+wave is one float per Feature, labels one float per entry, sample_path one
+int64 character code per character, video and mask one row per frame.
 
 TFRecord framing: {uint64 len}{u32 masked_crc(len)}{payload}{u32 masked_crc}.
 The CRC is CRC-32C; records of a few hundred kB are checksummed with numpy
@@ -156,6 +161,16 @@ def _map_entry(key: str, feature_payload: bytes) -> bytes:
     return _len_delimited(1, key.encode()) + _len_delimited(2, feature_payload)
 
 
+def encode_features(feature_map: dict[str, bytes]) -> bytes:
+    """Features{map<string,Feature> feature=1}; values are encoded Features."""
+    return b"".join(_len_delimited(1, _map_entry(k, v)) for k, v in feature_map.items())
+
+
+def encode_feature_list(features: list[bytes]) -> bytes:
+    """FeatureList{repeated Feature feature=1}"""
+    return b"".join(_len_delimited(1, f) for f in features)
+
+
 def _feature_list_float_rows(arr) -> bytes:
     """Encoded FeatureList of one packed-float Feature per row (the
     headers are the same for every row, so they are built once)."""
@@ -171,11 +186,14 @@ def _feature_list_float_rows(arr) -> bytes:
     return b"".join(b"".join((row_hdr, raw[i * rb:(i + 1) * rb])) for i in range(n))
 
 
-def _encode_sequence_example(context: dict[str, bytes], feature_lists: dict[str, bytes]) -> bytes:
-    """SequenceExample{context=1 Features, feature_lists=2 FeatureLists}"""
-    ctx = b"".join(_len_delimited(1, _map_entry(k, v)) for k, v in context.items())
-    fls = b"".join(_len_delimited(1, _map_entry(k, v)) for k, v in feature_lists.items())
-    return _len_delimited(1, ctx) + _len_delimited(2, fls)
+def encode_sequence_example(context: dict[str, bytes],
+                            feature_lists: dict[str, list[bytes] | bytes]) -> bytes:
+    """SequenceExample{context=1 Features, feature_lists=2 FeatureLists}; a
+    feature list is a list of encoded Features or an encoded FeatureList."""
+    fls = b"".join(
+        _len_delimited(1, _map_entry(k, v if isinstance(v, bytes) else encode_feature_list(v)))
+        for k, v in feature_lists.items())
+    return _len_delimited(1, encode_features(context)) + _len_delimited(2, fls)
 
 
 def _iter_fields(buf: bytes) -> Iterator[tuple[int, int, bytes | int]]:
@@ -226,7 +244,7 @@ def _decode_feature(buf: bytes):
     return np.zeros(0, np.float32)
 
 
-def _decode_sequence_example(buf: bytes) -> tuple[dict, dict]:
+def decode_sequence_example(buf: bytes) -> tuple[dict, dict]:
     """-> (context: {key: feature}, feature_lists: {key: [feature, ...]})."""
     context: dict = {}
     feature_lists: dict = {}
@@ -236,7 +254,7 @@ def _decode_sequence_example(buf: bytes) -> tuple[dict, dict]:
         for f, fw, entry in _iter_fields(payload):
             if f != 1 or fw != 2:
                 continue
-            key, val = None, None
+            key, val = None, (None if field == 1 else [])
             for ef, ew, ev in _iter_fields(entry):
                 if ew != 2:
                     continue
@@ -287,8 +305,10 @@ def count_records(path: str) -> int:
             n += 1
 
 
-def read_records(path: str, verify_crc: bool = False) -> Iterator[bytes]:
-    """Yield the record payloads of one file."""
+def read_raw_records(path: str) -> Iterator[bytes]:
+    """Yield the framed records of one file verbatim (length, CRCs and
+    payload): grouping files (`generator.group_tfrecords`) concatenates
+    them, with no decode and no new checksum."""
     with open(path, "rb") as f:
         data = f.read()
     pos, n = 0, len(data)
@@ -298,14 +318,20 @@ def read_records(path: str, verify_crc: bool = False) -> Iterator[bytes]:
         (length,) = struct.unpack_from("<Q", data, pos)
         if pos + 16 + length > n:
             raise ValueError(f"truncated TFRecord payload in {path}")
-        payload = data[pos + 12:pos + 12 + length]
+        yield data[pos:pos + 16 + length]
+        pos += 16 + length
+
+
+def read_records(path: str, verify_crc: bool = False) -> Iterator[bytes]:
+    """Yield the record payloads of one file."""
+    for frame in read_raw_records(path):
+        payload = frame[12:-4]
         if verify_crc:
-            if struct.unpack_from("<I", data, pos + 8)[0] != _masked_crc(data[pos:pos + 8]):
+            if struct.unpack_from("<I", frame, 8)[0] != _masked_crc(frame[:8]):
                 raise ValueError(f"corrupt TFRecord length crc in {path}")
-            if struct.unpack_from("<I", data, pos + 12 + length)[0] != _masked_crc(payload):
+            if struct.unpack_from("<I", frame, 12 + len(payload))[0] != _masked_crc(payload):
                 raise ValueError(f"corrupt TFRecord data crc in {path}")
         yield payload
-        pos += 16 + length
 
 
 def list_tfrecord_files(data_dir: str) -> list[str]:
@@ -337,17 +363,66 @@ def serialize_sample_fixed(
         "video_features": _feature_list_float_rows(video_features),
         "labels": _feature_list_float_rows(np.asarray(labels, np.float32)),
     }
-    return _encode_sequence_example(context, feature_lists)
+    return encode_sequence_example(context, feature_lists)
 
 
 def parse_sample_fixed(record: bytes, with_embedding: bool = False) -> dict:
     """Decode one fixed-mode sample into numpy arrays."""
-    context, lists = _decode_sequence_example(record)
+    context, lists = decode_sequence_example(record)
     out = {
         "sequence_length": np.int32(context["sequence_length"][0]),
         "labels_length": np.int32(context["labels_length"][0]),
         "target_audio_wav": np.asarray(context["target_audio_wav"], np.float32),
         "sample_path": context["sample_path"][0].decode(),
+        "labels": np.asarray([f[0] for f in lists["labels"]], np.float32),
+        "video_features": np.stack(lists["video_features"]).astype(np.float32),
+        "mask": np.stack(lists["mask"]).astype(np.float32),
+    }
+    if with_embedding:
+        out["embedding"] = np.asarray(context["embedding"], np.float32)
+    return out
+
+
+# ---------------------------------------------------------------- var-mode samples
+
+def serialize_sample_var(
+    seq_len: int,
+    lab_len: int,
+    target_audio_wav: np.ndarray,
+    video_features: np.ndarray,
+    mask: np.ndarray,
+    labels: np.ndarray,
+    sample_path: str,
+    embedding: np.ndarray | None = None,
+) -> bytes:
+    """One var-mode sample: everything sized per utterance is a feature list,
+    so that a reader can pad a batch to its longest sample."""
+    context = {
+        "sequence_length": feature_int64s([seq_len]),
+        "labels_length": feature_int64s([lab_len]),
+    }
+    if embedding is not None:
+        context["embedding"] = feature_floats(embedding)
+    feature_lists = {
+        "target_audio_wav": _feature_list_float_rows(np.asarray(target_audio_wav, np.float32)),
+        "video_features": _feature_list_float_rows(video_features),
+        "mask": _feature_list_float_rows(mask),
+        "labels": _feature_list_float_rows(np.asarray(labels, np.float32)),
+        "sample_path": [feature_int64s([ord(ch)]) for ch in sample_path],
+    }
+    return encode_sequence_example(context, feature_lists)
+
+
+def parse_sample_var(record: bytes, with_embedding: bool = False) -> dict:
+    """Decode one var-mode sample into the keys of `parse_sample_fixed`."""
+    context, lists = decode_sequence_example(record)
+    wav = lists.get("target_audio_wav")
+    out = {
+        "sequence_length": np.int32(context["sequence_length"][0]),
+        "labels_length": np.int32(context["labels_length"][0]),
+        "target_audio_wav": (np.concatenate(wav).astype(np.float32) if wav
+                             else np.zeros(0, np.float32)),
+        "sample_path": "".join(chr(int(f[0])) for f in lists.get("sample_path") or []),
         "labels": np.asarray([f[0] for f in lists["labels"]], np.float32),
         "video_features": np.stack(lists["video_features"]).astype(np.float32),
         "mask": np.stack(lists["mask"]).astype(np.float32),

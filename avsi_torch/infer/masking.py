@@ -7,7 +7,9 @@ or masked phase, the phase-free resynthesis
 |normalized log-magnitude| in the hole) and the int16 clip; no kernel of
 the port runs.  `mask_app` writes `<audio_path>/<sample>/masked.wav` for
 every utterance, one batch in flight.  It is the first sanity check of the
-DSP chain.  Not in this slice: the var-mode reader (`tfrecord_mode="var"`).
+DSP chain.  `tfrecord_mode="var"` reads a var-mode corpus, each batch padded
+to its longest utterance (frames rounded up to 25), and resynthesizes each
+batch at its padded length.
 """
 
 from __future__ import annotations
@@ -28,11 +30,12 @@ from avsi_torch.ops import stft as stft_ops
 from avsi_torch.utils import wav as wavio
 
 
-def make_mask_step(num_audio_samples: int, stats, audio_feat_dim: int = 257,
+def make_mask_step(num_audio_samples: int | None, stats, audio_feat_dim: int = 257,
                    frame_length: int = 384, frame_step: int = 192, fft_length: int = 512,
                    device=None):
     """Step `(compact batch, oracle_phase) -> (wav int16 (B, num_audio_samples),
-    hole loss (B,))`."""
+    hole loss (B,))`; num_audio_samples None (var mode): the batch's frames
+    times frame_step."""
     device = resolve_device(device)
     mean, std = (torch.as_tensor(s, dtype=torch.float32).to(device) for s in stats)
 
@@ -53,8 +56,8 @@ def make_mask_step(num_audio_samples: int, stats, audio_feat_dim: int = 257,
         if pad > 0:
             masked_mag, re, im = (F.pad(a, (0, pad)) for a in (masked_mag, re, im))
         wav = stft_ops.waveform_from_mag_complex(
-            masked_mag, re, im, num_samples=num_audio_samples, frame_length=frame_length,
-            frame_step=frame_step, fft_length=fft_length)
+            masked_mag, re, im, num_samples=num_audio_samples or t * frame_step,
+            frame_length=frame_length, frame_step=frame_step, fft_length=fft_length)
         spec_norm = (torch.log(mag + 1e-6) - mean) / std
         hole_ps = torch.sum(torch.abs(spec_norm) * (1 - masks), dim=(1, 2)) / torch.clamp(
             torch.sum(1 - masks, dim=(1, 2)), min=1.0)
@@ -82,9 +85,6 @@ def mask_app(
     """Write masked.wav for every sample of the TFRecord files under
     `data_path`; the stats normalize the hole loss (identity where no files
     are given).  Returns {"num_samples", "loss_hole"}."""
-    if tfrecord_mode != "fixed":
-        raise NotImplementedError(f"mask_app(tfrecord_mode={tfrecord_mode!r}): the var-mode "
-                                  "reader is not ported yet")
     batch_size = batch_size or 1
     device = resolve_device(device)
     if feat_mean_file and feat_std_file:
@@ -92,12 +92,13 @@ def mask_app(
     else:
         stats = (np.zeros(audio_feat_dim, np.float32), np.ones(audio_feat_dim, np.float32))
     dm = DataManager(num_audio_samples=num_audio_samples, audio_feat_size=audio_feat_dim,
-                     video_feat_size=video_feat_dim)
+                     video_feat_size=video_feat_dim, mode=tfrecord_mode,
+                     samples_per_frame=frame_step)
     files = list_tfrecord_files(data_path)
     if not files:
         raise ValueError(f"no tfrecords under {data_path}")
-    step = make_mask_step(num_audio_samples, stats, audio_feat_dim, frame_length, frame_step,
-                          fft_length, device=device)
+    step = make_mask_step(num_audio_samples if tfrecord_mode == "fixed" else None, stats,
+                          audio_feat_dim, frame_length, frame_step, fft_length, device=device)
 
     total, holes = 0, []
     for batch, (wav, hole_ps) in common.pipelined(

@@ -10,6 +10,10 @@ header rebuilds and an unchanged one is reused (a header left out of
 `HEADERS` would leave a stale library).  Nothing is built at import
 time: the first kernel launch builds.
 
+`build_cxx` compiles the repo's host C++ sources (`native/*.cc`: the CTC
+beam search, the TFRecord loader) with g++ into the same directory, named
+the same way.
+
 `launch` calls a kernel's C launcher on the current stream and counts the
 launch in `launch_counts`, so a run can show that it went through the
 kernels.
@@ -112,6 +116,29 @@ def build() -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    return out
+
+
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+
+def build_cxx(source: Path, stem: str) -> Path:
+    """Compile a host C++ source of the repo (`native/*.cc`) with g++ into
+    `BUILD_DIR/<stem>_<hash of source and flags>.so`, unless that library
+    exists; returns its path."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr[-2000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 
 

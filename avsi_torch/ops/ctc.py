@@ -30,11 +30,9 @@ gives the same sequences, equal scores at the beam's cut included.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import heapq
 import math
 import os
-import subprocess
 import threading
 
 import numpy as np
@@ -158,28 +156,8 @@ def greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor) -> torch.Te
 # ------------------------------------------------------------ beam search
 
 NATIVE_SOURCE = _build._PKG.parent / "native" / "avsi_ctc.cc"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _native_lock = threading.Lock()
 _native: dict = {}  # "lib" (CDLL or None) and "error" once the first load was tried
-
-
-def _build_native():
-    """Compile `native/avsi_ctc.cc` unless a library of the same source and
-    flags exists; returns its path."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(NATIVE_SOURCE.read_bytes())
-    out = _build.BUILD_DIR / f"libavsi_ctc_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr[-2000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out
 
 
 def _native_lib():
@@ -188,7 +166,7 @@ def _native_lib():
     with _native_lock:
         if "lib" not in _native:
             try:
-                lib = ctypes.CDLL(str(_build_native()))
+                lib = ctypes.CDLL(str(_build.build_cxx(NATIVE_SOURCE, "libavsi_ctc")))
                 lib.avsi_ctc_beam_search_batch.restype = ctypes.c_int
                 lib.avsi_ctc_beam_search_batch.argtypes = [
                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,

@@ -20,10 +20,23 @@ the losses, the backward and the optimizer update; validation runs the
 fused forward-only stack (K1 + K2).  A config with `lc_chunk` trains the
 latency-controlled model that the streams serve: training and validation
 run the LC stack (`models/core.lc_blstm_stack`, an eager scan under
-autograd, as the reference scans it whatever `lstm_impl` says).  The step takes the whole host batch
-to the device as it is: the reference's compaction of masks to int8 frames
-and of waves to int16 is a TPU transfer trick, and the masks the model
-sees are the same either way.
+autograd, as the reference scans it whatever `lstm_impl` says).  Train and
+validation batches reach the device as the reference's `place` sends them:
+compacted on the host (`inpaint.compact_batch`: time-gap masks as int8
+frames, int16-valued waves as int16, video as f16), uploaded, and expanded
+inside the step (`expand_batch`).  The compaction is lossless for the masks
+and the waves, but it rounds the video to f16, so the model trains on the
+reference's inputs only because it takes the same route.  The TensorBoard
+media batch is uploaded uncompacted, as in the reference.
+
+`device_cache_corpus = 1` (with more than one epoch), or a `corpus_cache`
+dict shared across `train()` calls, keeps the corpus on the device: epoch 0
+streams the batches, compacted and uploaded, and keeps them with their host
+meta; later epochs (and later calls on a filled shared cache) draw them in
+the order of `np.random.default_rng(seed + 101).permutation`, as the
+reference does, with no reader and no host-to-device copy of a batch.
+Nothing on the step writes into its input batch, so the cached tensors
+stay as they were stored.
 
 A model with batch norm (`unet`, `unet-pconv`) writes its running
 statistics into its params after each optimizer update
@@ -38,14 +51,14 @@ traces steps 3..3+N of epoch 0 with `torch.profiler` into
 validation, writes the resume checkpoint `ckpt` with its optimizer sidecar
 and returns `preempted: True` (`train_or_exit` then exits with 143).
 
-Not ported yet, each refused with NotImplementedError where a config asks
-for it: data-parallel and tensor-parallel meshes and multi-host runs, and
-the device-resident corpus cache.
+Not ported yet, refused with NotImplementedError where a config asks for
+them: data-parallel and tensor-parallel meshes and multi-host runs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import signal
@@ -59,8 +72,7 @@ from avsi_torch import config as config_lib
 from avsi_torch.data.reader import DataManager
 from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
-from avsi_torch.infer import common
-from avsi_torch.infer.inpaint import DEVICE_BATCH_KEYS, expand_batch
+from avsi_torch.infer import common, inpaint
 from avsi_torch.models import asr as asr_model
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
@@ -119,28 +131,53 @@ def train_or_exit(*args, **kwargs) -> dict:
 
 
 def _refuse_unported(config: dict) -> None:
-    """Raise where the config asks for a mesh or the device-resident corpus
-    cache, which this port does not do yet."""
+    """Raise where the config asks for a mesh, which this port does not do yet."""
     asks = {
         "tensor parallelism (num_model_shards > 1)": int(config.get("num_model_shards", 1)) > 1,
         "data-parallel meshes (num_data_shards > 1)": int(config.get("num_data_shards", 0)) > 1,
-        "the device-resident corpus cache (device_cache_corpus)":
-            bool(int(config.get("device_cache_corpus", 0))),
     }
     for what, asked in asks.items():
         if asked:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def device_batch(batch: dict, device, audio_feat_dim: int, frame_stack: int = 1) -> dict:
-    """Host batch (numpy) -> tensors on `device`, plus the host-side CTC
+_HOST_META_KEYS = ("labels", "labels_lengths", "sequence_lengths")
+
+
+@dataclasses.dataclass
+class Placed:
+    """A batch as the steps take it: its tensors on the device (`dev`,
+    compacted unless the caller asked otherwise) and its host meta (`meta`:
+    labels, their lengths, the sequence lengths and `num_real`), which the
+    CTC feasibility and the validation's PER read without a device sync."""
+
+    dev: dict
+    meta: dict
+
+
+def place(batch: dict, device, compact: bool = True) -> Placed:
+    """Host batch (numpy) -> `Placed`, the reference's `place`: the host
+    compaction (`compact_batch`), then the upload, from pinned memory on a
+    GPU so that it runs behind the host.  PyTorch's pinned-memory allocator
+    keeps a pinned buffer until the copy that reads it is done, so the host
+    arrays outlive the copy.  compact=False uploads the batch as it is."""
+    meta = {k: np.asarray(batch[k]) for k in _HOST_META_KEYS if k in batch}
+    meta["num_real"] = batch.get("num_real", len(meta["sequence_lengths"]))
+    host = inpaint.compact_batch(batch) if compact else inpaint.device_batch(batch)
+    device = torch.device(device)
+    dev = {k: torch.as_tensor(v).to(device, non_blocking=True)
+           for k, v in common.upload_source(host, device).items()}
+    return Placed(dev, meta)
+
+
+def step_input(placed: Placed, audio_feat_dim: int, frame_stack: int = 1) -> dict:
+    """What the model reads: the batch expanded on the device (a new dict;
+    the placed tensors are never written), plus the host-side CTC
     feasibility of each row (`ctc_infeasible`, numpy) so the loss needs no
     device sync to find infeasible alignments.  Feasibility is decided on
     the logits' frames: an ASR model's `frame_stack` k leaves ceil(T / k)."""
-    out = {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in DEVICE_BATCH_KEYS
-           if k in batch}
-    out = expand_batch(out, audio_feat_dim)
-    out["ctc_infeasible"] = asr_model.ctc_infeasible(batch, frame_stack)
+    out = inpaint.expand_batch(placed.dev, audio_feat_dim)
+    out["ctc_infeasible"] = asr_model.ctc_infeasible(placed.meta, frame_stack)
     return out
 
 
@@ -154,15 +191,18 @@ def _stats_on(stats: tuple, device) -> tuple:
 
 
 def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
-    """Step `(state, host batch, gen) -> losses`: forward with train=True,
-    losses, backward, one optimizer update of `state` in place, then the
-    model's auxiliary update (batch-norm running statistics) into the same
-    leaves.  The gradients stay on the params' `.grad` until the next step."""
+    """Step `(state, batch, gen) -> losses` over a `Placed` batch (or a host
+    batch, placed first): forward with train=True, losses, backward, one
+    optimizer update of `state` in place, then the model's auxiliary update
+    (batch-norm running statistics) into the same leaves.  The gradients
+    stay on the params' `.grad` until the next step."""
     stats_t = _stats_on(stats, device)
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
-    def train_step(state: state_lib.TrainState, batch: dict, gen) -> dict:
-        dev = device_batch(batch, device, af, k)
+    def train_step(state: state_lib.TrainState, batch, gen) -> dict:
+        if not isinstance(batch, Placed):
+            batch = place(batch, device)
+        dev = step_input(batch, af, k)
         state.optimizer.zero_grad(set_to_none=True)
         out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
         ldict = model.losses(out, dev, config)
@@ -176,7 +216,8 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
 
 
 def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
-    """Step `(params, host batch) -> per-sample results` for validation:
+    """Step `(params, batch) -> per-sample results` for validation, over a
+    `Placed` batch (or a host batch, placed first):
     per-sample L1 losses, and for CTC models the per-sequence CTC loss and
     the greedy decode (per sample, so the host can drop filler rows); an
     ASR model's CTC loss and decode on its logit lengths."""
@@ -184,8 +225,10 @@ def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = Fal
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
     @torch.inference_mode()
-    def eval_step(params, batch: dict) -> dict:
-        dev = device_batch(batch, device, af, k)
+    def eval_step(params, batch) -> dict:
+        if not isinstance(batch, Placed):
+            batch = place(batch, device)
+        dev = step_input(batch, af, k)
         out = model.forward(params, dev, config, stats_t, train=False)
         if is_asr:
             return {"loss_ps": ctc_ops.ctc_loss_per_seq(
@@ -214,24 +257,23 @@ def _host_per(decoded: np.ndarray, meta: dict) -> float:
     return ctc_ops.per_metric(dec, labs)
 
 
-def _val_pairs(dm: DataManager, val_files: list[str], batch_size: int):
-    """(host meta, batch) pairs of one validation pass over `pad_final`
-    batches; `num_real` marks the rows that count."""
+def _val_batches(dm: DataManager, val_files: list[str], batch_size: int, device):
+    """The placed batches of one validation pass over `pad_final` batches;
+    `meta["num_real"]` marks the rows that count."""
     for batch in dm.batches(val_files, batch_size, pad_final=True):
-        meta = {k: np.asarray(batch[k]) for k in ("labels", "labels_lengths")}
-        meta["num_real"] = batch["num_real"]
-        yield meta, batch
+        yield place(batch, device)
 
 
-def _validate(val_pairs, eval_step, params, select_hole: bool,
+def _validate(val_batches, eval_step, params, select_hole: bool,
               is_asr: bool = False) -> tuple[float, str]:
-    """Per-epoch validation: a window of batches in flight (the device runs
-    ahead while the host reads earlier results), filler rows dropped.
-    Returns (selection metric, report): an ASR model's is its PER."""
+    """Per-epoch validation over placed batches: a window of batches in
+    flight (the device runs ahead while the host reads earlier results),
+    filler rows dropped.  Returns (selection metric, report): an ASR
+    model's is its PER."""
     def pipelined(depth=8):
         window: deque = deque()
-        for meta, batch in val_pairs:
-            window.append((meta, eval_step(params, batch)))
+        for placed in val_batches:
+            window.append((placed.meta, eval_step(params, placed)))
             if len(window) >= depth:
                 yield window.popleft()
         while window:
@@ -270,9 +312,20 @@ def _validate(val_pairs, eval_step, params, select_hole: bool,
     return metric, report
 
 
-def train(config_file: str, is_asr: bool = False, device=None) -> dict:
+def train(config_file: str, is_asr: bool = False, device=None,
+          corpus_cache: dict | None = None) -> dict:
     """Train one model per the config file on one device (default cuda);
     `is_asr` for a standalone ASR model (`registry.ASR_MODELS`).
+
+    corpus_cache: a dict shared across `train()` calls in one process.  The
+    first call fills it with the device-resident compacted corpus
+    ({"train": [Placed], "val": [Placed], "stamp", "complete"}); later calls
+    train from it with no reader and no upload (training the SI model and
+    its ASR judge on one corpus pays the upload once).  The calls must share
+    the corpus, the batch and the shapes (the stamp; another raises), and a
+    model that needs embeddings refuses a cache built without them.  A fill
+    cut short (NaN abort, SIGTERM) is not marked complete, and the next call
+    discards it.
 
     Returns {"best_val", "best_epoch", "steps", "preempted",
     "step_seconds"}:
@@ -306,6 +359,7 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
     if not train_files:
         raise ValueError(f"no training tfrecords under {config['root_folder']}")
     batch_size = int(config["batch_size"])
+    cache = _CorpusCache(config, corpus_cache, batch_size, model)
 
     params = model.init(torch.Generator().manual_seed(seed), config, device=device)
     if config["model_ckp_vnet"] and config["model"] == "av-blstm-twosteps":
@@ -356,11 +410,20 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
             for epoch in range(int(config["max_n_epochs"])):
                 t_epoch = time.time()
                 loss_accum, n_acc = None, 0
-                for batch in dm.prefetch_batches(train_files, batch_size, shuffle=True,
-                                                 drop_remainder=True):
+                from_cache = cache.on and (epoch > 0 or cache.prefilled)
+                filling = cache.on and not from_cache
+                if from_cache:
+                    train_iter = cache.epoch()
+                else:
+                    train_iter = dm.prefetch_batches(train_files, batch_size, shuffle=True,
+                                                     drop_remainder=True)
+                for batch in train_iter:
                     t_step = time.perf_counter()
                     profiler.before(step - start_step)
-                    ldict = train_step(state, batch, gen)
+                    placed = batch if from_cache else place(batch, device)
+                    if filling:
+                        cache.train.append(placed)
+                    ldict = train_step(state, placed, gen)
                     step += 1
                     profiler.after(step - start_step)
                     # losses accumulate on the device; the host reads them
@@ -395,9 +458,16 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
                     if not np.isfinite(tr["loss"]):
                         raise FloatingPointError(f"NaN/Inf loss in epoch {epoch} — aborting")
 
-                val_metric, val_report = _validate(
-                    _val_pairs(dm, val_files, batch_size), eval_step, state.params, select_hole,
-                    is_asr)
+                val_batches = _val_batches(dm, val_files, batch_size, device)
+                if from_cache:
+                    val_batches = cache.val
+                elif filling:
+                    cache.val[:] = val_batches
+                    val_batches = cache.val
+                val_metric, val_report = _validate(val_batches, eval_step, state.params,
+                                                   select_hole, is_asr)
+                if filling and cache.train:
+                    _log(logfile, cache.filled())
                 if not val_files:
                     # no validation split: every epoch "improves", so the best
                     # checkpoint tracks the latest params
@@ -439,6 +509,59 @@ def train(config_file: str, is_asr: bool = False, device=None) -> dict:
     tb.close()
     return {"best_val": best_val, "best_epoch": best_epoch, "steps": step,
             "preempted": bool(preempt["hit"]), "step_seconds": step_seconds}
+
+
+class _CorpusCache:
+    """The device-resident corpus of one `train()` call (the reference's
+    `device_cache_corpus`, `avsi/train/loop.py:436-488`): on when the config
+    asks for it and trains more than one epoch, or when the caller shares a
+    `corpus_cache` dict; `prefilled` when a previous call filled that dict."""
+
+    def __init__(self, config: dict, shared: dict | None, batch_size: int, model):
+        self.on = (bool(int(config.get("device_cache_corpus", 0)))
+                   and int(config["max_n_epochs"]) > 1) or shared is not None
+        self.shared = shared
+        if shared is None:
+            self.train, self.val = [], []
+        else:
+            self.train = shared.setdefault("train", [])
+            self.val = shared.setdefault("val", [])
+            # the parameters the batches were built under: another corpus or
+            # geometry must not train on this one's batches
+            stamp = {
+                "root_folder": os.path.abspath(str(config["root_folder"])),
+                "batch_size": batch_size,
+                "audio_len": int(config["audio_len"]),
+                "audio_feat_dim": int(config["audio_feat_dim"]),
+                "video_feat_dim": int(config["video_feat_dim"]),
+                "mesh_data_axis": 1,
+            }
+            prev = shared.setdefault("stamp", stamp)
+            if prev != stamp:
+                raise ValueError(f"shared corpus_cache was built for {prev} but this train() "
+                                 f"call uses {stamp} — use a separate cache")
+            if self.train and not shared.get("complete"):
+                # a fill cut short in epoch 0 holds part of the corpus
+                self.train.clear()
+                self.val.clear()
+        self.prefilled = bool(self.train)
+        if self.prefilled and model.needs_embeddings and "embeddings" not in self.train[0].dev:
+            raise ValueError(f"shared corpus_cache was built without speaker embeddings but "
+                             f"model {config['model']} needs them — use a separate cache")
+        self.rng = np.random.default_rng(int(config.get("seed", 0)) + 101)
+
+    def epoch(self):
+        """The cached training batches in a fresh random order."""
+        return (self.train[i] for i in self.rng.permutation(len(self.train)))
+
+    def filled(self) -> str:
+        """Mark a shared cache complete (epoch 0 streamed the whole corpus
+        and validation cached its batches); the log line of what it holds."""
+        if self.shared is not None:
+            self.shared["complete"] = True
+        nbytes = sum(t.nbytes for p in self.train + self.val for t in p.dev.values())
+        return (f"# corpus cache: {len(self.train)} train + {len(self.val)} val batches, "
+                f"{nbytes / 2**30:.2f} GB in HBM")
 
 
 class _StepProfiler:
@@ -498,7 +621,8 @@ class _TBMedia:
         self.model, self.config, self.n = model, config, n
         self.stats = _stats_on(stats, device)
         batch = next(iter(dm.batches(val_files, n, pad_final=True)))
-        self.batch = device_batch(batch, device, int(config["audio_feat_dim"]))
+        self.batch = step_input(place(batch, device, compact=False),
+                                int(config["audio_feat_dim"]))
 
     @torch.inference_mode()
     def write(self, tb: SummaryWriter, params, epoch: int) -> None:

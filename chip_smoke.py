@@ -121,6 +121,29 @@ Phases, in order; any failure exits non-zero:
      equal to its in-process `enhance`, `/stream/open` answered 400, and
      its masked-phase step against a CPU service; then the generic
      U-Net's `Trainer` (8 iterations of 8 x 124 x 124) against the CPU;
+ 11c. the data path, with the port alone, before the training phase (whose
+     ASR judge normalizes with its log-mel stats): `make_fixture` writes a
+     corpus of 3 s utterances of 2 speakers (512 training, 64 validation,
+     16 test), `group_tfrecords` groups the training split by 16, and
+     `compute_mean_std_features` computes its 257-bin spec and 80-bin
+     fbanks stats; the native loader's batches (the port's own build of
+     `native/avsi_loader.cc`) equal the Python codec's bit for bit, on the
+     single-record files and on 4 grouped ones, with the parse rates; the
+     flagship trains 3 epochs at B=32, f32, on the grouped corpus, three
+     runs from one seed: (a) the Python codec, (b) the native loader, (c)
+     the native loader with `device_cache_corpus = 1`.  (a) and (b) agree
+     throughout and (c)'s epoch 0 equals (a)'s, bit for bit where the
+     step is deterministic on the card, else within the spread of a second
+     run of (a), measured and printed; native parses none in (a), some in
+     (b) and (c); (c) logs its cache line, holds at least the bytes it
+     reports in device memory, and its cached batches equal, after epoch 2,
+     the epoch-0 batches placed anew from the same files (hashes); s/step
+     median and mean and each epoch's first step per run, the cache's MB
+     and its projection to GRID's 29k training utterances, a batch's
+     upload bytes and the host ms to place it, uncompacted and compacted.
+     Var mode: the test split's
+     sample directories as var-mode records (`create_dataset`), then
+     `mask_app(tfrecord_mode="var")`, its wavs equal to the fixed mode's;
  12. profiles, after every host-side figure above was timed (host time
      reads slower after profiler sessions in the same process): one
      serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
@@ -132,7 +155,10 @@ Phases, in order; any failure exits non-zero:
      lever's device work on a batch of 8; one train step; one LC train
      step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
      its dWh apart; one ASR train step; one siasr batch; one U-Net train
-     step of 32 and one U-Net `infer()` batch of 8, each model;
+     step of 32 and one U-Net `infer()` batch of 8, each model; each
+     data-path run's traced step (`profile_steps = 1`; (c) a second call
+     on its filled cache): the idle share, and no batch-sized
+     host-to-device copy in the cached step;
  13. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
@@ -143,8 +169,13 @@ no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import gc
+import hashlib
 import json
+import math
 import os
 import struct
 import subprocess
@@ -162,13 +193,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from avsi_torch import config as config_lib  # noqa: E402
 from avsi_torch.device import resolve_device  # noqa: E402
+from avsi_torch.data import fixture, generator, native_loader  # noqa: E402
 from avsi_torch.data import stats as stats_lib  # noqa: E402
 from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
 from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
 from avsi_torch.infer import asr as asr_infer  # noqa: E402
 from avsi_torch.infer import inpaint, masking, siasr, streaming  # noqa: E402
-from avsi_torch.models import asr as asr_model  # noqa: E402
 from avsi_torch.models import blstm, registry, unet_generic  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.ops import ctc as ctc_ops  # noqa: E402
@@ -1641,36 +1672,22 @@ def training_log(exp: str) -> str:
     return log
 
 
-def write_asr_stats(root: str) -> None:
-    """`root/asr_mean.npy`, `asr_std.npy`: per-bin mean and std of the port's
-    80-bin log-mel over the LC corpus's training utterances, the stats an
-    ASR bundle normalizes with."""
-    files = tfrecord.list_tfrecord_files(os.path.join(root, "lc", "training-set"))
-    ident = (torch.zeros(80).cuda(), torch.ones(80).cuda())
-    with torch.no_grad():
-        feats = torch.cat([
-            asr_model.asr_features(torch.from_numpy(b["target_sources"]).cuda(), ident,
-                                   num_frames=T_FRAMES).reshape(-1, 80)
-            for b in DataManager(seed=0).batches(files, 8)])
-    np.save(os.path.join(root, "asr_mean.npy"), feats.mean(0).cpu().numpy())
-    np.save(os.path.join(root, "asr_std.npy"), feats.std(0).cpu().numpy())
-
-
 def asr_train_config(root: str, **kw) -> dict:
     """scripts/config/blstm_asr.config (a-blstm, net_dim [250, 250], batch 8,
     adam 1e-3) over the LC corpus (6 train steps, 1 validation step), one
-    epoch, the NaN check every step."""
+    epoch, the NaN check every step; the 80-bin log-mel stats that
+    `compute_mean_std_features(feat_type="fbanks")` computed over the data
+    path's training utterances."""
     cfg = config_lib.load_configfile(ASR_CONFIG)
     cfg.update(root_folder=os.path.join(root, "lc"), exp_folder=os.path.join(root, "exp_asr"),
-               audio_feat_mean=os.path.join(root, "asr_mean.npy"),
-               audio_feat_std=os.path.join(root, "asr_std.npy"), device="cuda",
+               audio_feat_mean=os.path.join(root, "data", "fbanks_mean.npy"),
+               audio_feat_std=os.path.join(root, "data", "fbanks_std.npy"), device="cuda",
                max_n_epochs=1, n_earlystop_epochs=1, nan_check_every=1, **kw)
     return cfg
 
 
 def asr_train_path(root: str) -> str:
     """ASR training: `train(is_asr=True)` on the GPU.  Returns the bundle."""
-    write_asr_stats(root)
     cfg = asr_train_config(root)
     config_file = os.path.join(root, "asr.config")
     config_lib.save_configfile(cfg, config_file)
@@ -2051,17 +2068,20 @@ def unet_train_config(base: str, model: str) -> dict:
     return cfg
 
 
-def event_tags(logdir: str) -> list[tuple[int, str]]:
-    """(step, tag) of every summary value in the one event file under
-    `logdir`, read back with the port's TFRecord codec, CRCs checked."""
+def summary_values(logdir: str):
+    """(step, tag, fields) of every summary value in the one event file
+    under `logdir`, read back with the port's TFRecord codec, CRCs checked."""
     (name,) = [f for f in os.listdir(logdir) if f.startswith("events.out.tfevents.")]
-    out = []
     for record in tfrecord.read_records(os.path.join(logdir, name), verify_crc=True):
         event = {f: v for f, _, v in tfrecord._iter_fields(record)}
         for _, _, value in tfrecord._iter_fields(event.get(5, b"")):
             fields = {f: v for f, _, v in tfrecord._iter_fields(value)}
-            out.append((event.get(2, 0), fields[1].decode()))
-    return out
+            yield event.get(2, 0), fields[1].decode(), fields
+
+
+def event_tags(logdir: str) -> list[tuple[int, str]]:
+    """(step, tag) of every summary value in the one event file under `logdir`."""
+    return [(step, tag) for step, tag, _ in summary_values(logdir)]
 
 
 def unet_train_path(base: str, model: str) -> str:
@@ -2335,6 +2355,388 @@ def generic_trainer_check(root: str) -> None:
         fail("the generic U-Net Trainer on the GPU disagrees with the CPU")
 
 
+# ------------------------------------------------------------ data path
+
+DATA_SPLIT = (256, 32, 8)  # utterances per speaker in training, validation, test (2 speakers)
+DATA_GROUP, DATA_EPOCHS = 16, 3  # group_tfrecords' group size; epochs of each data-path run
+GRID_TRAIN = 29_000  # GRID's training utterances, for the corpus cache's projection
+DATA_RUNS = ("a", "b", "c")  # Python codec; native loader; native loader + corpus cache
+DATA_GROUPS_CHECKED = 4  # grouped files whose native batches are held against the Python codec's
+
+
+def build_data_corpus(base: str, split: tuple = DATA_SPLIT) -> None:
+    """The data path's corpus, with the port alone: `make_fixture` (3 s
+    utterances of 2 speakers: 512 training, 64 validation and 16 test), the
+    training split grouped by 16 (`group_tfrecords`), and the 257-bin
+    log-magnitude and 80-bin log-mel stats of the training utterances
+    (`compute_mean_std_features`, "spec" and "fbanks"; the ASR phase
+    normalizes with the latter); the seconds of each part in
+    `base/timings.json`.  Host work only: `chip_smoke.py --data-corpus
+    <dir> <training> <validation> <test>` (utterances per speaker) runs it
+    in a child process beside the kernels' build."""
+    t0 = time.perf_counter()
+    paths = fixture.make_fixture(base, n_speakers=2, n_samples=split)
+    t_fix = time.perf_counter() - t0
+    generator.group_tfrecords(os.path.join(paths["tfrecords"], "training-set"),
+                              os.path.join(base, "grouped", "training-set"), DATA_GROUP)
+    os.symlink(os.path.join(paths["tfrecords"], "validation-set"),
+               os.path.join(base, "grouped", "validation-set"))
+    t_group = time.perf_counter() - t0 - t_fix
+    for feat in ("spec", "fbanks"):
+        stats_lib.compute_mean_std_features(paths["training-set"], "target",
+                                            os.path.join(base, feat), feat_type=feat)
+    t_stats = time.perf_counter() - t0 - t_fix - t_group
+    with open(os.path.join(base, "timings.json"), "w") as f:
+        json.dump({"paths": paths, "fixture": t_fix, "group": t_group, "stats": t_stats}, f)
+
+
+def start_data_corpus(base: str) -> subprocess.Popen:
+    """`build_data_corpus(base)` in a child process on one CPU thread and no
+    GPU, started beside the kernels' build; `data_corpus` waits for it."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--data-corpus", base, *map(str, DATA_SPLIT)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def data_corpus(base: str, child: subprocess.Popen) -> dict:
+    """Wait for the corpus child, check what it wrote and print its times."""
+    t0 = time.perf_counter()
+    out, _ = child.communicate()
+    waited = time.perf_counter() - t0
+    if child.returncode != 0:
+        fail(f"building the data corpus failed ({child.returncode}):\n{out[-3000:]}")
+    with open(os.path.join(base, "timings.json")) as f:
+        built = json.load(f)
+    paths = built["paths"]
+    counts = {split: len(tfrecord.list_tfrecord_files(os.path.join(paths["tfrecords"], split)))
+              for split in ("training-set", "validation-set", "test-set")}
+    grouped = os.path.join(base, "grouped")
+    n_groups = len(tfrecord.list_tfrecord_files(os.path.join(grouped, "training-set")))
+    mean = np.load(os.path.join(base, "spec_mean.npy"))
+    fb = np.load(os.path.join(base, "fbanks_mean.npy"))
+    print(f"data corpus (a child process on one CPU thread, beside the kernels' build; waited "
+          f"{waited:.1f} s for it): make_fixture {counts} utterances of {AUDIO_LEN} samples in "
+          f"{built['fixture']:.1f} s ({sum(counts.values()) / built['fixture']:.1f} "
+          f"utterances/s), grouped into {n_groups} files in {built['group']:.2f} s, spec and "
+          f"fbanks stats in {built['stats']:.1f} s", flush=True)
+    if (counts != {"training-set": 2 * DATA_SPLIT[0], "validation-set": 2 * DATA_SPLIT[1],
+                   "test-set": 2 * DATA_SPLIT[2]} or n_groups != 2 * DATA_SPLIT[0] // DATA_GROUP
+            or mean.shape != (257,) or fb.shape != (80,)
+            or not (np.all(np.isfinite(mean)) and np.all(np.isfinite(fb)))):
+        fail("the data corpus is not what make_fixture, group_tfrecords and "
+             "compute_mean_std_features should write")
+    return dict(paths, grouped=grouped, base=base)
+
+
+def batches_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        sorted(x) == sorted(y) and all(np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+                                       for k in y) for x, y in zip(a, b))
+
+
+def reader_check(corpus: dict) -> dict:
+    """The native loader's batches against the Python codec's, bit for bit,
+    over the 512 single-record training files and the first 4 grouped ones
+    (64 utterances); the parse rates (utterances/s) of the Python codec and
+    of the native loader on each."""
+    files = {"single-record": tfrecord.list_tfrecord_files(
+                 os.path.join(corpus["tfrecords"], "training-set")),
+             "grouped": tfrecord.list_tfrecord_files(
+                 os.path.join(corpus["grouped"], "training-set"))[:DATA_GROUPS_CHECKED]}
+    rates = {}
+    for name, fl in files.items():
+        read = {}
+        for native in (False, True):
+            native_loader.reset_parse_counts()
+            t0 = time.perf_counter()
+            read[native] = list(DataManager(use_native=native).batches(fl, TRAIN_BATCH))
+            rates[f"{'native' if native else 'python'} {name}"] = (
+                sum(b["num_real"] for b in read[native]) / (time.perf_counter() - t0))
+            n = DATA_GROUP * len(fl) if name == "grouped" else len(fl)
+            if native_loader.parse_counts["records"] != (n if native else 0):
+                fail(f"the {name} read parsed {native_loader.parse_counts} natively")
+        if not batches_equal(read[True], read[False]):
+            fail(f"the native loader's batches differ from the Python codec's ({name} files)")
+    print("reader: native batches equal the Python codec's, bit for bit (single-record and "
+          "grouped); parse rates " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+          + f" utterances/s; library {native_loader.library_path().name}; card "
+          f"{card_line()}", flush=True)
+    return rates
+
+
+def data_config(corpus: dict, exp: str, **kw) -> dict:
+    """The flagship at full width, f32, batch 32, on the grouped corpus, 3
+    epochs, the spec stats, no TensorBoard media, the NaN check every step."""
+    cfg = flagship_config(TRAIN_BATCH, "float32")
+    cfg.update(root_folder=corpus["grouped"], exp_folder=os.path.join(corpus["base"], exp),
+               audio_feat_mean=os.path.join(corpus["base"], "spec_mean.npy"),
+               audio_feat_std=os.path.join(corpus["base"], "spec_std.npy"), num_asr_labels=33,
+               max_n_epochs=DATA_EPOCHS, n_earlystop_epochs=DATA_EPOCHS, nan_check_every=1,
+               tb_media=0)
+    cfg.update(kw)
+    return cfg
+
+
+@contextlib.contextmanager
+def reader_of(run: str):
+    """Run (a) reads through the Python codec: `train()`'s reader built
+    with use_native=False, as where the loader does not build."""
+    if run != "a":
+        yield
+        return
+    train_loop.DataManager = functools.partial(DataManager, use_native=False)
+    try:
+        yield
+    finally:
+        train_loop.DataManager = DataManager
+
+
+def scalars(logdir: str) -> dict:
+    """{(step, tag): value} of the float scalars of the one event file under
+    `logdir`."""
+    return {(step, tag): struct.unpack("<f", fields[2])[0]
+            for step, tag, fields in summary_values(logdir) if 2 in fields}
+
+
+def data_run(corpus: dict, run: str, exp: str, cache: dict | None = None) -> dict:
+    """One data-path `train()` run on the card: its summary, its epochs'
+    TensorBoard scalars (train losses, val metric), its `sinet` leaves, the
+    native parses it made and each epoch's step times."""
+    cfg = data_config(corpus, exp, **({"device_cache_corpus": 1} if run == "c" else {}))
+    config_file = os.path.join(corpus["base"], f"{exp}.config")
+    config_lib.save_configfile(cfg, config_file)
+    native_loader.reset_parse_counts()
+    _build.reset_launch_counts()
+    with reader_of(run):
+        t0 = time.perf_counter()
+        summary = train_loop.train(config_file, corpus_cache=cache)
+        wall = time.perf_counter() - t0
+    steps = DATA_EPOCHS * (2 * DATA_SPLIT[0] // TRAIN_BATCH)
+    log = training_log(cfg["exp_folder"])
+    with np.load(os.path.join(cfg["exp_folder"], "netmodel", "sinet.npz")) as z:
+        leaves = {k: z[k] for k in z.files}
+    per_epoch = np.asarray(summary["step_seconds"]).reshape(DATA_EPOCHS, -1)
+    res = {"summary": summary, "log": log, "leaves": leaves, "wall": wall,
+           "scalars": scalars(os.path.join(cfg["exp_folder"], "tb")),
+           "parsed": dict(native_loader.parse_counts), "launches": launched(),
+           "per_epoch": per_epoch}
+    print(f"data path run ({run}): {summary['steps']} steps of {TRAIN_BATCH} in {wall:.1f} s; "
+          f"s/step median {np.median(per_epoch):.4f}, mean {per_epoch.mean():.4f}; first step "
+          f"of each epoch {', '.join(f'{t:.4f}' for t in per_epoch[:, 0])} s; steady (epoch "
+          f"steps after the first) mean {per_epoch[:, 1:].mean():.4f}; native parses "
+          f"{res['parsed']}; launches {res['launches']}; best val {summary['best_val']:.6f}",
+          flush=True)
+    if summary["steps"] != steps or per_epoch.shape[1] != 2 * DATA_SPLIT[0] // TRAIN_BATCH:
+        fail(f"data path run ({run}) ran {summary['steps']} steps; want {steps}")
+    return res
+
+
+def run_spread(x: dict, y: dict) -> dict:
+    """How far two runs are apart: the largest relative difference of their
+    epochs' scalars, and the largest absolute difference of their `sinet`
+    leaves; both 0 when the runs are bit for bit equal."""
+    keys = sorted(k for k in set(x["scalars"]) & set(y["scalars"])
+                  if k[1] != "train/epoch_time_s")
+    rel = max(abs(x["scalars"][k] - y["scalars"][k]) / max(abs(y["scalars"][k]), 1e-30)
+              for k in keys)
+    leaf = max(float(np.abs(x["leaves"][k] - y["leaves"][k]).max()) for k in y["leaves"])
+    return {"scalars": rel, "leaves": leaf}
+
+
+def epoch0(res: dict) -> dict:
+    return {k: v for k, v in res["scalars"].items() if k[0] == 0 and k[1] != "train/epoch_time_s"}
+
+
+def placed_hash(placed) -> str:
+    h = hashlib.sha256()
+    for key in sorted(placed.dev):
+        t = placed.dev[key].contiguous()
+        h.update(key.encode())
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes() if t.dtype != torch.bool
+                 else t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cache_check(corpus: dict, cache: dict, run_c: dict, before: int) -> None:
+    """Run (c)'s cache: its log line, the device memory it holds (at least
+    the bytes it reports), and each cached batch, after the two epochs that
+    ran from it, equal to the epoch-0 batch it was stored from, placed
+    anew from the same files in the same order (hashes of every tensor)."""
+    nbytes = sum(t.nbytes for p in cache["train"] + cache["val"] for t in p.dev.values())
+    line = [ln for ln in run_c["log"].splitlines() if ln.startswith("# corpus cache:")]
+    grew = torch.cuda.memory_allocated() - before
+    n_train, n_val = 2 * DATA_SPLIT[0] // TRAIN_BATCH, -(-2 * DATA_SPLIT[1] // TRAIN_BATCH)
+    want = (f"# corpus cache: {n_train} train + {n_val} val batches, "
+            f"{nbytes / 2**30:.2f} GB in HBM")
+    cfg = data_config(corpus, "unused")
+    dm = DataManager(seed=int(cfg["seed"]))
+    train_files = tfrecord.list_tfrecord_files(os.path.join(corpus["grouped"], "training-set"))
+    val_files = tfrecord.list_tfrecord_files(os.path.join(corpus["grouped"], "validation-set"))
+    fresh = [train_loop.place(b, "cuda") for b in dm.batches(
+        train_files, TRAIN_BATCH, shuffle=True, drop_remainder=True)]
+    fresh += [train_loop.place(b, "cuda") for b in dm.batches(
+        val_files, TRAIN_BATCH, pad_final=True)]
+    same = [placed_hash(p) for p in cache["train"] + cache["val"]] == [
+        placed_hash(p) for p in fresh]
+    print(f"corpus cache: {line[0] if line else 'no log line'}; {nbytes} bytes "
+          f"({nbytes / 2**20:.1f} MB, {nbytes / (2 * (DATA_SPLIT[0] + DATA_SPLIT[1])) / 1e3:.1f} "
+          f"kB per utterance, {GRID_TRAIN * nbytes / (2 * (DATA_SPLIT[0] + DATA_SPLIT[1])) / 1e9:.2f}"
+          f" GB projected for GRID's {GRID_TRAIN} training utterances); device memory held "
+          f"after the run {grew} bytes; cached batches after epoch 2 equal to the stored "
+          f"ones: {same}", flush=True)
+    if line != [want] or grew < nbytes or not same:
+        fail(f"the corpus cache misbehaves: log {line} (want {want!r}), held {grew} bytes "
+             f"for {nbytes}, unchanged {same}")
+
+
+def upload_bytes(corpus: dict) -> tuple[int, int]:
+    """One training batch's bytes on the way to the card: uncompacted (the
+    port's upload before the compaction) and compacted."""
+    files = tfrecord.list_tfrecord_files(os.path.join(corpus["grouped"], "training-set"))
+    batch = next(iter(DataManager().batches(files, TRAIN_BATCH)))
+    return (sum(np.asarray(v).nbytes for v in inpaint.device_batch(batch).values()),
+            sum(np.asarray(v).nbytes for v in inpaint.compact_batch(batch).values()))
+
+
+def upload_ms(corpus: dict, reps: int = 10) -> dict:
+    """Host ms to place one training batch on the card (`train_loop.place`:
+    the compaction, the pinned copy, the upload, to a synchronize),
+    uncompacted and compacted, the mean of `reps` after one warm-up, in
+    turns."""
+    files = tfrecord.list_tfrecord_files(os.path.join(corpus["grouped"], "training-set"))
+    batch = next(iter(DataManager().batches(files, TRAIN_BATCH)))
+    times: dict = {False: [], True: []}
+    for i in range(reps + 1):
+        for compact in (False, True) if i % 2 else (True, False):
+            t0 = time.perf_counter()
+            train_loop.place(batch, "cuda", compact)
+            torch.cuda.synchronize()
+            if i:
+                times[compact].append(1e3 * (time.perf_counter() - t0))
+    return {"uncompacted": float(np.mean(times[False])), "compacted": float(np.mean(times[True]))}
+
+
+def var_mode_check(corpus: dict) -> None:
+    """Var mode on the card: the test split's sample directories written as
+    var-mode TFRecords (`create_dataset(tfrecord_mode="var")`), then
+    `mask_app(tfrecord_mode="var")`: its wavs equal, sample for sample, the
+    fixed-mode `mask_app` over the same utterances (250 frames, a multiple of
+    25, so the padded batches coincide)."""
+    src, var_root = (os.path.join(corpus["base"], d) for d in ("syn_test", "tfrecords_var"))
+    os.makedirs(src)
+    os.symlink(corpus["test-set"], os.path.join(src, "test-set"))
+    generator.create_dataset(src, var_root, corpus["dictionary"], tfrecord_mode="var")
+    kw = dict(batch_size=INFER_BATCH, feat_mean_file=os.path.join(corpus["base"], "spec_mean.npy"),
+              feat_std_file=os.path.join(corpus["base"], "spec_std.npy"))
+    out = {mode: os.path.join(corpus["base"], f"masked_{mode}") for mode in ("fixed", "var")}
+    fixed = masking.mask_app(os.path.join(corpus["tfrecords"], "test-set"), out["fixed"],
+                             num_audio_samples=AUDIO_LEN, **kw)
+    var = masking.mask_app(os.path.join(var_root, "test-set"), out["var"], tfrecord_mode="var",
+                           **kw)
+    names = sorted(os.listdir(out["fixed"]))
+    same = [np.array_equal(wavio.read_wav_int16(os.path.join(out["fixed"], n, "masked.wav"))[1],
+                           wavio.read_wav_int16(os.path.join(out["var"], n, "masked.wav"))[1])
+            for n in names]
+    print(f"var mode: {var['num_samples']} utterances through mask_app(tfrecord_mode='var') on "
+          f"the card, wavs equal to the fixed mode's: {sum(same)}/{len(same)}; hole loss "
+          f"{var['loss_hole']:.6f} vs {fixed['loss_hole']:.6f}", flush=True)
+    if var["num_samples"] != fixed["num_samples"] != 2 * DATA_SPLIT[2] or not all(same) or (
+            len(same) != 2 * DATA_SPLIT[2]):
+        fail("var-mode mask_app disagrees with the fixed mode")
+
+
+def data_path(corpus: dict) -> dict:
+    """Runs (a) Python codec, (b) native loader, (c) native loader with
+    `device_cache_corpus`, each 3 epochs of the flagship at B=32 from one
+    seed, with the checks of the module docstring.  Returns the cache of
+    (c), for the profiles."""
+    before, after = upload_bytes(corpus)
+    up_ms = upload_ms(corpus)
+    res = {run: data_run(corpus, run, f"exp_data_{run}") for run in ("a", "b")}
+    gc.collect()  # the earlier runs' params and optimizer state
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    cache: dict = {}
+    res["c"] = data_run(corpus, "c", "exp_data_c", cache)
+    gc.collect()
+    torch.cuda.synchronize()
+    spread_ab = run_spread(res["a"], res["b"])
+    deterministic = spread_ab == {"scalars": 0.0, "leaves": 0.0}
+    if deterministic:
+        spread_aa = {"scalars": 0.0, "leaves": 0.0}
+    else:
+        spread_aa = run_spread(res["a"], data_run(corpus, "a", "exp_data_a2"))
+    e0 = {run: epoch0(res[run]) for run in DATA_RUNS}
+    e0_rel = max(abs(e0["c"][k] - e0["a"][k]) / max(abs(e0["a"][k]), 1e-30) for k in e0["a"])
+    spread = ("bit for bit: the step is deterministic on the card, so no second run of (a)"
+              if deterministic else f"two identical runs of (a): scalars rel "
+              f"{spread_aa['scalars']:.3e}, leaves {spread_aa['leaves']:.3e}")
+    print(f"data path: (a) vs (b) over 3 epochs: scalars rel {spread_ab['scalars']:.3e}, sinet "
+          f"leaves {spread_ab['leaves']:.3e} ({spread}); epoch 0 of (c) vs (a): rel "
+          f"{e0_rel:.3e}; "
+          f"upload per batch {before} bytes uncompacted, {after} compacted, placed in "
+          f"{up_ms['uncompacted']:.2f} / {up_ms['compacted']:.2f} ms", flush=True)
+    ok_ab = deterministic or (spread_ab["scalars"] <= spread_aa["scalars"]
+                              and spread_ab["leaves"] <= spread_aa["leaves"])
+    ok_c = e0["c"] == e0["a"] if deterministic else e0_rel <= spread_aa["scalars"]
+    if not ok_ab or not ok_c or set(e0["c"]) != set(e0["a"]):
+        fail("the data-path runs disagree beyond what the card's own run-to-run spread allows")
+    if res["a"]["parsed"]["records"] or not (res["b"]["parsed"]["records"]
+                                             and res["c"]["parsed"]["records"]):
+        fail(f"native parses: (a) {res['a']['parsed']}, (b) {res['b']['parsed']}, "
+             f"(c) {res['c']['parsed']}; want none in (a) and some in (b) and (c)")
+    cache_check(corpus, cache, res["c"], mem0)
+    var_mode_check(corpus)
+    return cache
+
+
+def trace_idle(path: str) -> tuple[float, float, int]:
+    """From a `profile_steps` Chrome trace: the device's idle share of the
+    traced window, its busy ms, and the largest host-to-device copy in bytes
+    (the memcpy events' "bytes")."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e.get("dur", 0) for e in events)
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for s, t in device:
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    missing = [e for e in h2d if "bytes" not in e.get("args", {})]
+    if missing:
+        fail(f"a host-to-device copy in {path} has no byte count: {missing[0]}")
+    largest = max((int(e["args"]["bytes"]) for e in h2d), default=0)
+    return 1 - busy / (hi - lo), busy / 1e3, largest
+
+
+def data_profiles(corpus: dict, cache: dict) -> None:
+    """Each run's traced step (`profile_steps = 1`: step 3, one epoch): (a)
+    and (b) in their streamed epoch 0, (c) from the shared cache that run
+    (c) filled (a second call, every epoch cached).  The device's idle share
+    of the step, and the cached step's largest host-to-device copy, which
+    must be far below a batch's."""
+    compact = upload_bytes(corpus)[1]
+    for run in DATA_RUNS:
+        exp = f"exp_data_{run}_profile"
+        cfg = data_config(corpus, exp, max_n_epochs=1, profile_steps=1)
+        config_file = os.path.join(corpus["base"], f"{exp}.config")
+        config_lib.save_configfile(cfg, config_file)
+        with reader_of(run):
+            train_loop.train(config_file, corpus_cache=cache if run == "c" else None)
+        idle, busy_ms, largest = trace_idle(os.path.join(cfg["exp_folder"], "profile",
+                                                         "trace.json"))
+        print(f"profile: data path run ({run}) traced step: device busy {busy_ms:.1f} ms, "
+              f"{100 * idle:.0f}% idle; largest host-to-device copy {largest} bytes "
+              f"(a compacted batch: {compact})", flush=True)
+        if run == "c" and largest * 8 > compact:
+            fail(f"a cached step copied {largest} bytes to the card (a batch is {compact})")
+
+
 def phase(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2351,6 +2753,19 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}; {card}", flush=True)
 
+    with tempfile.TemporaryDirectory() as data_root:
+        data_dir = os.path.join(data_root, "data")
+        corpus_child = start_data_corpus(data_dir)
+        try:
+            return run(kind, card, data_dir, corpus_child)
+        finally:
+            if corpus_child.poll() is None:
+                corpus_child.kill()
+                corpus_child.wait()
+
+
+def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> int:
+    """Every phase after the card's check, the data corpus building beside."""
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -2370,6 +2785,7 @@ def main() -> int:
     phase("K1 at the recognition widths", recognition_k1_widths)
 
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
+        os.symlink(data_dir, os.path.join(root, "data"))  # the ASR phase's stats
         write_checkpoint(d)
         # every path's host-side figures (requests/s, push latency, fleet
         # stream-s per s, utterances/s, train step wall) before the process
@@ -2383,6 +2799,9 @@ def main() -> int:
         phase("fleet", fleet_path, d)
         test_set = phase("offline infer()", infer_path, d, root)
         phase("levers service and /reload", levers_service_path, d, root)
+        corpus = phase("data corpus", data_corpus, data_dir, corpus_child)
+        phase("reader", reader_check, corpus)
+        cache = phase("data path", data_path, corpus)
         counts.update({k: v for k, v in phase("training", train_path, root).items()
                        if k in TRAINING})
         for batch in (8, TRAIN_BATCH):
@@ -2424,6 +2843,7 @@ def main() -> int:
               "ASR train step", True, True)
         phase("siasr profile", profile_siasr_batch, d, root, asr_dir)
         phase("U-Net profiles", unet_profiles, unet_base, unet_bundles)
+        phase("data path profiles", data_profiles, corpus, cache)
     phase("K4 profiles", k4_profiles)
 
     kernels = []
@@ -2441,4 +2861,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--data-corpus"]:
+        build_data_corpus(sys.argv[2], tuple(int(n) for n in sys.argv[3:6]))
+        sys.exit(0)
     sys.exit(main())

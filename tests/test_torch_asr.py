@@ -188,7 +188,9 @@ def test_train_step_loss_and_gradients_match_jax_grad(case):
     state = tstate.create_train_state(_port(params_j), config)
     step = tloop.make_train_step(model, config, stats, "cpu", is_asr=True)
     host = {k: np.asarray(v) for k, v in jb.items()}
-    t_loss = float(step(state, host, None)["loss"])
+    # the batch as jax.grad takes it here, uncompacted (placement is held
+    # against the reference in tests/test_torch_compaction.py)
+    t_loss = float(step(state, tloop.place(host, "cpu", compact=False), None)["loss"])
     np.testing.assert_allclose(t_loss, float(j_loss), rtol=1e-5)
     flat = jckpt._flatten(j_grads)
     got = {k: p.grad.numpy() for k, p in tckpt.named_leaves(state.params).items()}

@@ -25,6 +25,7 @@ from avsi.data import fixture
 from avsi.infer import masking as jmasking
 from avsi.ops import masks as jmasks
 from avsi.utils import wav as jwav
+from avsi_torch.data import generator as tgenerator
 from avsi_torch.infer import masking as tmasking
 from avsi_torch.ops import masks as tmasks
 from avsi_torch.utils import wav as twav
@@ -91,7 +92,8 @@ def corpus(tmp_path_factory):
     rng = np.random.RandomState(0)
     np.save(os.path.join(d, "mean.npy"), rng.uniform(0.0, 5.0, 257).astype(np.float32))
     np.save(os.path.join(d, "std.npy"), rng.uniform(0.5, 2.0, 257).astype(np.float32))
-    return {"test": os.path.join(paths["tfrecords"], "test-set"), "root": d}
+    return {"test": os.path.join(paths["tfrecords"], "test-set"), "root": d,
+            "audio": paths["audio"], "dictionary": paths["dictionary"]}
 
 
 @pytest.mark.parametrize("oracle_phase", [True, False], ids=["oracle_phase", "masked_phase"])
@@ -119,7 +121,23 @@ def test_mask_app_matches_reference(corpus, tmp_path, oracle_phase):
 
 
 def test_mask_app_refuses_var_mode_and_empty_dirs(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmasking.mask_app(corpus["test"], str(tmp_path), tfrecord_mode="var", device="cpu")
+    """Var mode, refused before the var reader was ported, runs (held against
+    the reference in tests/test_torch_var_mode.py): on the var-mode records of
+    the same utterances (50 frames, a multiple of 25, so the padded batches
+    are the fixed ones) its wavs equal the fixed mode's.  A directory without
+    records is refused."""
+    var_root = str(tmp_path / "var")
+    tgenerator.create_dataset(corpus["audio"], var_root, corpus["dictionary"],
+                              tfrecord_mode="var")
+    kw = dict(batch_size=2, device="cpu")
+    fixed = tmasking.mask_app(corpus["test"], str(tmp_path / "fixed"), num_audio_samples=9600,
+                              **kw)
+    var = tmasking.mask_app(os.path.join(var_root, "test-set"), str(tmp_path / "varout"),
+                            tfrecord_mode="var", **kw)
+    assert var == fixed and var["num_samples"] == 5
+    for name in os.listdir(tmp_path / "fixed"):
+        _, w = twav.read_wav_int16(str(tmp_path / "fixed" / name / "masked.wav"))
+        _, g = twav.read_wav_int16(str(tmp_path / "varout" / name / "masked.wav"))
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(ValueError, match="no tfrecords"):
         tmasking.mask_app(str(tmp_path), str(tmp_path), device="cpu")

@@ -183,16 +183,22 @@ _SLICE_MODULES = ("avsi_torch.data.phonemes", "avsi_torch.ops.mel", "avsi_torch.
                   "avsi_torch.ops.masks", "avsi_torch.models.asr", "avsi_torch.models.twosteps",
                   "avsi_torch.infer.asr", "avsi_torch.infer.siasr", "avsi_torch.infer.masking",
                   "avsi_torch.models.unet", "avsi_torch.models.unet_pconv",
-                  "avsi_torch.models.unet_generic", "avsi_torch.train.tb")
+                  "avsi_torch.models.unet_generic", "avsi_torch.train.tb",
+                  "avsi_torch.data.native_loader", "avsi_torch.data.reader",
+                  "avsi_torch.data.masks", "avsi_torch.data.landmarks",
+                  "avsi_torch.data.avsync", "avsi_torch.data.generator",
+                  "avsi_torch.data.fixture", "avsi_torch.data.stats",
+                  "avsi_torch.data.extract")
 
 
 def test_port_imports_no_jax_and_no_avsi():
     """Every port module imports cleanly with no jax and no avsi loaded (the
-    walk reaches every module of the recognition and two-step slice and of
-    the U-Net slice, the TensorBoard writer included), and
-    no port source (nor chip_smoke.py) names them in an import, nor the
-    reference's native loader or its library (the port builds its own
-    CTC decoder)."""
+    walk reaches every module of the recognition and two-step slice, of
+    the U-Net slice, the TensorBoard writer included, and of the data
+    slice), and no port source (nor chip_smoke.py) names them in an import,
+    nor the reference's native loader module or its library: the loader the
+    port loads is its own hashed build of `native/avsi_loader.cc` under
+    `build/avsi_torch/`, as its CTC decoder is."""
     code = (
         "import importlib, pkgutil, sys, avsi_torch\n"
         "for m in pkgutil.walk_packages(avsi_torch.__path__, 'avsi_torch.'):\n"
@@ -213,7 +219,14 @@ def test_port_imports_no_jax_and_no_avsi():
     for src in sources:
         text = src.read_text()
         assert not _FORBIDDEN.search(text), src
-        assert "native_loader" not in text and "libavsi_loader" not in text, src
+        assert "avsi.data.native_loader" not in text, src
+        assert "libavsi_loader.so" not in text and "libavsi_ctc.so" not in text, src
+    from avsi_torch.data import native_loader
+
+    lib = native_loader.library_path()
+    assert lib is not None, native_loader._native["error"]
+    assert lib.parent == REPO / "build" / "avsi_torch"
+    assert lib.name.startswith("libavsi_loader_") and lib.suffix == ".so"
 
 
 def test_build_hash_covers_every_kernel_source():

@@ -114,7 +114,9 @@ def test_train_steps_match_jax_pallas(dtype):
     tstep = tloop.make_train_step(tmodel, config, stats, "cpu")
     t_losses = []
     for i in range(2):
-        t_losses.append(float(tstep(state, host, None)["loss"]))
+        # the batch as JAX's step takes it here, uncompacted (placement is
+        # held against the reference in tests/test_torch_compaction.py)
+        t_losses.append(float(tstep(state, tloop.place(host, "cpu", compact=False), None)["loss"]))
         if i == 0:
             t_grads = {k: p.grad.numpy().copy() for k, p in tckpt.named_leaves(state.params).items()}
     t_params = tckpt.params_to_flat(state.params)
@@ -414,8 +416,10 @@ def test_train_resumes_jax_checkpoint_like_jax(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    """Meshes and the device-resident corpus cache, not ported yet, raise;
-    LC training (`lc_chunk`, held against the reference in
+    """Meshes, not ported yet, raise; the device-resident corpus cache
+    (`device_cache_corpus`, held against the reference in
+    tests/test_torch_corpus_cache.py; off at one epoch, as in the
+    reference), LC training (`lc_chunk`, held against the reference in
     tests/test_torch_lc_training.py), `profile_steps` and `tb_media`, each
     refused before it was ported, now train."""
     root = str(tmp_path / "corpus")
@@ -426,12 +430,14 @@ def test_train_refuses_what_is_not_ported(tmp_path):
         cfg[key] = value
         path = str(tmp_path / "refused.config")
         tconfig_lib.save_configfile(cfg, path)
-        if key in ("lc_chunk", "profile_steps", "tb_media"):
+        if key in ("device_cache_corpus", "lc_chunk", "profile_steps", "tb_media"):
             summary = tloop.train(path, device="cpu")
             assert summary["steps"] == 1 and np.isfinite(summary["best_val"])
             continue
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tloop.train(path, device="cpu")
+    log = (tmp_path / "exp_device_cache_corpus" / "training_log.txt").read_text()
+    assert "# corpus cache" not in log  # one epoch: nothing to reuse
     tags = {t.split("/")[0] for _, t, _ in read_events(str(tmp_path / "exp_tb_media" / "tb"))}
     assert {"Target_spectrogram", "Enhanced_spectrogram", "Mask", "Enhanced_audio"} <= tags
 

@@ -142,7 +142,10 @@ def test_train_step_trains_the_avnet_only():
     leaves = tckpt.named_leaves(state.params)
     assert {k for k, v in leaves.items() if id(v) in owned} == {
         k for k in leaves if k.startswith("avnet/")}
-    loss = float(tloop.make_train_step(model, config, stats, "cpu")(state, host, None)["loss"])
+    # the batch as the reference's step takes it here, uncompacted (placement
+    # is held against the reference in tests/test_torch_compaction.py)
+    loss = float(tloop.make_train_step(model, config, stats, "cpu")(
+        state, tloop.place(host, "cpu", compact=False), None)["loss"])
     np.testing.assert_allclose(loss, float(j_loss), rtol=1e-5)
     after = tckpt.params_to_flat(state.params)
     for key, leaf in tckpt.named_leaves(state.params).items():
