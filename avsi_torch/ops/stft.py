@@ -113,8 +113,31 @@ def stft_real_imag(
     return out[..., :num_bins], out[..., num_bins:]
 
 
+def stft(
+    x: torch.Tensor,
+    frame_length: int = 384,
+    frame_step: int = 192,
+    fft_length: int = 512,
+) -> torch.Tensor:
+    """Complex STFT (`avsi/ops/stft.py:135-151`): (..., num_frames, bins)
+    complex64, 250 x 257 for a 48,000-sample utterance at the defaults."""
+    return torch.complex(*stft_real_imag(x, frame_length, frame_step, fft_length))
+
+
 def magnitude(re: torch.Tensor, im: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return torch.sqrt(re * re + im * im + eps)
+
+
+def spectrogram(
+    stfts: torch.Tensor, power: float = 1.0, log: bool = False, eps: float = 1e-6
+) -> torch.Tensor:
+    """|STFT|, raised to `power`, optionally log(. + eps) (`avsi/ops/stft.py:154-165`)."""
+    spec = torch.abs(stfts)
+    if power != 1:
+        spec = spec**power
+    if log:
+        spec = torch.log(spec + eps)
+    return spec
 
 
 def log_magnitude_spectrogram(
@@ -168,6 +191,18 @@ def istft_real_imag(
     return overlap_add(frames, frame_step, num_samples if num_samples > 0 else total)
 
 
+def istft(
+    stfts: torch.Tensor,
+    frame_length: int = 384,
+    frame_step: int = 192,
+    fft_length: int = 512,
+    num_samples: int = 0,
+) -> torch.Tensor:
+    """Inverse of `stft` (`avsi/ops/stft.py:213-224`)."""
+    return istft_real_imag(stfts.real, stfts.imag, frame_length, frame_step, fft_length,
+                           num_samples)
+
+
 def waveform_from_mag_phase(
     mag: torch.Tensor,
     phase: torch.Tensor,
@@ -207,3 +242,9 @@ def waveform_from_mag_complex(
     return istft_real_imag(
         mag * c, mag * s, frame_length, frame_step, fft_length, num_samples
     )
+
+
+def preemphasis(x: torch.Tensor, alpha: float = 0.95) -> torch.Tensor:
+    """x[n] - alpha * x[n - 1] along the last axis, x[-1] = 0
+    (`avsi/ops/stft.py:273-276`)."""
+    return x - alpha * torch.nn.functional.pad(x[..., :-1], (1, 0))

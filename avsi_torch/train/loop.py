@@ -138,7 +138,8 @@ def _refuse_unported(config: dict) -> None:
     }
     for what, asked in asks.items():
         if asked:
-            raise NotImplementedError(f"{what} is not ported yet")
+            raise NotImplementedError(f"{what} is not ported yet: it needs the parallel "
+                                      "layer (the reference's avsi/parallel)")
 
 
 _HOST_META_KEYS = ("labels", "labels_lengths", "sequence_lengths")

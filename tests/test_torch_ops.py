@@ -188,15 +188,19 @@ _SLICE_MODULES = ("avsi_torch.data.phonemes", "avsi_torch.ops.mel", "avsi_torch.
                   "avsi_torch.data.masks", "avsi_torch.data.landmarks",
                   "avsi_torch.data.avsync", "avsi_torch.data.generator",
                   "avsi_torch.data.fixture", "avsi_torch.data.stats",
-                  "avsi_torch.data.extract")
+                  "avsi_torch.data.extract", "avsi_torch.eval.metrics", "avsi_torch.eval.pesq",
+                  "avsi_torch.eval.harness", "avsi_torch.eval.pesq_conformance",
+                  "avsi_torch.infer.export", "avsi_torch.infer.import_tf",
+                  "avsi_torch.utils.profiling", "avsi_torch.cli", "avsi_torch.__main__")
 
 
 def test_port_imports_no_jax_and_no_avsi():
     """Every port module imports cleanly with no jax and no avsi loaded (the
     walk reaches every module of the recognition and two-step slice, of
-    the U-Net slice, the TensorBoard writer included, and of the data
-    slice), and no port source (nor chip_smoke.py) names them in an import,
-    nor the reference's native loader module or its library: the loader the
+    the U-Net slice, the TensorBoard writer included, of the data slice,
+    and of the evaluation and command-line slice, with no tensorflow
+    loaded by `infer.import_tf`), and no port source (nor chip_smoke.py)
+    names them in an import, nor the reference's native loader module or its library: the loader the
     port loads is its own hashed build of `native/avsi_loader.cc` under
     `build/avsi_torch/`, as its CTC decoder is."""
     code = (
@@ -204,7 +208,7 @@ def test_port_imports_no_jax_and_no_avsi():
         "for m in pkgutil.walk_packages(avsi_torch.__path__, 'avsi_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'avsi'))\n"
+        "('jax', 'jaxlib', 'avsi', 'tensorflow'))\n"
         f"missing = sorted(set({_SLICE_MODULES!r}) - set(sys.modules))\n"
         "print('BAD', bad, 'MISSING', missing)\n"
         "assert not bad and not missing, (bad, missing)\n"
