@@ -26,6 +26,10 @@ the streaming window (`avsi_torch/csrc/lstm_train.cu`, the ports of
 `bilstm_recurrence_carry` / `bilstm_recurrence`, one body with the first).
 On CPU tensors their plain PyTorch versions run.
 
+The parallel layer (`avsi_torch.parallel`) shards training, inference,
+serving and fleets over an in-process device mesh and trains across
+`torch.distributed` ranks.
+
 Entry points run on the GPU unless the caller asks for the CPU
 (`device="cpu"`): see `avsi_torch.device.resolve_device`.
 """

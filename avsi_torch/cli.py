@@ -17,10 +17,13 @@ What differs:
     the reference's `pallas`, which runs the CUDA kernels (`kernel`).
   * Training exits with 143 after a SIGTERM, once its resume checkpoint is
     written (`train_or_exit`).
-  * The parallel surface (`--coordinator`, `--num_processes`,
-    `--process_id`, `--distributed`, `--data_shards > 1`, a config's
-    `num_model_shards > 1`) parses as in the reference and raises
-    NotImplementedError: the parallel layer is not ported yet.
+  * `training` / `training_asr` with `--coordinator`, `--num_processes`,
+    `--process_id` or `--distributed` join a `torch.distributed` job
+    (`parallel.distributed.initialize`, NCCL on a GPU, Gloo with `--device
+    cpu`) before training, as the reference joins `jax.distributed`;
+    `--distributed` reads rank and world from torchrun's `RANK`,
+    `WORLD_SIZE`, `MASTER_ADDR` and `MASTER_PORT`.  `--data_shards` reaches
+    `infer` and `serve`.
   * import_tf and export_tf need TensorFlow and raise ImportError without it.
 """
 
@@ -28,10 +31,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-PARALLEL_LAYER = ("the parallel layer (the reference's avsi/parallel: meshes, "
-                  "torch.distributed), which avsi_torch does not port yet")
-
 
 def _add_lstm_impl_flag(p):
     p.add_argument("--lstm_impl", default="auto",
@@ -67,28 +66,26 @@ def _gap_atten_opts(args):
 
 def _add_distributed_args(p):
     p.add_argument("--coordinator", default=None,
-                   help="multi-host: coordinator address host:port; needs "
-                        "the parallel layer, not ported yet")
+                   help="multi-host: coordinator address host:port "
+                        "(torch.distributed); run the same command on every "
+                        "host with its own --process_id")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host with cluster auto-detection; needs the "
-                        "parallel layer, not ported yet")
+                   help="multi-host with the rank and world of torchrun's "
+                        "environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
 
 
-def _refuse_parallel(args) -> None:
-    """Raise where the command line asks for more than one device."""
-    asked = [flag for flag, on in (
-        ("--coordinator", getattr(args, "coordinator", None) is not None),
-        ("--num_processes", getattr(args, "num_processes", None) is not None),
-        ("--process_id", getattr(args, "process_id", None) is not None),
-        ("--distributed", getattr(args, "distributed", False)),
-        (f"--data_shards {getattr(args, 'data_shards', 0)}",
-         (getattr(args, "data_shards", 0) or 0) > 1),
-    ) if on]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: runs on more than one device need "
-                                  f"{PARALLEL_LAYER}; run on one device without them")
+def _maybe_init_distributed(args, device) -> None:
+    """Join `training` to a torch.distributed job before it starts: the
+    per-rank input sharding, the reductions over the ranks and the
+    rank-0-only writes then happen inside `train()`."""
+    if (args.distributed or args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        from avsi_torch.parallel import distributed
+
+        distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                               device=device)
 
 
 def parse_args(argv=None):
@@ -221,8 +218,8 @@ def parse_args(argv=None):
     p.add_argument("--gl_iters", type=int, default=50)
     p.add_argument("--data_shards", type=int, default=0,
                    help="shard each inference batch over a data mesh of "
-                        "this many devices (0 = single device; more than 1 "
-                        "needs the parallel layer, not ported yet)")
+                        "this many devices (0 = single device; on the CPU "
+                        "the CPU split this many ways)")
     p.add_argument("--passthrough", action="store_const", const=True, default=False,
                    help="keep original samples on known frames (raised-cosine "
                         "crossfade at gap boundaries); default = reference-"
@@ -306,8 +303,8 @@ def parse_args(argv=None):
     p.add_argument("--stream_idle_s", type=float, default=600.0)
     p.add_argument("--data_shards", type=int, default=0,
                    help="shard the /enhance micro-batch over a data mesh "
-                        "of this many devices (0 = single device; more than "
-                        "1 needs the parallel layer, not ported yet)")
+                        "of this many devices (0 = single device; on the CPU "
+                        "the CPU split this many ways)")
     p.add_argument("--passthrough", action="store_const", const=True, default=False,
                    help="keep original samples on known frames (raised-cosine "
                         "crossfade at gap boundaries); default = reference-"
@@ -339,7 +336,6 @@ def main(argv=None):
     args = parse_args(argv)
     name = args.subparser_name
     device = args.device
-    _refuse_parallel(args)
 
     if name == "dataset_generator":
         from avsi_torch.data.generator import create_syn_dataset
@@ -387,6 +383,7 @@ def main(argv=None):
             args.batch_size, args.feat_mean, args.feat_std, device=device,
         )
     elif name in ("training", "training_asr"):
+        _maybe_init_distributed(args, device)
         from avsi_torch.train.loop import train_or_exit
 
         train_or_exit(args.config, is_asr=name == "training_asr", device=device)
@@ -469,7 +466,7 @@ def main(argv=None):
             args.model_path, args.host, args.port,
             max_streams=args.max_streams, stream_idle_s=args.stream_idle_s,
             micro_batch=args.micro_batch, phase_recon=args.phase_recon,
-            gl_iters=args.gl_iters, passthrough=args.passthrough,
+            gl_iters=args.gl_iters, data_shards=args.data_shards, passthrough=args.passthrough,
             gap_atten=_gap_atten_opts(args), lstm_impl=_lstm_impl(args), device=device,
         )
         try:

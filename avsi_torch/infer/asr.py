@@ -23,9 +23,10 @@ from avsi_torch.data.reader import DataManager
 from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
-from avsi_torch.infer.inpaint import compact_batch, expand_batch, load_model_bundle
+from avsi_torch.infer.inpaint import load_model_bundle
 from avsi_torch.models import asr as asr_model
 from avsi_torch.ops import ctc as ctc_ops
+from avsi_torch.parallel.mesh import compact_batch, expand_batch
 
 
 def make_asr_step(config: dict, stats: tuple, apply_mask: bool, use_beam: bool, device=None):

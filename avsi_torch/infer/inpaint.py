@@ -1,5 +1,4 @@
-"""Batch inpainting inference (port of `avsi/infer/inpaint.py`, with the
-host-side batch compaction of `avsi/parallel/mesh.py:123-178`).
+"""Batch inpainting inference (port of `avsi/infer/inpaint.py`).
 
 `load_model_bundle` reads a self-contained checkpoint directory (the
 reference's layout: `config.txt`, `audio_features_{mean,std}.npy`,
@@ -9,9 +8,10 @@ per-sample losses, the optional gap attenuation, waveform reconstruction,
 the optional known-region passthrough, int16 clip.  `infer()` enhances a
 TFRecord test set and writes `<audio_path>/<sample>/enhanced/<prefix>.wav`,
 int16, trimmed to seq_len * the model's hop (192 samples for the BLSTMs,
-128 for the U-Nets), with one batch in flight.
-
-Not in this slice: `infer(data_shards > 1)` (data-parallel meshes).
+128 for the U-Nets), with one batch in flight.  `infer(data_shards=N)`
+splits each batch over an N-shard data mesh (`make_infer_step(mesh=)`):
+each shard's rows run on its device, K1 + K2 per shard on a card, and the
+results are concatenated, so the files are those of `data_shards=0`.
 """
 
 from __future__ import annotations
@@ -33,64 +33,9 @@ from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import lstm_fused
 from avsi_torch.ops import postfilter
+from avsi_torch.parallel import mesh as mesh_lib
 from avsi_torch.train import checkpoints
 from avsi_torch.utils import wav as wavio
-
-# the fields of a host batch that the device step reads
-DEVICE_BATCH_KEYS = ("sequence_lengths", "labels_lengths", "target_sources", "labels",
-                     "video_features", "masks", "mask_frames", "embeddings")
-
-
-def device_batch(batch: dict) -> dict:
-    """Strip the host-only fields (sample paths, `num_real`) from a batch."""
-    return {k: v for k, v in batch.items() if k in DEVICE_BATCH_KEYS}
-
-
-def compact_batch(batch: dict) -> dict:
-    """Shrink a host batch before its upload: time-gap masks (every bin of a
-    frame zeroed together) travel as one int8 per frame (`mask_frames`),
-    int16-valued waves as int16, video as f16.  Falls back silently where an
-    assumption does not hold: a mask that is not bin-uniform, or soft (its
-    values would not survive int8), stays f32, and so does a wave with
-    non-integer values.  `expand_batch` restores the rest inside the step."""
-    out = device_batch(batch)
-    m = out.get("masks")
-    if m is not None and m.ndim == 3:
-        m = np.asarray(m)
-        mf = m[:, :, 0]
-        mi = mf.astype(np.int8)
-        if np.array_equal(mi.astype(m.dtype), mf) and np.array_equal(
-            m, np.broadcast_to(mf[:, :, None], m.shape)
-        ):
-            out["mask_frames"] = mi
-            del out["masks"]
-    w = out.get("target_sources")
-    if w is not None:
-        w = np.asarray(w)
-        if w.dtype == np.float32 and np.abs(w).max() < 32767.5:
-            wi = w.astype(np.int16)
-            if np.array_equal(wi.astype(np.float32), w):
-                out["target_sources"] = wi
-    v = out.get("video_features")
-    if v is not None and np.asarray(v).dtype == np.float32:
-        out["video_features"] = np.asarray(v).astype(np.float16)
-    return out
-
-
-def expand_batch(batch: dict, audio_feat_dim: int) -> dict:
-    """Inverse of `compact_batch`, on the device: per-frame int8 masks ->
-    (B, T, audio_feat_dim) f32 masks; int16 waves and f16 video -> f32."""
-    out = dict(batch)
-    mf = out.pop("mask_frames", None)
-    if mf is not None:
-        out["masks"] = mf.float()[:, :, None].expand(
-            mf.shape[0], mf.shape[1], audio_feat_dim
-        )
-    out["target_sources"] = out["target_sources"].float()
-    if "video_features" in out:
-        out["video_features"] = out["video_features"].float()
-    return out
-
 
 def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto",
                       device=None, is_asr: bool = False):
@@ -127,22 +72,27 @@ def load_model_bundle(model_path: str, norm: bool = True, lstm_impl: str = "auto
 
 def make_infer_step(model, config, stats, oracle_phase: bool, phase_recon: str,
                     gl_iters: int, gl_opts: dict | None = None, passthrough: bool = False,
-                    gap_atten: dict | None = None, device=None):
+                    gap_atten: dict | None = None, device=None,
+                    mesh: mesh_lib.Mesh | None = None):
     """Step `(params, batch) -> (wav int16 (B, audio_len), loss (B,), hole loss (B,))`
     over a compact batch of numpy arrays or tensors (pinned CPU tensors are
     uploaded without blocking the host).
 
     gap_atten {"alpha", "trust", "ramp"} attenuates deep-gap magnitudes
     after the per-sample losses and before the waveform; passthrough blends
-    the original samples back on known frames before the int16 clip."""
+    the original samples back on known frames before the int16 clip.
+
+    mesh: a data mesh; the batch is uploaded to `device`, split over the
+    data shards (B must divide), each shard's rows run with the params
+    replicated on its device, and the results are concatenated on
+    `device`.  Utterances are independent, so the shards exchange nothing."""
     device = resolve_device(device)
-    stats_t = tuple(torch.as_tensor(s, dtype=torch.float32).to(device) for s in stats)
+    devs = mesh.data_devices if mesh is not None else [device]
+    stats_on = {d: tuple(torch.as_tensor(s, dtype=torch.float32).to(d) for s in stats)
+                for d in set(devs)}
     af = int(config["audio_feat_dim"])
 
-    @torch.inference_mode()
-    def step(params, batch):
-        batch = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
-        batch = expand_batch(batch, af)
+    def run(params, batch, stats_t):
         out = model.forward(params, batch, config, stats_t)
         loss_ps, hole_ps = common.per_sample_losses(out, batch)
         if gap_atten:
@@ -153,6 +103,16 @@ def make_infer_step(model, config, stats, oracle_phase: bool, phase_recon: str,
         if passthrough:
             wav = common.apply_passthrough(model, wav, batch)
         return torch.clamp(wav, -32768, 32767).to(torch.int16), loss_ps, hole_ps
+
+    @torch.inference_mode()
+    def step(params, batch):
+        batch = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+        batch = mesh_lib.expand_batch(batch, af)
+        if mesh is None:
+            return run(params, batch, stats_on[device])
+        parts = [run(p, b, stats_on[d]) for d, p, b in zip(
+            devs, mesh_lib.replicate(params, mesh), mesh_lib.split_batch(batch, mesh))]
+        return tuple(mesh_lib.concat(list(r), device) for r in zip(*parts))
 
     return step
 
@@ -186,10 +146,13 @@ def infer(
     "loss_hole", "utt_per_sec"}, the losses the means of the per-utterance
     losses."""
     batch_size = batch_size or 1
-    if data_shards and int(data_shards) > 1:
-        raise NotImplementedError("infer(data_shards > 1): data-parallel meshes are not "
-                                  "ported yet")
     device = resolve_device(device)
+    mesh = None
+    if data_shards and int(data_shards) > 1:
+        if batch_size % int(data_shards):
+            raise ValueError(f"batch_size {batch_size} not divisible by data_shards {data_shards}")
+        mesh = mesh_lib.get_mesh(int(data_shards), mesh_lib.entry_devices(device, int(data_shards)))
+        device = mesh.data_devices[0]
     config, stats, model, params = load_model_bundle(model_path, norm, lstm_impl=lstm_impl,
                                                      device=device)
     dm = DataManager(
@@ -202,7 +165,7 @@ def infer(
     if not files:
         raise ValueError(f"no tfrecords under {data_path_test}")
     step = make_infer_step(model, config, stats, oracle_phase, phase_recon, gl_iters, gl_opts,
-                           passthrough, gap_atten, device=device)
+                           passthrough, gap_atten, device=device, mesh=mesh)
     hop = model.frame_step
 
     def write_one(path, data):
@@ -214,7 +177,7 @@ def infer(
     with ThreadPoolExecutor(max_workers=8) as pool:
         for batch, (wav, loss, hole) in common.pipelined(
                 dm.prefetch_batches(files, batch_size, pad_final=True),
-                lambda b: step(params, common.upload_source(compact_batch(b), device))):
+                lambda b: step(params, common.upload_source(mesh_lib.compact_batch(b), device))):
             n_real = batch.get("num_real", len(batch["sequence_lengths"]))
             losses.extend(loss[:n_real].tolist())
             holes.extend(hole[:n_real].tolist())

@@ -25,8 +25,8 @@ from avsi_torch.data.reader import DataManager
 from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import common
-from avsi_torch.infer.inpaint import compact_batch, expand_batch
 from avsi_torch.ops import stft as stft_ops
+from avsi_torch.parallel.mesh import compact_batch, expand_batch
 from avsi_torch.utils import wav as wavio
 
 

@@ -23,10 +23,11 @@ from avsi_torch.data.tfrecord import list_tfrecord_files
 from avsi_torch.device import resolve_device
 from avsi_torch.infer import asr as asr_infer
 from avsi_torch.infer import common
-from avsi_torch.infer.inpaint import compact_batch, expand_batch, load_model_bundle
+from avsi_torch.infer.inpaint import load_model_bundle
 from avsi_torch.models import asr as asr_model
 from avsi_torch.ops import ctc as ctc_ops
 from avsi_torch.ops import postfilter
+from avsi_torch.parallel.mesh import compact_batch, expand_batch
 from avsi_torch.utils import wav as wavio
 
 

@@ -28,9 +28,10 @@ front end runs on the device through the matmul-DFT STFT).  Both take
 `device=None`, which means `cuda`, and raise without a card.  Both take the
 two deployment levers of the offline path: `gap_atten`, the causal twin of
 the gap-attenuation postfilter inside the window step, and `passthrough`,
-the known-region blend of the raw pushed samples on the host.  Fleet
-meshes are not ported yet and raise.  The reference's `program_cache` has
-no meaning without tracing, and is dropped.
+the known-region blend of the raw pushed samples on the host.  A fleet
+can be split over a data mesh (`stream_utterances_lockstep(mesh=...)`):
+each shard's streams run on its device, window by window in lockstep.  The
+reference's `program_cache` has no meaning without tracing, and is dropped.
 """
 
 from __future__ import annotations
@@ -131,9 +132,19 @@ def resolve_window(config: dict, chunk_frames, lookahead_frames) -> tuple[int, i
     return chunk, look
 
 
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not getattr(mesh, "shape", {}).get("data", 0):
+        raise ValueError("mesh must carry a 'data' axis")
+
+
 def resolve_stream_impl(requested: str | None, device, gate_dtype, widths,
-                        compute_dtype) -> str:
+                        compute_dtype, mesh=None) -> str:
     """Streaming's `lstm_impl` policy -> "kernel", "plain" or "scan".
+
+    mesh: a fleet's mesh, which must carry a `data` axis (ValueError).  The
+    reference keeps the scan under a model axis because its kernel needs
+    whole params; here every data shard holds whole params, so the policy
+    below holds on any mesh and K5 runs once per shard per layer.
 
     "auto" runs the LC window kernel K5 on a CUDA device and its plain
     version on the CPU, but the scan under bf16 gates: the kernel evaluates
@@ -144,6 +155,7 @@ def resolve_stream_impl(requested: str | None, device, gate_dtype, widths,
     "kernel" raise for a width without a launch plan.  "kernel" off CUDA,
     and "plain" on CUDA, are refused.  gate_dtype: the effective gate
     dtype."""
+    _check_mesh(mesh)
     req = (requested or "auto").lower()
     if req == "auto" and gate_dtype == torch.bfloat16:
         return "scan"
@@ -203,7 +215,7 @@ class _ProgSpec:
 
 
 def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device,
-          gap_atten=None) -> _ProgSpec:
+          gap_atten=None, mesh=None) -> _ProgSpec:
     spec = blstm_lib.parse_model_name(config["model"])
     if transcript and not spec.ctc:
         raise ValueError(
@@ -215,7 +227,8 @@ def _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device,
         chunk=chunk, compute_dtype=cdt, gate_dtype=gdt,
         stats=tuple(torch.as_tensor(np.asarray(s, np.float32)).to(device) for s in stats),
         transcript=bool(transcript), phase_fill=bool(phase_fill),
-        lstm_impl=resolve_stream_impl(lstm_impl, device, gdt or cdt, config["net_dim"], cdt),
+        lstm_impl=resolve_stream_impl(lstm_impl, device, gdt or cdt, config["net_dim"], cdt,
+                                      mesh),
         gap_atten=gap_atten,
     )
 
@@ -855,14 +868,21 @@ def stream_utterances_lockstep(
     distances of the gap attenuation come from the whole masks on the host
     and are uploaded with them; the passthrough blends the whole utterances
     at the end, which equals the single stream's per-chunk blend (the
-    weight's reach is one frame).  mesh: not ported yet, raises."""
-    if mesh is not None:
-        raise NotImplementedError("lockstep fleets over a mesh are not ported yet")
-    device = resolve_device(device)
+    weight's reach is one frame).
+
+    mesh: a `parallel.mesh.Mesh` with a `data` axis (B must divide it).
+    Each data shard's streams, their planes and their state live on its
+    device, with the params replicated there; every window runs each
+    shard's window step (K5 per shard per layer on a card), then fetches
+    each shard's samples, so the shards advance in lockstep.  The streams
+    are independent: the result is the unsharded fleet's."""
+    _check_mesh(mesh)
+    devices = [resolve_device(d) for d in (mesh.data_devices if mesh is not None else [device])]
     chunk, look = resolve_window(config, chunk_frames, lookahead_frames)
     gap_atten = _norm_gap_atten(gap_atten)
-    prog = _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, device, gap_atten)
-    spec = prog.spec
+    progs = {d: _prog(config, stats, chunk, transcript, phase_fill, lstm_impl, d, gap_atten,
+                      mesh) for d in set(devices)}
+    spec = progs[devices[0]].spec
     af, vf = int(config["audio_feat_dim"]), int(config["video_feat_dim"])
     window_n = chunk + look
     b_sz, n_samples = waves.shape
@@ -876,7 +896,9 @@ def stream_utterances_lockstep(
         raise ValueError("model needs external speaker embeddings")
     if spec.input_type != "a" and videos is None:
         raise ValueError("model consumes video features")
-    params = core.tree_to(params, device)
+    if b_sz % len(devices):
+        raise ValueError(f"fleet size {b_sz} not divisible by the mesh data axis "
+                         f"({len(devices)})")
 
     # global planes in extended coordinates: EXT zero frames of left
     # context, the stream, then pad_end zeros / intact masks
@@ -902,10 +924,18 @@ def stream_utterances_lockstep(
         host["video"][:, :t_frames] = videos
     if spec.conditioning == "emb":
         host["embedding"] = np.asarray(embeddings, np.float32)
-    glob = _upload(host, device)
 
-    hidden = [p["wh"].shape[1] for p, _ in _layer_list(params, spec, prog.int_layer)]
-    carries, prev, ssnn_sum, ssnn_cnt = _zero_state(hidden, b_sz, af, device)
+    # one shard per data device: its rows of every plane, its params and
+    # its state, uploaded once
+    per = b_sz // len(devices)
+    shards = []
+    for i, d in enumerate(devices):
+        rows = slice(i * per, (i + 1) * per)
+        sp = core.tree_to(params, d)
+        hidden = [p["wh"].shape[1] for p, _ in _layer_list(sp, spec, progs[d].int_layer)]
+        shards.append({"device": d, "params": sp,
+                       "glob": _upload({k: v[rows] for k, v in host.items()}, d),
+                       "state": _zero_state(hidden, per, af, d)})
     raw_len = (ext_frames - 1) * FRAME_STEP + FRAME_LENGTH
     outs, id_chunks = [], []
     deltas_done = 0
@@ -915,30 +945,37 @@ def stream_utterances_lockstep(
     real_frames = max(0, (n_samples - FRAME_LENGTH) // FRAME_STEP + 1)
     for t0 in range(0, t_frames, chunk):
         final = t0 + window_n > real_frames
-        raw = {
-            "samples": glob["samples"][:, t0 * FRAME_STEP : t0 * FRAME_STEP + raw_len],
-            "mask_ext": glob["mask"][:, t0 : t0 + ext_frames],
-            "t_valid": min(_EXT_CTX + t_frames - t0, ext_frames),
-            "video": glob["video"][:, t0 : t0 + window_n] if "video" in glob else None,
-        }
-        if "embedding" in glob:
-            raw["embedding"] = glob["embedding"]
-        if "gap_ld" in glob:
-            raw["gap_ld"] = glob["gap_ld"][:, t0]
-            raw["gap_valid"] = min(t_frames - t0, window_n)
+        numbers = {"t_valid": min(_EXT_CTX + t_frames - t0, ext_frames)}
+        if gap_atten is not None:
+            numbers["gap_valid"] = min(t_frames - t0, window_n)
         if spec.conditioning == "ssnn":
             visible = min(t0 + window_n, t_frames)
             upto = visible if final else max(0, visible - _DELTA_N)
-            raw["fold_lo"] = _EXT_CTX + deltas_done - t0
-            raw["fold_n"] = float(max(0, upto - deltas_done))
-            raw["clamp_lo"] = max(0, _EXT_CTX - t0)
-            raw["clamp_hi"] = _EXT_CTX + (t_frames - 1 - t0) if final else ext_frames - 1
+            numbers["fold_lo"] = _EXT_CTX + deltas_done - t0
+            numbers["fold_n"] = float(max(0, upto - deltas_done))
+            numbers["clamp_lo"] = max(0, _EXT_CTX - t0)
+            numbers["clamp_hi"] = _EXT_CTX + (t_frames - 1 - t0) if final else ext_frames - 1
             deltas_done = upto
-        wav, _, _, carries, prev, ssnn_sum, ssnn_cnt, ids = _window_step_raw(
-            prog, params, raw, carries, prev, ssnn_sum, ssnn_cnt)
-        wav_h, ids_h = _fetch(wav, ids)
-        outs.append(wav_h)
-        id_chunks.append(ids_h)
+        results = []
+        for sh in shards:
+            glob = sh["glob"]
+            raw = {
+                "samples": glob["samples"][:, t0 * FRAME_STEP : t0 * FRAME_STEP + raw_len],
+                "mask_ext": glob["mask"][:, t0 : t0 + ext_frames],
+                "video": glob["video"][:, t0 : t0 + window_n] if "video" in glob else None,
+                **numbers,
+            }
+            if "embedding" in glob:
+                raw["embedding"] = glob["embedding"]
+            if "gap_ld" in glob:
+                raw["gap_ld"] = glob["gap_ld"][:, t0]
+            wav, _, _, carries, prev, ssnn_sum, ssnn_cnt, ids = _window_step_raw(
+                progs[sh["device"]], sh["params"], raw, *sh["state"])
+            sh["state"] = (carries, prev, ssnn_sum, ssnn_cnt)
+            results.append((wav, ids))
+        fetched = [_fetch(wav, ids) for wav, ids in results]
+        outs.append(np.concatenate([w for w, _ in fetched]))
+        id_chunks.append(np.concatenate([i for _, i in fetched]))
     wav_out = np.concatenate(outs, axis=1)[:, : t_frames * FRAME_STEP]
     if passthrough:
         num = wav_out.shape[1]

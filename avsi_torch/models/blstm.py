@@ -29,6 +29,7 @@ from avsi_torch.ops import lstm_fused
 from avsi_torch.ops import mel as mel_ops
 from avsi_torch.ops import stft as stft_ops
 from avsi_torch.ops.masks import sequence_mask
+from avsi_torch.parallel import mesh as mesh_lib
 
 SSNN_DIM = 200
 
@@ -289,10 +290,13 @@ def losses(outputs: dict, batch: dict, config: dict, spec: BLSTMSpec | None = No
     spec = spec or parse_model_name(config["model"])
     masks = batch["masks"]
     diff = torch.abs(outputs["target_spec_norm"] - outputs["prediction"])
-    # max(denom, 1): a hole-free (or fully masked) batch yields 0, not NaN
-    loss_hole = torch.sum(diff * (1 - masks)) / torch.clamp(torch.sum(1 - masks), min=1.0)
-    loss_valid = torch.sum(diff * masks) / torch.clamp(torch.sum(masks), min=1.0)
-    loss_func = loss_hole if spec.loss_on_hole_only else torch.mean(diff)
+    # max(denom, 1): a hole-free (or fully masked) batch yields 0, not NaN;
+    # a shard of a sharded step divides by the global batch's denominators
+    hole_den = mesh_lib.batch_total("hole", torch.sum(1 - masks))
+    valid_den = mesh_lib.batch_total("mask", torch.sum(masks))
+    loss_hole = torch.sum(diff * (1 - masks)) / torch.clamp(hole_den, min=1.0)
+    loss_valid = torch.sum(diff * masks) / torch.clamp(valid_den, min=1.0)
+    loss_func = loss_hole if spec.loss_on_hole_only else mesh_lib.batch_mean(diff)
     out = {"loss_hole": loss_hole, "loss_valid": loss_valid}
     if spec.ctc:
         out["ctc_loss"] = ctc_ops.ctc_loss(

@@ -30,6 +30,7 @@ import math
 import torch
 
 from avsi_torch.ops import lstm_fused, lstm_train
+from avsi_torch.parallel import mesh as mesh_lib
 
 
 def truncated_normal_init(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
@@ -284,9 +285,16 @@ def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout (`avsi/models/core.py:420-425`): keep each element
     with probability 1 - rate and scale it by 1 / (1 - rate).  `gen` draws
-    the keep mask on x's device."""
+    the keep mask on x's device.  A shard of a sharded step draws the
+    global batch's mask and keeps its own rows, so the shards together
+    drop what the unsharded step drops."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    ctx = mesh_lib.shard_context()
+    if ctx is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        mask = torch.rand((ctx.global_rows, *x.shape[1:]), generator=gen,
+                          device=x.device)[ctx.rows] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

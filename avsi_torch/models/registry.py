@@ -35,6 +35,9 @@ class ModelDef:
     # U-Nets' batch-norm running statistics) into the params' leaves in
     # place, after the optimizer update
     apply_aux_update: Callable | None = None
+    # the forward reduces over the batch (batch norm): the shards of a
+    # sharded train step run in lockstep (`parallel.mesh.run_shards`)
+    lockstep_shards: bool = False
     # STFT geometry of the model's front end (frame_length, frame_step, fft_length)
     frame_length: int = 384
     frame_step: int = 192
@@ -48,6 +51,7 @@ def get_model(name: str) -> ModelDef:
         return ModelDef(
             name, mod.init, mod.forward, mod.losses, mod.enhanced_sources,
             apply_aux_update=lambda p, out: mod.apply_bn_update(p, out["bn_stats"]),
+            lockstep_shards=True,
             frame_length=unet.FRAME_LENGTH, frame_step=unet.FRAME_STEP,
             fft_length=unet.FFT_LENGTH,
         )

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from avsi_torch.models import core
 from avsi_torch.ops import stft as stft_ops
 from avsi_torch.ops.masks import sequence_mask
+from avsi_torch.parallel import mesh as mesh_lib
 
 FRAME_LENGTH, FRAME_STEP, FFT_LENGTH = 256, 128, 256
 BN_EPS, BN_MOMENTUM = 1e-3, 0.99
@@ -116,10 +117,19 @@ def _ch(v: torch.Tensor) -> torch.Tensor:
 
 def _batch_norm(p: dict, x: torch.Tensor, train: bool) -> tuple[torch.Tensor, dict]:
     """tf.layers.batch_normalization over (N, H, W) of NCHW `x`. Returns
-    (y, the running statistics after this step, detached)."""
-    if train:
+    (y, the running statistics after this step, detached).  A shard of a
+    sharded step takes the moments of the global batch through the
+    context's differentiable `all_sum` (mean first, then the centered
+    squares, as the one-device two-pass variance)."""
+    ctx = mesh_lib.shard_context() if train else None
+    if ctx is not None:
+        count = x.numel() // x.shape[1] / (ctx.rows.stop - ctx.rows.start) * ctx.global_rows
+        mean = ctx.all_sum(x.sum(dim=(0, 2, 3))) / count
+        var = ctx.all_sum(((x - _ch(mean)) ** 2).sum(dim=(0, 2, 3))) / count
+    elif train:
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), correction=0)
+    if train:
         new = {"mean": (BN_MOMENTUM * p["mean"] + (1 - BN_MOMENTUM) * mean).detach(),
                "var": (BN_MOMENTUM * p["var"] + (1 - BN_MOMENTUM) * var).detach()}
     else:
@@ -199,12 +209,15 @@ def forward(params: dict, batch: dict, config: dict, stats: tuple, train: bool =
 
 
 def losses(outputs: dict, batch: dict, config: dict) -> dict:
+    """A shard of a sharded step divides by the global batch's denominators."""
     masks = batch["masks"]
     diff = torch.abs(outputs["target_spec_norm"] - outputs["prediction"])
+    hole_den = mesh_lib.batch_total("hole", torch.sum(1 - masks))
+    valid_den = mesh_lib.batch_total("mask", torch.sum(masks))
     return {
-        "loss_hole": torch.sum(diff * (1 - masks)) / torch.clamp(torch.sum(1 - masks), min=1.0),
-        "loss_valid": torch.sum(diff * masks) / torch.clamp(torch.sum(masks), min=1.0),
-        "loss": torch.mean(diff),
+        "loss_hole": torch.sum(diff * (1 - masks)) / torch.clamp(hole_den, min=1.0),
+        "loss_valid": torch.sum(diff * masks) / torch.clamp(valid_den, min=1.0),
+        "loss": mesh_lib.batch_mean(diff),
     }
 
 

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from avsi_torch.ops import _build
+from avsi_torch.parallel import mesh as mesh_lib
 
 LOG_EPSILON = -1e5  # optax.ctc_loss's log(+0)
 
@@ -132,8 +133,10 @@ def ctc_loss(
     label_lengths: torch.Tensor,
     infeasible: np.ndarray | None = None,
 ) -> torch.Tensor:
-    """Mean CTC negative log-likelihood (see ctc_loss_per_seq)."""
-    return ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths, infeasible).mean()
+    """Mean CTC negative log-likelihood (see ctc_loss_per_seq); a shard of a
+    sharded step takes its share of the global batch's mean."""
+    return mesh_lib.batch_mean(
+        ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths, infeasible))
 
 
 def greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor) -> torch.Tensor:

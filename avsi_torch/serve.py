@@ -41,7 +41,9 @@ CTC models can ask for framed incremental transcripts with `transcript=1`):
 
 At most `max_streams` sessions live at once (429 beyond); a session idle
 for `stream_idle_s` is reaped (404 afterwards, as for an unknown id).
-`/enhance` and every stream push take one device lock.  The service-wide
+`/enhance` and every stream push take one device lock.  With
+`data_shards > 1` the /enhance micro-batch is split over a data mesh.  The
+service-wide
 `passthrough` and `gap_atten` options apply to /enhance (the offline
 levers) and to every stream (their causal twins).
 """
@@ -62,6 +64,7 @@ from avsi_torch.device import resolve_device
 from avsi_torch.infer.inpaint import load_model_bundle, make_infer_step
 from avsi_torch.infer.streaming import StreamingInpainter
 from avsi_torch.models.blstm import parse_model_name
+from avsi_torch.parallel import mesh as mesh_lib
 from avsi_torch.train.checkpoints import named_leaves
 
 # the configuration keys a reload must keep: the shapes of requests and weights
@@ -87,16 +90,34 @@ class InpaintingService:
         phase_recon: str = "gl",
         gl_iters: int = 30,
         norm: bool = True,
+        data_shards: int = 0,
         passthrough: bool = False,
         gap_atten: dict | None = None,
         lstm_impl: str = "auto",
         device=None,
+        mesh_devices=None,
     ):
         """passthrough and gap_atten ({"alpha", "trust", "ramp"}) are the
         service-wide deployment levers: the offline ones on /enhance, their
         causal twins on every stream unless `open_stream(gap_atten=...)`
-        says otherwise."""
+        says otherwise.
+
+        data_shards > 1 splits the /enhance micro-batch over a data mesh
+        (`make_infer_step(mesh=)`: params replicated, each shard's rows on
+        its device, nothing exchanged), built over `mesh_devices` (default:
+        every visible card once, or on the CPU the CPU split that many
+        ways).  Live streams keep their single-device state; a fleet shards
+        through `stream_utterances_lockstep(mesh=...)`."""
         self.device = resolve_device(device)
+        self.mesh = None
+        if data_shards and int(data_shards) > 1:
+            if micro_batch % int(data_shards):
+                raise ValueError(f"micro_batch {micro_batch} not divisible by "
+                                 f"data_shards {data_shards}")
+            self.mesh = mesh_lib.get_mesh(int(data_shards), mesh_devices if mesh_devices
+                                          is not None else mesh_lib.entry_devices(
+                                              self.device, int(data_shards)))
+            self.device = self.mesh.data_devices[0]
         self._lstm_impl = lstm_impl
         self._model_path, self._norm = model_path, norm
         self._phase_recon, self._gl_iters = phase_recon, gl_iters
@@ -126,7 +147,7 @@ class InpaintingService:
     def _make_step(self, model, config, stats):
         return make_infer_step(model, config, stats, False, self._phase_recon, self._gl_iters,
                                passthrough=self._passthrough, gap_atten=self._gap_atten,
-                               device=self.device)
+                               device=self.device, mesh=self.mesh)
 
     def reload(self, model_path: str | None = None) -> int:
         """Hot-swap the weights from `model_path` (default: the checkpoint

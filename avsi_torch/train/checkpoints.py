@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from avsi_torch.data import stats as stats_lib
+from avsi_torch.parallel import distributed
+from avsi_torch.parallel import mesh as mesh_lib
 
 _EXTRA = "__extra__/"
 
@@ -94,14 +96,22 @@ def params_from_flat(flat: dict, device="cpu") -> dict:
 def save_checkpoint(ckpt_dir: str, name: str, params, step: int = 0,
                     train_state=None) -> str:
     """Write `<ckpt_dir>/<name>.npz`, and with a `train_state` its
-    optimizer state to `<name>.opt.npz`; returns the prefix."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    optimizer state to `<name>.opt.npz`; returns the prefix.
+
+    Model-sharded leaves (`parallel.mesh.ModelShards`) are gathered whole
+    first, so the archive has an unsharded run's keys and shapes.  In a
+    `torch.distributed` job every rank calls this and only rank 0 writes."""
     prefix = os.path.join(ckpt_dir, name)
-    flat = params_to_flat(params)
+    flat = params_to_flat(mesh_lib.gather_tree(params))
     flat[_EXTRA + "step"] = np.asarray(step)
+    opt_flat = (opt_state_to_flat(mesh_lib.gather_state(train_state))
+                if train_state is not None else None)
+    if not distributed.is_main():
+        return prefix
+    os.makedirs(ckpt_dir, exist_ok=True)
     np.savez(prefix, **flat)
-    if train_state is not None:
-        np.savez(prefix + ".opt", **opt_state_to_flat(train_state))
+    if opt_flat is not None:
+        np.savez(prefix + ".opt", **opt_flat)
     return prefix
 
 

@@ -22,12 +22,12 @@ latency-controlled model that the streams serve: training and validation
 run the LC stack (`models/core.lc_blstm_stack`, an eager scan under
 autograd, as the reference scans it whatever `lstm_impl` says).  Train and
 validation batches reach the device as the reference's `place` sends them:
-compacted on the host (`inpaint.compact_batch`: time-gap masks as int8
+compacted on the host (`mesh.compact_batch`: time-gap masks as int8
 frames, int16-valued waves as int16, video as f16), uploaded, and expanded
-inside the step (`expand_batch`).  The compaction is lossless for the masks
-and the waves, but it rounds the video to f16, so the model trains on the
-reference's inputs only because it takes the same route.  The TensorBoard
-media batch is uploaded uncompacted, as in the reference.
+inside the step (`mesh.expand_batch`).  The compaction is lossless for the
+masks and the waves, but it rounds the video to f16, so the model trains on
+the reference's inputs only because it takes the same route.  The
+TensorBoard media batch is uploaded uncompacted, as in the reference.
 
 `device_cache_corpus = 1` (with more than one epoch), or a `corpus_cache`
 dict shared across `train()` calls, keeps the corpus on the device: epoch 0
@@ -51,14 +51,30 @@ traces steps 3..3+N of epoch 0 with `torch.profiler` into
 validation, writes the resume checkpoint `ckpt` with its optimizer sidecar
 and returns `preempted: True` (`train_or_exit` then exits with 143).
 
-Not ported yet, refused with NotImplementedError where a config asks for
-them: data-parallel and tensor-parallel meshes and multi-host runs.
+Meshes and processes (`avsi_torch/parallel`).  A config's
+`num_data_shards` / `num_model_shards` build a mesh over the process's
+devices (`train(devices=...)`, default every visible card, or the CPU
+once); when the batch divides the data axis, each step splits the batch
+over the data shards and computes what the one-device step computes on the
+whole batch: each shard's losses carry the global batch's denominators,
+batch norm reduces its moments over every shard, dropout keeps each
+shard's rows of the global mask, and the shards' gradients are summed.
+A model axis stores the params and their optimizer state in
+`param_spec` pieces (`mesh.shard_state`).  Under `torch.distributed`
+(`distributed.initialize`, before `train()`) every rank runs this function:
+it reads its own file shard, the ranks agree on the steps per epoch (the
+least) and the validation batches (the most, padded with `num_real=0`
+fillers), the gradients, losses and validation sums are summed over the
+ranks, a SIGTERM is agreed every 10 steps and at the end of an epoch, every
+batch's compaction signature is checked to agree, and only rank 0 writes
+the bundle, the logs, TensorBoard and checkpoints (every rank gathers).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import os
 import signal
@@ -69,24 +85,39 @@ import numpy as np
 import torch
 
 from avsi_torch import config as config_lib
+from avsi_torch.data import stats as stats_lib
 from avsi_torch.data.reader import DataManager
-from avsi_torch.data.tfrecord import list_tfrecord_files
+from avsi_torch.data.tfrecord import count_records, list_tfrecord_files
 from avsi_torch.device import resolve_device
-from avsi_torch.infer import common, inpaint
+from avsi_torch.infer import common
 from avsi_torch.models import asr as asr_model
 from avsi_torch.models import blstm as blstm_lib
 from avsi_torch.models import registry
 from avsi_torch.ops import ctc as ctc_ops
 from avsi_torch.ops import lstm_fused
+from avsi_torch.parallel import distributed
+from avsi_torch.parallel import mesh as mesh_lib
 from avsi_torch.train import checkpoints
 from avsi_torch.train import state as state_lib
 from avsi_torch.train.tb import SummaryWriter
 
 
-def _log(logfile: str, msg: str) -> None:
+def _log(logfile: str | None, msg: str) -> None:
+    """Print; and append to `logfile` (None on the ranks that write nothing)."""
     print(msg, flush=True)
-    with open(logfile, "a") as f:
-        f.write(msg + "\n")
+    if logfile:
+        with open(logfile, "a") as f:
+            f.write(msg + "\n")
+
+
+class _NullTB:
+    """The TensorBoard sink of the ranks other than 0."""
+
+    def scalar(self, *a, **k): pass
+    def image(self, *a, **k): pass
+    def audio(self, *a, **k): pass
+    def flush(self): pass
+    def close(self): pass
 
 
 @contextlib.contextmanager
@@ -130,18 +161,6 @@ def train_or_exit(*args, **kwargs) -> dict:
     return summary
 
 
-def _refuse_unported(config: dict) -> None:
-    """Raise where the config asks for a mesh, which this port does not do yet."""
-    asks = {
-        "tensor parallelism (num_model_shards > 1)": int(config.get("num_model_shards", 1)) > 1,
-        "data-parallel meshes (num_data_shards > 1)": int(config.get("num_data_shards", 0)) > 1,
-    }
-    for what, asked in asks.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet: it needs the parallel "
-                                      "layer (the reference's avsi/parallel)")
-
-
 _HOST_META_KEYS = ("labels", "labels_lengths", "sequence_lengths")
 
 
@@ -164,7 +183,7 @@ def place(batch: dict, device, compact: bool = True) -> Placed:
     arrays outlive the copy.  compact=False uploads the batch as it is."""
     meta = {k: np.asarray(batch[k]) for k in _HOST_META_KEYS if k in batch}
     meta["num_real"] = batch.get("num_real", len(meta["sequence_lengths"]))
-    host = inpaint.compact_batch(batch) if compact else inpaint.device_batch(batch)
+    host = mesh_lib.compact_batch(batch) if compact else mesh_lib.device_batch(batch)
     device = torch.device(device)
     dev = {k: torch.as_tensor(v).to(device, non_blocking=True)
            for k, v in common.upload_source(host, device).items()}
@@ -177,7 +196,7 @@ def step_input(placed: Placed, audio_feat_dim: int, frame_stack: int = 1) -> dic
     feasibility of each row (`ctc_infeasible`, numpy) so the loss needs no
     device sync to find infeasible alignments.  Feasibility is decided on
     the logits' frames: an ASR model's `frame_stack` k leaves ceil(T / k)."""
-    out = inpaint.expand_batch(placed.dev, audio_feat_dim)
+    out = mesh_lib.expand_batch(placed.dev, audio_feat_dim)
     out["ctc_infeasible"] = asr_model.ctc_infeasible(placed.meta, frame_stack)
     return out
 
@@ -191,12 +210,19 @@ def _stats_on(stats: tuple, device) -> tuple:
     return tuple(torch.as_tensor(np.asarray(s), dtype=torch.float32).to(device) for s in stats)
 
 
-def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
+def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False,
+                    mesh: mesh_lib.Mesh | None = None):
     """Step `(state, batch, gen) -> losses` over a `Placed` batch (or a host
     batch, placed first): forward with train=True, losses, backward, one
     optimizer update of `state` in place, then the model's auxiliary update
     (batch-norm running statistics) into the same leaves.  The gradients
-    stay on the params' `.grad` until the next step."""
+    stay on the params' `.grad` until the next step.
+
+    With a `mesh` (data shards of this process) or inside a
+    `torch.distributed` job the step is sharded (`_sharded_step`); the
+    batch is placed on `device`, the mesh's first device."""
+    if mesh is not None or distributed.active():
+        return _sharded_step(model, config, stats, device, is_asr, mesh)
     stats_t = _stats_on(stats, device)
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
@@ -216,13 +242,100 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
     return train_step
 
 
-def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = False):
+def _generator_like(state: torch.Tensor, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.set_state(state)
+    return gen
+
+
+def _sharded_step(model, config: dict, stats: tuple, device, is_asr: bool,
+                  mesh: mesh_lib.Mesh | None):
+    """The data-parallel train step: the global batch's step, computed per
+    shard.  The batch (this rank's rows) is split over the mesh's data
+    shards (one shard on `device` without a mesh); each shard gathers the
+    whole params onto its device and runs forward and losses under its
+    `ShardContext` (the global loss denominators, its rows of the global
+    dropout mask, each from a copy of `gen` at the step's start, and for
+    batch norm the shards in lockstep), and the backward.  The gradients
+    and the losses, summed over the shards by autograd, are summed over the
+    ranks in one `all_reduce`, then the optimizer updates the (possibly
+    model-sharded) leaves."""
+    shard_devs = mesh.data_devices if mesh is not None else [torch.device(device)]
+    stats_on = {d: _stats_on(stats, d) for d in set(shard_devs)}
+    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
+    lockstep = model.lockstep_shards
+
+    def train_step(state: state_lib.TrainState, batch, gen) -> dict:
+        if not isinstance(batch, Placed):
+            batch = place(batch, device)
+        dev = step_input(batch, af, k)
+        parts = mesh_lib.split_batch(dev, mesh) if mesh is not None else [dev]
+        contexts = mesh_lib.shard_contexts(mesh, len(batch.meta["sequence_lengths"]),
+                                           mesh_lib.batch_totals(dev))
+        state.optimizer.zero_grad(set_to_none=True)
+        gen_state = gen.get_state() if gen is not None else None
+        gens = [None if gen is None else _generator_like(gen_state, d) for d in shard_devs]
+
+        def shard(i: int):
+            d = shard_devs[i]
+            params = mesh_lib.gather_params(state.params, d)
+            out = model.forward(params, parts[i], config, stats_on[d], train=True, gen=gens[i])
+            ldict = model.losses(out, parts[i], config)
+            if not lockstep:
+                ldict["loss"].backward()
+            return out, ldict
+
+        results = mesh_lib.run_shards(contexts, shard, lockstep)
+        if lockstep:
+            torch.stack([ld["loss"].to(device) for _, ld in results]).sum().backward()
+        if gen is not None:
+            gen.set_state(gens[0].get_state())
+        keys = list(results[0][1])
+        losses = torch.stack([sum(ld[key].detach().to(device) for _, ld in results)
+                              for key in keys])
+        leaves = [p for g in state.optimizer.param_groups for p in g["params"]]
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        distributed.all_sum_tensors([p.grad for p in leaves] + [losses])
+        state_lib.apply_gradients(state, config)
+        if model.apply_aux_update is not None:
+            model.apply_aux_update(state.params, results[0][0])
+        return dict(zip(keys, losses))
+
+    return train_step
+
+
+def _eval_outputs(model, config: dict, params, dev: dict, stats_t: tuple, is_asr: bool) -> dict:
+    """Per-sample validation results of one expanded batch on one device."""
+    out = model.forward(params, dev, config, stats_t, train=False)
+    if is_asr:
+        return {"loss_ps": ctc_ops.ctc_loss_per_seq(
+                    out["logits"], out["logit_lengths"], dev["labels"],
+                    dev["labels_lengths"], dev["ctc_infeasible"]),
+                "decoded": asr_model.decode_greedy(out)}
+    total, hole = common.per_sample_losses(out, dev)
+    res = {"loss_ps": total, "loss_hole_ps": hole}
+    if "asr_logits" in out:
+        res["ctc_ps"] = ctc_ops.ctc_loss_per_seq(
+            out["asr_logits"], dev["sequence_lengths"], dev["labels"],
+            dev["labels_lengths"], dev["ctc_infeasible"],
+        )
+        res["decoded"] = ctc_ops.greedy_decode(out["asr_logits"], dev["sequence_lengths"])
+    return res
+
+
+def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = False,
+                   mesh: mesh_lib.Mesh | None = None):
     """Step `(params, batch) -> per-sample results` for validation, over a
     `Placed` batch (or a host batch, placed first):
     per-sample L1 losses, and for CTC models the per-sequence CTC loss and
     the greedy decode (per sample, so the host can drop filler rows); an
-    ASR model's CTC loss and decode on its logit lengths."""
-    stats_t = _stats_on(stats, device)
+    ASR model's CTC loss and decode on its logit lengths.  With a `mesh`
+    each data shard's rows run on its device and the results are
+    concatenated on `device`."""
+    devs = mesh.data_devices if mesh is not None else [torch.device(device)]
+    stats_on = {d: _stats_on(stats, d) for d in set(devs)}
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
     @torch.inference_mode()
@@ -230,21 +343,12 @@ def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = Fal
         if not isinstance(batch, Placed):
             batch = place(batch, device)
         dev = step_input(batch, af, k)
-        out = model.forward(params, dev, config, stats_t, train=False)
-        if is_asr:
-            return {"loss_ps": ctc_ops.ctc_loss_per_seq(
-                        out["logits"], out["logit_lengths"], dev["labels"],
-                        dev["labels_lengths"], dev["ctc_infeasible"]),
-                    "decoded": asr_model.decode_greedy(out)}
-        total, hole = common.per_sample_losses(out, dev)
-        res = {"loss_ps": total, "loss_hole_ps": hole}
-        if "asr_logits" in out:
-            res["ctc_ps"] = ctc_ops.ctc_loss_per_seq(
-                out["asr_logits"], dev["sequence_lengths"], dev["labels"],
-                dev["labels_lengths"], dev["ctc_infeasible"],
-            )
-            res["decoded"] = ctc_ops.greedy_decode(out["asr_logits"], dev["sequence_lengths"])
-        return res
+        if mesh is None:
+            return _eval_outputs(model, config, params, dev, stats_on[devs[0]], is_asr)
+        res = [_eval_outputs(model, config, mesh_lib.gather_params(params, d), part,
+                             stats_on[d], is_asr)
+               for d, part in zip(devs, mesh_lib.split_batch(dev, mesh))]
+        return {key: mesh_lib.concat([r[key] for r in res], device) for key in res[0]}
 
     return eval_step
 
@@ -258,19 +362,33 @@ def _host_per(decoded: np.ndarray, meta: dict) -> float:
     return ctc_ops.per_metric(dec, labs)
 
 
-def _val_batches(dm: DataManager, val_files: list[str], batch_size: int, device):
+def _val_batches(dm: DataManager, val_files: list[str], batch_size: int, place_fn,
+                 pad_to: int | None = None):
     """The placed batches of one validation pass over `pad_final` batches;
-    `meta["num_real"]` marks the rows that count."""
+    `meta["num_real"]` marks the rows that count.  pad_to (a job of several
+    ranks): every rank runs as many eval steps, so a rank with fewer
+    batches repeats its last one with `num_real=0`, which no metric counts."""
+    n, last = 0, None
     for batch in dm.batches(val_files, batch_size, pad_final=True):
-        yield place(batch, device)
+        last = place_fn(batch)
+        n += 1
+        yield last
+    if pad_to is not None and n < pad_to:
+        if last is None:
+            raise ValueError("a host's validation shard is empty but other hosts have "
+                             "batches — regroup the validation split over the hosts")
+        filler = Placed(last.dev, dict(last.meta, num_real=0))
+        for _ in range(pad_to - n):
+            yield filler
 
 
 def _validate(val_batches, eval_step, params, select_hole: bool,
-              is_asr: bool = False) -> tuple[float, str]:
+              is_asr: bool = False, multihost: bool = False) -> tuple[float, str]:
     """Per-epoch validation over placed batches: a window of batches in
     flight (the device runs ahead while the host reads earlier results),
     filler rows dropped.  Returns (selection metric, report): an ASR
-    model's is its PER."""
+    model's is its PER.  multihost: the sums over this rank's rows are
+    summed over the ranks, so every rank reads the same metric."""
     def pipelined(depth=8):
         window: deque = deque()
         for placed in val_batches:
@@ -288,6 +406,13 @@ def _validate(val_batches, eval_step, params, select_hole: bool,
                 losses.extend(res["loss_ps"].cpu().numpy()[:n].tolist())
                 pers.append(_host_per(res["decoded"].cpu().numpy(), meta) * n)
                 weights.append(n)
+        if multihost:
+            s = distributed.allreduce_sum(
+                [np.sum(losses), len(losses), np.sum(pers), np.sum(weights)])
+            if s[3] == 0:
+                return math.inf, "val=none"
+            per = float(s[2] / s[3])
+            return per, f"val_loss={s[0] / s[1]:.5f}\tval_per={per:.5f}"
         if not weights:
             return math.inf, "val=none"
         per = float(np.sum(pers) / np.sum(weights))
@@ -303,6 +428,15 @@ def _validate(val_batches, eval_step, params, select_hole: bool,
             ctcs.append(float(np.sum(res["ctc_ps"].cpu().numpy()[:n])))
             ctc_w.append(n)
             pers.append(_host_per(res["decoded"].cpu().numpy(), meta) * n)
+    if multihost:
+        s = distributed.allreduce_sum([np.sum(tot), len(tot), np.sum(hole),
+                                       np.sum(ctcs), np.sum(ctc_w), np.sum(pers)])
+        if s[1] == 0:
+            return math.inf, "val=none"
+        report = f"val_loss={s[0] / s[1]:.5f}\tval_loss_hole={s[2] / s[1]:.5f}"
+        if s[4] > 0:
+            report += f"\tval_ctc={s[3] / s[4]:.5f}\tval_per={s[5] / s[4]:.5f}"
+        return float(s[2] / s[1]) if select_hole else float(s[0] / s[1]), report
     if not tot:
         return math.inf, "val=none"
     report = f"val_loss={np.mean(tot):.5f}\tval_loss_hole={np.mean(hole):.5f}"
@@ -313,10 +447,50 @@ def _validate(val_batches, eval_step, params, select_hole: bool,
     return metric, report
 
 
+def _train_mesh(config: dict, device, devices, batch_size: int, multihost: bool):
+    """(mesh or None, data-axis size over every rank) of a `train()` run.
+
+    The mesh spans this process's devices (`devices`; by default, this
+    rank's device in a job, else every visible card, or the CPU once):
+    `num_data_shards` is the reference's global data axis (split over the
+    ranks), `num_model_shards` the model axis.  A batch that does not divide
+    the data axis leaves the mesh off with a warning, except where a model
+    axis or a job needs it (ValueError, as in `avsi/train/loop.py:316-353`)."""
+    world = distributed.world_size()
+    n_model = int(config.get("num_model_shards", 1))
+    if devices is None:
+        devices = ([distributed.rank_device(device)] if multihost
+                   else mesh_lib.entry_devices(device, 1))
+    n_req = int(config.get("num_data_shards", 0) or 0)
+    if n_req % world:
+        raise ValueError(f"num_data_shards={n_req} must divide over {world} processes")
+    mesh = mesh_lib.get_mesh(n_req // world, devices, model_shards=n_model)
+    n_data = world * mesh.shape["data"]
+    use_mesh = batch_size % n_data == 0 and (multihost or mesh.size > 1)
+    if batch_size % n_data and n_model > 1:
+        raise ValueError(f"num_model_shards={n_model} requires batch_size divisible by "
+                         f"the data axis ({n_data}); got {batch_size}")
+    if multihost and batch_size % n_data:
+        raise ValueError(f"multi-host training needs the global batch ({batch_size}) "
+                         f"divisible by the data axis ({n_data})")
+    n_local = len(devices) if devices is not None else len(mesh_lib.visible_cuda_devices())
+    if multihost and n_model > 1 and n_local % n_model:
+        raise ValueError(f"num_model_shards={n_model} must divide the local device count "
+                         f"({n_local}) so tensor-parallel groups never straddle hosts")
+    if world * mesh.size > 1 and not use_mesh:
+        print(f"WARNING: mesh disabled — batch_size {batch_size} not divisible by "
+              f"{n_data} data shards; training runs on one device", flush=True)
+    return (mesh if use_mesh and mesh.size > 1 else None), (n_data if use_mesh else 1)
+
+
 def train(config_file: str, is_asr: bool = False, device=None,
-          corpus_cache: dict | None = None) -> dict:
-    """Train one model per the config file on one device (default cuda);
+          corpus_cache: dict | None = None, devices=None) -> dict:
+    """Train one model per the config file (default device cuda);
     `is_asr` for a standalone ASR model (`registry.ASR_MODELS`).
+
+    devices: this process's mesh devices (see `_train_mesh`); a list may
+    repeat a device (`["cpu"] * 4`).  Inside a `torch.distributed` job every
+    rank calls `train()` with the same config.
 
     corpus_cache: a dict shared across `train()` calls in one process.  The
     first call fills it with the device-resident compacted corpus
@@ -334,18 +508,27 @@ def train(config_file: str, is_asr: bool = False, device=None,
     the end of its NaN check, a device time only when `nan_check_every`
     is 1 (the check waits for the step's loss)."""
     config = config_lib.check_trainconfiguration(config_lib.load_configfile(config_file))
-    _refuse_unported(config)
     device = resolve_device(device)
+    multihost = distributed.active()
+    main_host = distributed.is_main()
     exp_folder = config["exp_folder"]
     ckpt_dir = os.path.join(exp_folder, "netmodel")
     os.makedirs(ckpt_dir, exist_ok=True)
-    logfile = os.path.join(exp_folder, "training_log.txt")
+    logfile = os.path.join(exp_folder, "training_log.txt") if main_host else None
+    batch_size = int(config["batch_size"])
+    mesh, n_data = _train_mesh(config, device, devices, batch_size, multihost)
+    if mesh is not None:
+        device = mesh.grid[0][0]  # the params' and the batches' home
 
     # self-contained checkpoint dir: config + stats (an ASR model's are
-    # 80-bin log-mel stats, never cut to audio_feat_dim)
-    stats = checkpoints.write_bundle(ckpt_dir, config_file, config,
-                                     feat_dim=None if is_asr else int(config["audio_feat_dim"]))
-    checkpoints.write_meta(ckpt_dir, config)
+    # 80-bin log-mel stats, never cut to audio_feat_dim), written by rank 0
+    feat_dim = None if is_asr else int(config["audio_feat_dim"])
+    if main_host:
+        stats = checkpoints.write_bundle(ckpt_dir, config_file, config, feat_dim=feat_dim)
+        checkpoints.write_meta(ckpt_dir, config)
+    else:
+        stats = stats_lib.load_stats(config["audio_feat_mean"], config["audio_feat_std"],
+                                     feat_dim=feat_dim)
     model = (registry.get_asr_model if is_asr else registry.get_model)(config["model"])
     seed = int(config.get("seed", 0))
     dm = DataManager(
@@ -359,8 +542,28 @@ def train(config_file: str, is_asr: bool = False, device=None,
     val_files = list_tfrecord_files(os.path.join(config["root_folder"], "validation-set"))
     if not train_files:
         raise ValueError(f"no training tfrecords under {config['root_folder']}")
-    batch_size = int(config["batch_size"])
-    cache = _CorpusCache(config, corpus_cache, batch_size, model)
+    # a job's ranks each read their own file shard and agree on the steps
+    # per epoch (the least: a rank with more batches would wait in the
+    # gradient all_reduce) and the validation batches (the most: the short
+    # ranks pad) before any collective runs
+    local_bs, steps_per_epoch, val_pad = batch_size, None, None
+    if multihost:
+        world = distributed.world_size()
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} (global) must divide over "
+                             f"{world} processes")
+        train_files = distributed.shard_files(train_files)
+        if val_files:
+            val_files = distributed.shard_files(val_files)
+        local_bs = batch_size // world
+        n_train = sum(count_records(f) for f in train_files)
+        n_val = sum(count_records(f) for f in val_files)
+        counts = distributed.gather_hosts([n_train // local_bs, -(-n_val // local_bs)])
+        steps_per_epoch, val_pad = int(counts[:, 0].min()), int(counts[:, 1].max())
+        if steps_per_epoch == 0:
+            raise ValueError("a host's training shard holds fewer samples than its local "
+                             f"batch ({local_bs}) — regroup the corpus or shrink batch_size")
+    cache = _CorpusCache(config, corpus_cache, local_bs, model, n_data)
 
     params = model.init(torch.Generator().manual_seed(seed), config, device=device)
     if config["model_ckp_vnet"] and config["model"] == "av-blstm-twosteps":
@@ -381,12 +584,24 @@ def train(config_file: str, is_asr: bool = False, device=None,
     if ckp_name:
         checkpoints.restore_opt_state(ckp_dir, ckp_name, state)
         print(f"Restored model from {config['model_ckp']} (step {start_step})")
+    if mesh is not None:
+        state = mesh_lib.shard_state(state, mesh)
 
     config["lstm_impl"] = lstm_fused.resolve_impl(
         config.get("lstm_impl"), device, config["net_dim"], blstm_lib.dtypes(config)[0])
-    train_step = make_train_step(model, config, stats, device, is_asr)
-    eval_step = make_eval_step(model, config, stats, device, is_asr)
+    train_step = make_train_step(model, config, stats, device, is_asr, mesh=mesh)
+    eval_step = make_eval_step(model, config, stats, device, is_asr, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)  # dropout masks
+
+    def place_batch(batch) -> Placed:
+        placed = place(batch, device)
+        if multihost:
+            # the compaction falls back per batch on what the data holds: a
+            # rank that compacts a batch the others do not must fail here,
+            # on every rank, not hang a collective later
+            distributed.assert_uniform("batch compaction signature", ",".join(
+                f"{k}:{v.dtype}" for k, v in sorted(placed.dev.items())))
+        return placed
 
     header = " | ".join(f"{k}={config[k]}" for k in (
         "model", "net_dim", "batch_size", "optimizer_type", "starter_learning_rate",
@@ -394,14 +609,17 @@ def train(config_file: str, is_asr: bool = False, device=None,
     ))
     _log(logfile, f"# {header}")
     _log(logfile, f"# device={device} lstm_impl={config['lstm_impl']}")
+    if mesh is not None or multihost:
+        _log(logfile, f"# mesh={mesh} processes={distributed.world_size()} "
+                      f"backend={distributed.backend()} steps/epoch={steps_per_epoch}")
 
     select_hole = bool(model.spec and model.spec.loss_on_hole_only)
     nan_check_every = int(config.get("nan_check_every", 100))
     log_every = max(200, nan_check_every)
-    tb = SummaryWriter(os.path.join(exp_folder, "tb"))
+    tb = SummaryWriter(os.path.join(exp_folder, "tb")) if main_host else _NullTB()
     media = _TBMedia(model, config, stats, device, dm, val_files) if (
-        not is_asr and val_files and int(config.get("tb_media", 1))) else None
-    profiler = _StepProfiler(int(config.get("profile_steps", 0)),
+        not is_asr and val_files and int(config.get("tb_media", 1)) and not multihost) else None
+    profiler = _StepProfiler(int(config.get("profile_steps", 0)) if main_host else 0,
                              os.path.join(exp_folder, "profile"), device, logfile)
     best_val, best_epoch, cneg_epochs = math.inf, -1, 0
     step = start_step
@@ -416,12 +634,14 @@ def train(config_file: str, is_asr: bool = False, device=None,
                 if from_cache:
                     train_iter = cache.epoch()
                 else:
-                    train_iter = dm.prefetch_batches(train_files, batch_size, shuffle=True,
+                    train_iter = dm.prefetch_batches(train_files, local_bs, shuffle=True,
                                                      drop_remainder=True)
+                    if steps_per_epoch is not None:
+                        train_iter = itertools.islice(train_iter, steps_per_epoch)
                 for batch in train_iter:
                     t_step = time.perf_counter()
                     profiler.before(step - start_step)
-                    placed = batch if from_cache else place(batch, device)
+                    placed = batch if from_cache else place_batch(batch)
                     if filling:
                         cache.train.append(placed)
                     ldict = train_step(state, placed, gen)
@@ -444,8 +664,21 @@ def train(config_file: str, is_asr: bool = False, device=None,
                     if step % 1000 == 0:
                         checkpoints.save_checkpoint(ckpt_dir, "ckpt", state.params, step=step,
                                                     train_state=state)
+                    if multihost:
+                        # act on a flag the ranks agree on, at a fixed
+                        # cadence: SIGTERM reaches ranks at different steps,
+                        # and a rank that broke alone would leave the others
+                        # waiting in the next step's all_reduce
+                        if step % 10 == 0:
+                            preempt["hit"] = bool(
+                                distributed.gather_hosts([float(preempt["hit"])]).max())
+                        else:
+                            continue
                     if preempt["hit"]:
                         break
+                if multihost:
+                    # a flag raised after the last cadence point of the epoch
+                    preempt["hit"] = bool(distributed.gather_hosts([float(preempt["hit"])]).max())
                 if preempt["hit"]:
                     break  # no validation: the checkpoint is written below
                 if n_acc == 0 and epoch == 0:
@@ -459,14 +692,15 @@ def train(config_file: str, is_asr: bool = False, device=None,
                     if not np.isfinite(tr["loss"]):
                         raise FloatingPointError(f"NaN/Inf loss in epoch {epoch} — aborting")
 
-                val_batches = _val_batches(dm, val_files, batch_size, device)
+                val_batches = _val_batches(dm, val_files, local_bs, place_batch, pad_to=val_pad)
                 if from_cache:
                     val_batches = cache.val
                 elif filling:
                     cache.val[:] = val_batches
                     val_batches = cache.val
-                val_metric, val_report = _validate(val_batches, eval_step, state.params,
-                                                   select_hole, is_asr)
+                val_metric, val_report = _validate(val_batches, eval_step,
+                                                   mesh_lib.gather_tree(state.params),
+                                                   select_hole, is_asr, multihost)
                 if filling and cache.train:
                     _log(logfile, cache.filled())
                 if not val_files:
@@ -478,8 +712,8 @@ def train(config_file: str, is_asr: bool = False, device=None,
                     tb.scalar(f"train/{k}", v, epoch)
                 tb.scalar("val/metric", val_metric, epoch)
                 tb.scalar("train/epoch_time_s", dt, epoch)
-                if media is not None:
-                    media.write(tb, state.params, epoch)
+                if media is not None and main_host:
+                    media.write(tb, mesh_lib.gather_tree(state.params), epoch)
                 tb.flush()
                 _log(logfile, f"epoch {epoch}\t" + "\t".join(
                     f"train_{k}={v:.5f}" for k, v in tr.items()) + f"\t{val_report}\ttime={dt:.1f}s")
@@ -518,7 +752,8 @@ class _CorpusCache:
     asks for it and trains more than one epoch, or when the caller shares a
     `corpus_cache` dict; `prefilled` when a previous call filled that dict."""
 
-    def __init__(self, config: dict, shared: dict | None, batch_size: int, model):
+    def __init__(self, config: dict, shared: dict | None, batch_size: int, model,
+                 n_data: int = 1):
         self.on = (bool(int(config.get("device_cache_corpus", 0)))
                    and int(config["max_n_epochs"]) > 1) or shared is not None
         self.shared = shared
@@ -535,7 +770,9 @@ class _CorpusCache:
                 "audio_len": int(config["audio_len"]),
                 "audio_feat_dim": int(config["audio_feat_dim"]),
                 "video_feat_dim": int(config["video_feat_dim"]),
-                "mesh_data_axis": 1,
+                # the resolved data axis: batches placed for another mesh
+                # geometry must not be reused
+                "mesh_data_axis": n_data,
             }
             prev = shared.setdefault("stamp", stamp)
             if prev != stamp:

@@ -159,9 +159,26 @@ Phases, in order; any failure exits non-zero:
      `evaluation_asr -me` with 4 worker processes and `evaluation_asr -me`
      with none (every sample a row, PESQ/STOI/L1 finite, the two
      `evaluation_asr` CSVs equal; seconds per scored utterance), `python -m
-     avsi_torch --help` in a subprocess, `training --coordinator` refused
-     with NotImplementedError naming the parallel layer, and `import_tf`
-     raising ImportError naming tensorflow where it is not installed;
+     avsi_torch --help` in a subprocess and `import_tf` raising
+     ImportError naming tensorflow where it is not installed;
+ 11e. the parallel layer, after the command line, flagship 3 x 250, f32,
+     on meshes that repeat the one card and ranks that share it ("parallel:"
+     lines, the phase's wall): (1) 3 data-parallel train steps of 32 over
+     [cuda:0, cuda:0] (2 x 16, dropout 0.3) against the one-device steps
+     (the first step's loss rtol 1e-5 and gradients relative L2 1e-4, the
+     params after 3 adam steps relative L2 5e-5; K3 and K4 6 launches a
+     step, 3 per shard), with both steps' walls; (2) one train step on a
+     (1 x 2) tensor-parallel mesh against the replicated step (relative L2
+     1e-6) and its checkpoint's keys and whole shapes; (3) the infer step on
+     a batch of 8 over 2 shards (K1 2, K2 4; within 1 LSB, bit-equality
+     printed), a service with `data_shards=2`, and a lockstep fleet of 16
+     over 2 shards (K5 3 per shard per window), each against one device;
+     (4) two ranks on the card through Gloo training the flagship 1 epoch
+     at a global batch of 8 on a fixture corpus beside two CPU ranks (equal
+     summaries, rank 0 alone writing, the update within relative L2 1e-3
+     of the CPU's; seconds per step), then one NCCL rank through `python
+     -m avsi_torch training --coordinator ... --num_processes 1
+     --process_id 0`;
  12. profiles, after every host-side figure above was timed (host time
      reads slower after profiler sessions in the same process): one
      serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
@@ -223,6 +240,8 @@ from avsi_torch.models import blstm, registry, unet_generic  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.ops import ctc as ctc_ops  # noqa: E402
 from avsi_torch.ops import passthrough, postfilter, stft  # noqa: E402
+from avsi_torch.parallel import distributed  # noqa: E402
+from avsi_torch.parallel import mesh as mesh_lib  # noqa: E402
 from avsi_torch.serve import InpaintingService, serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
 from avsi_torch.train import loop as train_loop  # noqa: E402
@@ -1795,7 +1814,7 @@ def asr_infer_path(root: str, asr_dir: str) -> None:
     config, stats, _, params = inpaint.load_model_bundle(asr_dir, device="cuda", is_asr=True)
     step = asr_infer.make_asr_step(config, stats, False, True, device="cuda")
     batch = next(iter(DataManager(seed=0).batches(tfrecord.list_tfrecord_files(test_dir), 2)))
-    dec, _, lengths = (t.cpu().numpy() for t in step(params, inpaint.compact_batch(batch)))
+    dec, _, lengths = (t.cpu().numpy() for t in step(params, mesh_lib.compact_batch(batch)))
     t0 = time.perf_counter()
     native = ctc_ops.beam_search_decode_batch(dec, lengths, ASR_BEAM)
     t1 = time.perf_counter()
@@ -1979,7 +1998,7 @@ def griffin_lim_divergence(netmodel: str, test_dir: str, label: str = "two-step"
     "none" and 5 iterations within relative L2 `tols` per utterance, and
     with `median_tol` their median over the batch; 20 and 50 iterations
     are printed."""
-    batch = inpaint.compact_batch(next(iter(DataManager(seed=0).batches(
+    batch = mesh_lib.compact_batch(next(iter(DataManager(seed=0).batches(
         tfrecord.list_tfrecord_files(test_dir), INFER_BATCH))))
     bundles = {dev: inpaint.load_model_bundle(netmodel, device=dev) for dev in ("cuda", "cpu")}
     config, _, model = bundles["cpu"][:3]
@@ -2021,7 +2040,7 @@ def profile_siasr_batch(d: str, root: str, asr_dir: str) -> None:
                                  use_beam=True, device="cuda")
     batch = next(iter(DataManager(seed=0).batches(
         tfrecord.list_tfrecord_files(os.path.join(root, "test-set")), INFER_BATCH)))
-    cb = inpaint.compact_batch(batch)
+    cb = mesh_lib.compact_batch(batch)
     step(si[3], asr_params, cb)
     profile(f"one siasr batch of {INFER_BATCH} (SI + Griffin-Lim {INFER_GL} + ASR)",
             lambda: step(si[3], asr_params, cb), top=12)
@@ -2461,7 +2480,7 @@ def unet_profiles(base: str, bundles: dict) -> None:
         b_config, b_stats, b_model, params = inpaint.load_model_bundle(netmodel, device="cuda")
         infer_step = inpaint.make_infer_step(b_model, b_config, b_stats, False, "gl", INFER_GL,
                                              device="cuda")
-        cb = inpaint.compact_batch(unet_batch(base, "test-set", INFER_BATCH))
+        cb = mesh_lib.compact_batch(unet_batch(base, "test-set", INFER_BATCH))
         infer_step(params, cb)[0].cpu()
         profile(f"one {model} infer() batch of {INFER_BATCH} (Griffin-Lim {INFER_GL})",
                 lambda: infer_step(params, cb)[0].cpu(), top=8)
@@ -2506,10 +2525,9 @@ def cli_path(root: str) -> None:
     and `evaluation_asr -me` with -w 4, and `evaluation_asr -me` with -w 0:
     a CSV row for every sample with finite PESQ, STOI and L1 in the enhanced
     column, equal cell for cell between -w 4 and -w 0, seconds per scored
-    utterance.  Then `python -m avsi_torch --help` in a subprocess (exit 0),
-    `training --coordinator` refused with NotImplementedError naming the
-    parallel layer, and `import_tf` raising ImportError naming tensorflow
-    where it is not installed."""
+    utterance.  Then `python -m avsi_torch --help` in a subprocess (exit 0)
+    and `import_tf` raising ImportError naming tensorflow where it is not
+    installed (`training --coordinator` runs in the parallel phase)."""
     import importlib.util
 
     from avsi_torch import cli
@@ -2573,11 +2591,6 @@ def cli_path(root: str) -> None:
     helped = subprocess.run([sys.executable, "-m", "avsi_torch", "--help"], capture_output=True,
                             text=True, timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
     wall["--help (subprocess)"] = time.perf_counter() - t0
-    try:
-        cli.main(["training", "--config", config_file, "--coordinator", "127.0.0.1:1"])
-        refused = "ran"
-    except NotImplementedError as e:
-        refused = str(e)
     if importlib.util.find_spec("tensorflow") is None:
         try:
             cli.main(["import_tf", "--config", config_file, "--tf_ckp", os.path.join(base, "none"),
@@ -2596,7 +2609,7 @@ def cli_path(root: str) -> None:
           f"PESQ/STOI/L1 finite: {finite}, -w 4 equal to -w 0: {same_w}; scoring "
           + ", ".join(f"{k}: {wall[k] / n:.3f} s per utterance" for k in evals)
           + f" (host figures of the card's machine, card {card_line()}); --help exit "
-          f"{helped.returncode}; --coordinator: {refused[:100]!r}; import_tf: {no_tf[:100]!r}",
+          f"{helped.returncode}; import_tf: {no_tf[:100]!r}",
           flush=True)
     print("command line: training log\n" + log.strip(), flush=True)
     means = {k: np.nanmean([float(r[k]) for r in evals["evaluation"]])
@@ -2607,8 +2620,7 @@ def cli_path(root: str) -> None:
     if (train_counts != want or mask_counts or infer_counts != {
             "bilstm_fused_proj": 1, "bilstm_fused_proj2": 2} or not equal or n_masked != n
             or not finite or not complete or not same_w or helped.returncode != 0
-            or "evaluation_asr" not in helped.stdout or "parallel layer" not in refused
-            or "tensorflow" not in no_tf):
+            or "evaluation_asr" not in helped.stdout or "tensorflow" not in no_tf):
         fail("the command line misbehaves")
 
 
@@ -2880,8 +2892,8 @@ def upload_bytes(corpus: dict) -> tuple[int, int]:
     port's upload before the compaction) and compacted."""
     files = tfrecord.list_tfrecord_files(os.path.join(corpus["grouped"], "training-set"))
     batch = next(iter(DataManager().batches(files, TRAIN_BATCH)))
-    return (sum(np.asarray(v).nbytes for v in inpaint.device_batch(batch).values()),
-            sum(np.asarray(v).nbytes for v in inpaint.compact_batch(batch).values()))
+    return (sum(np.asarray(v).nbytes for v in mesh_lib.device_batch(batch).values()),
+            sum(np.asarray(v).nbytes for v in mesh_lib.compact_batch(batch).values()))
 
 
 def upload_ms(corpus: dict, reps: int = 10) -> dict:
@@ -3021,6 +3033,364 @@ def data_profiles(corpus: dict, cache: dict) -> None:
             fail(f"a cached step copied {largest} bytes to the card (a batch is {compact})")
 
 
+# ------------------------------------------------------------ parallel
+
+PAR_BATCH, PAR_STEPS, PAR_DROPOUT = 32, 3, 0.3  # data-parallel steps: 2 shards of 16
+PAR_SPLIT = (8, 2, 2)  # fixture utterances per speaker (2 speakers): 16 / 4 / 4
+PAR_RANK_BATCH = 8  # the two-rank run's global batch: 4 per rank, 2 steps an epoch
+PAR_DEVICE = "cuda"  # the card; a rehearsal on the CPU sets "cpu"
+RANK_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+rank, port, device, config_file, out = sys.argv[1:6]
+if device == "cpu":
+    torch.set_num_threads(2)
+writes = []
+savez = np.savez
+np.savez = lambda path, *a, **k: (writes.append(os.path.basename(str(path))), savez(path, *a, **k))
+from avsi_torch.parallel import distributed
+distributed.initialize(f"127.0.0.1:{port}", 2, int(rank), backend="gloo", device=device,
+                       timeout_s=300)
+from avsi_torch.train.loop import train
+t0 = time.perf_counter()
+s = train(config_file, device=device)
+json.dump({"best_val": s["best_val"], "best_epoch": s["best_epoch"], "steps": s["steps"],
+           "preempted": s["preempted"], "step_seconds": s["step_seconds"],
+           "wall": time.perf_counter() - t0, "writes": writes,
+           "backend": distributed.backend()}, open(out, "w"))
+"""
+
+
+def two_devices() -> list:
+    """The phase's mesh devices: the one card, twice (the caller's choice;
+    `get_mesh` by default never repeats a card)."""
+    return [torch.device("cuda:0" if PAR_DEVICE == "cuda" else "cpu")] * 2
+
+
+def on_card(want: dict) -> dict:
+    """The launches a check wants: none where a CPU rehearsal runs the
+    plain versions."""
+    return want if PAR_DEVICE == "cuda" else {}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_config() -> dict:
+    cfg = flagship_config(PAR_BATCH, "float32")
+    cfg.update(num_asr_labels=33, dropout_rate=PAR_DROPOUT,
+               lstm_impl=lstm_fused.resolve_impl(None, PAR_DEVICE, cfg["net_dim"], torch.float32))
+    return cfg
+
+
+def par_steps(params0: dict, batches: list, mesh, cfg: dict) -> dict:
+    """PAR_STEPS train steps from `params0` on the card, on `mesh` or on one
+    device: the losses, the params after, each step's wall and the
+    launches (counts set to 0 just before, read just after)."""
+    model = registry.get_model(cfg["model"])
+    state = train_state.create_train_state(
+        checkpoints.params_from_flat(checkpoints.params_to_flat(params0), PAR_DEVICE), cfg)
+    if mesh is not None:
+        state = mesh_lib.shard_state(state, mesh)
+    stats = (np.zeros(257, np.float32), np.ones(257, np.float32))
+    step = train_loop.make_train_step(model, cfg, stats, PAR_DEVICE, mesh=mesh)
+    gen = torch.Generator(device=PAR_DEVICE).manual_seed(7)
+    placed = [train_loop.place(b, PAR_DEVICE) for b in batches]
+    losses, walls, grads = [], [], None
+    _build.reset_launch_counts()
+    for p in placed:
+        t0 = time.perf_counter()
+        ld = step(state, p, gen)
+        losses.append({k: float(v) for k, v in ld.items()})  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        if grads is None:  # the first step's, taken from the same params
+            grads = {k: torch.cat([q.grad for q in x.pieces], x.axis).cpu()
+                     if isinstance(x, mesh_lib.ModelShards) else x.grad.cpu()
+                     for k, x in checkpoints.named_leaves(state.params).items()}
+    counts = launched()
+    return {"losses": losses, "walls": walls, "counts": counts, "state": state, "grads": grads,
+            "params": checkpoints.params_to_flat(mesh_lib.gather_tree(state.params))}
+
+
+def tree_rel(got: dict, want: dict) -> float:
+    """Relative L2 of one whole flat tree against another."""
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2)) for k in want)
+    den = sum(float(np.sum(want[k].astype(np.float64) ** 2)) for k in want)
+    return math.sqrt(num / den)
+
+
+def par_data_parallel() -> dict:
+    """Check 1: PAR_STEPS steps at batch PAR_BATCH on a data mesh of the
+    card twice (2 x 16), dropout PAR_DROPOUT, against the one-device steps
+    from the same weights and generator seed.  Tolerances: the first
+    step's losses rtol 1e-5 and its gradients relative L2 1e-4 per leaf
+    (the shards' K3/K4 plans at B=16 sum in another order than B=32's);
+    every loss rtol 5e-5 and the params after the steps relative L2 5e-5,
+    five times their reading on an H100 80GB HBM3 at 700 W (6.6e-6, 9.96e-6): adam turns
+    the roundoff of near-zero gradients into steps of lr.  K3 and K4 each
+    6 launches a step (3 per shard)."""
+    cfg = par_config()
+    params0 = registry.get_model(cfg["model"]).init(torch.Generator().manual_seed(3), cfg)
+    batches = [synthetic_batch(cfg, PAR_BATCH, seed=20 + i, gap_start=GAP.start,
+                               gap_frames=GAP.stop - GAP.start) for i in range(PAR_STEPS)]
+    one = par_steps(params0, batches, None, cfg)
+    two = par_steps(params0, batches, mesh_lib.get_mesh(2, two_devices()), cfg)
+    want = on_card({"bilstm_recurrence_train": 6 * PAR_STEPS,
+                    "bilstm_recurrence_bwd": 6 * PAR_STEPS})
+    rel = tree_rel(two["params"], one["params"])
+    errs = [max(abs(a[k] / b[k] - 1) for k in b if b[k])
+            for a, b in zip(two["losses"], one["losses"])]
+    g_rel = {k: ((two["grads"][k] - w).norm() / max(w.norm(), 1e-30)).item()
+             for k, w in one["grads"].items()}
+    worst = max(g_rel, key=g_rel.get)
+    print(f"parallel: data-parallel, {PAR_STEPS} train steps of {PAR_BATCH} (2 shards of "
+          f"{PAR_BATCH // 2} on {two_devices()[0]} twice, dropout {PAR_DROPOUT}): launches "
+          f"{two['counts']} (want {want}; one device: {one['counts']}); loss rel err per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol 1e-5 for the first, 5e-5); first "
+          f"step's gradients relative L2 max {g_rel[worst]:.2e} ({worst}, tol 1e-4); params "
+          f"relative L2 {rel:.2e} (tol 5e-5); step walls sharded "
+          f"{', '.join(f'{t:.4f}' for t in two['walls'])} s, one device "
+          f"{', '.join(f'{t:.4f}' for t in one['walls'])} s; card {card_line()}", flush=True)
+    if (two["counts"] != want or errs[0] > 1e-5 or max(errs) > 5e-5 or g_rel[worst] > 1e-4
+            or rel > 5e-5):
+        fail("the data-parallel step disagrees with the one-device step")
+    return {"sharded": float(np.median(two["walls"][1:])),
+            "one": float(np.median(one["walls"][1:]))}
+
+
+def par_tensor_parallel(root: str) -> None:
+    """Check 2: one train step on a (1 x 2) mesh, each leaf split along its
+    `param_spec` axis over the card twice, against the replicated step:
+    params relative L2 1e-6 (the gathered leaves are the whole leaves, so
+    the products are the same), printed bit-equal or not.  Its checkpoint
+    (params and optimizer sidecar) has the keys and whole shapes of the
+    unsharded state's, and restores to the same params."""
+    cfg = dict(par_config(), dropout_rate=0.0)
+    params0 = registry.get_model(cfg["model"]).init(torch.Generator().manual_seed(4), cfg)
+    batch = [synthetic_batch(cfg, PAR_BATCH, seed=30, gap_start=GAP.start,
+                             gap_frames=GAP.stop - GAP.start)]
+    mesh = mesh_lib.get_mesh(1, two_devices(), model_shards=2)
+    one = par_steps(params0, batch, None, cfg)
+    tp = par_steps(params0, batch, mesh, cfg)
+    rel = tree_rel(tp["params"], one["params"])
+    equal = all(np.array_equal(tp["params"][k], one["params"][k]) for k in one["params"])
+    n_split = sum(isinstance(x, mesh_lib.ModelShards)
+                  for x in mesh_lib.tree_leaves(tp["state"].params))
+    d_tp, d_one = os.path.join(root, "par_tp"), os.path.join(root, "par_one")
+    checkpoints.save_checkpoint(d_tp, "ckpt", tp["state"].params, step=1, train_state=tp["state"])
+    checkpoints.save_checkpoint(d_one, "ckpt", one["state"].params, step=1,
+                                train_state=one["state"])
+    shapes = {}
+    for d in (d_tp, d_one):
+        shapes[d] = [{k: z[k].shape for k in z.files}
+                     for z in (np.load(os.path.join(d, n)) for n in ("ckpt.npz", "ckpt.opt.npz"))]
+    restored, _ = checkpoints.restore_checkpoint(d_tp, "ckpt", PAR_DEVICE, params0)
+    back = checkpoints.params_to_flat(restored)
+    same_back = all(np.array_equal(back[k], tp["params"][k]) for k in back)
+    print(f"parallel: tensor-parallel, one train step of {PAR_BATCH} on a (1 x 2) mesh "
+          f"({n_split} leaves split in 2): launches {tp['counts']}; params vs the replicated "
+          f"step relative L2 {rel:.2e} (tol 1e-6), bit-equal: {equal}; checkpoint keys and "
+          f"shapes equal the unsharded save's: {shapes[d_tp] == shapes[d_one]} "
+          f"({len(shapes[d_tp][0])} + {len(shapes[d_tp][1])} keys), restored equal: "
+          f"{same_back}; step walls (1 x 2) {tp['walls'][0]:.4f} s, one device "
+          f"{one['walls'][0]:.4f} s", flush=True)
+    if rel > 1e-6 or shapes[d_tp] != shapes[d_one] or not same_back or not n_split:
+        fail("the tensor-parallel step or its checkpoint disagrees with the replicated one")
+
+
+def par_inference(d: str) -> None:
+    """Check 3: the forward-only paths on the 2-shard mesh.  The infer step
+    on a batch of 8 (K1 1 and K2 2 per shard) against the one-device step:
+    int16 within 1 LSB, printed bit-equal or not; a service whose
+    micro-batch of 8 splits over the mesh against the plain service: int16
+    within 1 LSB; a lockstep fleet of FLEET over the mesh (K5 3 per shard
+    per window) against the one-device fleet: relative L2 1e-4, transcripts
+    equal."""
+    mesh = mesh_lib.get_mesh(2, two_devices())
+    config, stats, model, params = inpaint.load_model_bundle(d, device=PAR_DEVICE)
+    rng = np.random.RandomState(11)
+    reqs = [request(rng) for _ in range(8)]
+    waves = np.stack([w for w, _ in reqs])
+    frames = np.stack([m for _, m in reqs])
+    batch = {"sequence_lengths": np.full(8, T_FRAMES, np.int32),
+             "labels_lengths": np.ones(8, np.int32), "target_sources": waves,
+             "labels": np.zeros((8, 50), np.float32),
+             "video_features": rng.randn(8, T_FRAMES, 136).astype(np.float16),
+             "mask_frames": frames.astype(np.int8)}
+    out, counts = {}, {}
+    for name, m in (("one", None), ("two", mesh)):
+        step = inpaint.make_infer_step(model, config, stats, False, "gl", 10, device=PAR_DEVICE,
+                                       mesh=m)
+        step(params, batch)
+        _build.reset_launch_counts()
+        wav, loss, _ = step(params, batch)
+        out[name] = wav.cpu().numpy().astype(np.int32)
+        counts[name] = launched()
+    lsb = int(np.abs(out["two"] - out["one"]).max())
+    want = on_card({"bilstm_fused_proj": 2, "bilstm_fused_proj2": 4})
+
+    plain = InpaintingService(d, micro_batch=8, gl_iters=10, device=PAR_DEVICE)
+    sharded = InpaintingService(d, micro_batch=8, gl_iters=10, data_shards=2,
+                                mesh_devices=two_devices(), device=PAR_DEVICE)
+    got = sharded.enhance_batch(waves.astype(np.float32), frames)
+    svc_lsb = int(np.abs(got.astype(np.int32) - plain.enhance_batch(
+        waves.astype(np.float32), frames)).max())
+
+    fwaves, fmasks, fvideos = fleet_inputs(np.random.RandomState(8))
+    fleet = {}
+    for name, m in (("one", None), ("two", mesh)):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        wav_f, tr = streaming.stream_utterances_lockstep(
+            config, stats, params, fwaves, fmasks, fvideos, chunk_frames=CHUNK,
+            lookahead_frames=LOOK, transcript=True, mesh=m, device=PAR_DEVICE)
+        fleet[name] = (wav_f, tr, launched(), time.perf_counter() - t0)
+    rel = rel_l2(fleet["two"][0], fleet["one"][0])
+    want_k5 = on_card({"bilstm_recurrence_carry": 2 * 3 * N_WINDOWS})
+    print(f"parallel: sharded inference, a batch of 8 over 2 shards: launches {counts['two']} "
+          f"(want {want}; one device {counts['one']}); int16 vs one device max "
+          f"{lsb} LSB (tol 1), bit-equal: {lsb == 0}; service with data_shards=2 vs the plain "
+          f"service max {svc_lsb} LSB (tol 1); fleet of {FLEET} over 2 shards: launches "
+          f"{fleet['two'][2]} (want {want_k5}; one device {fleet['one'][2]}), relative L2 "
+          f"{rel:.2e} (tol 1e-4), transcripts "
+          f"{'equal' if fleet['two'][1] == fleet['one'][1] else 'DIFFER'}, walls sharded "
+          f"{fleet['two'][3]:.2f} s, one device {fleet['one'][3]:.2f} s", flush=True)
+    if (counts["two"] != want or lsb > 1 or svc_lsb > 1 or fleet["two"][2] != want_k5
+            or rel > 1e-4 or fleet["two"][1] != fleet["one"][1]):
+        fail("sharded inference, serving or fleet disagrees with one device")
+
+
+def par_corpus(base: str) -> tuple[str, str]:
+    """The phase's fixture corpus (3 s utterances, 2 speakers, PAR_SPLIT)
+    and its spec stats: (tfrecords root, stats prefix)."""
+    paths = fixture.make_fixture(base, n_speakers=2, n_samples=PAR_SPLIT, audio_len_ms=3000)
+    prefix = os.path.join(base, "spec")
+    stats_lib.compute_mean_std_features(paths["training-set"], "target", prefix, "spec")
+    return paths["tfrecords"], prefix
+
+
+def par_rank_config(base: str, tfr: str, prefix: str, name: str) -> str:
+    cfg = flagship_config(PAR_RANK_BATCH, "float32")
+    cfg.update(root_folder=tfr, exp_folder=os.path.join(base, name), num_asr_labels=33,
+               audio_feat_mean=prefix + "_mean.npy", audio_feat_std=prefix + "_std.npy",
+               optimizer_type="momentum", starter_learning_rate=0.05, max_n_epochs=1,
+               n_earlystop_epochs=1, nan_check_every=1, tb_media=0, seed=5)
+    path = os.path.join(base, name + ".config")
+    config_lib.save_configfile(cfg, path)
+    return path
+
+
+def run_children(argvs: list, timeout: float) -> list:
+    """Start every child at once, wait for all; any failure kills the rest."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(a, cwd=here, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in argvs]
+    outs = []
+    try:
+        deadline = time.time() + timeout
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+            if p.returncode != 0:
+                fail(f"a child exited {p.returncode}: {' '.join(p.args[:6])}\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def par_processes(root: str) -> dict:
+    """Check 4: two ranks share the card through Gloo and train the flagship
+    (3 x 250, f32, momentum 0.05) on the phase's fixture corpus for 1 epoch
+    at a global batch of PAR_RANK_BATCH (2 steps), beside the same two-rank
+    run on the CPU.  The card's ranks report equal summaries, only rank 0
+    wrote `sinet.npz` (and every archive), one log and one event file; the
+    card's `sinet` against the CPU's: the update (params minus the start)
+    relative L2 1e-3, the tolerance of the GPU step's gradients against the
+    CPU's (`train_reference_check`); an H100 80GB HBM3 at 700 W read 1.22e-5.  Then one rank through NCCL:
+    `python -m avsi_torch training --coordinator ... --num_processes 1
+    --process_id 0` on the card."""
+    base = os.path.join(root, "par_ranks")
+    os.makedirs(base)
+    tfr, prefix = par_corpus(base)
+    child = os.path.join(base, "rank_child.py")
+    with open(child, "w") as f:
+        f.write(RANK_CHILD)
+    argvs, outs = [], {}
+    for name, dev in (("card", PAR_DEVICE), ("cpu", "cpu")):
+        cfg = par_rank_config(base, tfr, prefix, f"ranks_{name}")
+        port = free_port()
+        outs[name] = [os.path.join(base, f"{name}{r}.json") for r in range(2)]
+        argvs += [[sys.executable, child, str(r), str(port), dev, cfg, outs[name][r]]
+                  for r in range(2)]
+    t0 = time.perf_counter()
+    run_children(argvs, 600)
+    wall = time.perf_counter() - t0
+    res = {name: [json.load(open(o)) for o in outs[name]] for name in outs}
+    g0, g1 = res["card"]
+    same = {k: g0[k] == g1[k] for k in ("best_val", "best_epoch", "steps", "preempted")}
+    exp = {name: os.path.join(base, f"ranks_{name}") for name in outs}
+    sinet = {dev: dict(np.load(os.path.join(exp[dev], "netmodel", "sinet.npz"))) for dev in exp}
+    cfg = config_lib.check_trainconfiguration(config_lib.load_configfile(
+        os.path.join(base, "ranks_card.config")))
+    start = checkpoints.params_to_flat(registry.get_model(cfg["model"]).init(
+        torch.Generator().manual_seed(int(cfg["seed"])), cfg))
+    upd = {dev: {k: sinet[dev][k] - start[k] for k in start} for dev in sinet}
+    rel = tree_rel(upd["card"], upd["cpu"])
+    log = training_log(exp["card"])
+    n_events = len(os.listdir(os.path.join(exp["card"], "tb")))
+    steady = g0["step_seconds"][1:] or g0["step_seconds"]
+
+    cfg1 = par_rank_config(base, tfr, prefix, "nccl_1")
+    t1 = time.perf_counter()
+    run_children([[sys.executable, "-m", "avsi_torch", "--device", PAR_DEVICE, "training",
+                   "--config", cfg1, "--coordinator", f"127.0.0.1:{free_port()}",
+                   "--num_processes", "1", "--process_id", "0"]], 300)
+    nccl_wall = time.perf_counter() - t1
+    nccl_log = training_log(os.path.join(base, "nccl_1"))
+    backend = "nccl" if PAR_DEVICE == "cuda" else "gloo"
+    nccl_ok = (f"processes=1 backend={backend}" in nccl_log and "# done" in nccl_log
+               and os.path.isfile(os.path.join(base, "nccl_1", "netmodel", "sinet.npz")))
+    print(f"parallel: two ranks on one {PAR_DEVICE} device through gloo, the flagship "
+          f"at a global batch of {PAR_RANK_BATCH}, 1 epoch: backend {g0['backend']}, steps "
+          f"{g0['steps']}, summaries equal {same}, best val {g0['best_val']:.6f} (CPU ranks "
+          f"{res['cpu'][0]['best_val']:.6f}); rank 0 wrote {sorted(set(g0['writes']))}, rank 1 "
+          f"wrote {g1['writes']}; {log.count('# done')} log, {n_events} event file(s); update "
+          f"vs the CPU ranks' relative L2 {rel:.2e} (tol 1e-3); s/step "
+          f"{', '.join(f'{t:.3f}' for t in g0['step_seconds'])} (rank 0), median after the "
+          f"first {np.median(steady):.3f}; train() walls {g0['wall']:.1f} / {g1['wall']:.1f} s, "
+          f"4 children {wall:.1f} s; one NCCL rank via the command line: {nccl_wall:.1f} s, "
+          f"ok {nccl_ok}; card {card_line()}", flush=True)
+    print("parallel: the two-rank log\n" + log.strip(), flush=True)
+    if (not all(same.values()) or g1["writes"] or "sinet" not in g0["writes"]
+            or g0["backend"] != "gloo" or log.count("# done") != 1 or n_events != 1
+            or rel > 1e-3 or res["cpu"][0]["steps"] != g0["steps"] or not nccl_ok):
+        fail("the two-rank run misbehaves")
+    return {"s_per_step": float(np.median(steady)), "steps": g0["steps"]}
+
+
+def parallel_path(d: str, root: str) -> None:
+    """The parallel phase: checks 1-4 (see each), on meshes that repeat the
+    one card and ranks that share it."""
+    walls = par_data_parallel()
+    par_tensor_parallel(root)
+    par_inference(d)
+    ranks = par_processes(root)
+    print(f"parallel: sharded (2 x 16) step {walls['sharded']:.4f} s against the one-device "
+          f"step of {PAR_BATCH} {walls['one']:.4f} s (median after the first); two ranks "
+          f"sharing the card {ranks['s_per_step']:.3f} s/step at a global batch of "
+          f"{PAR_RANK_BATCH}; card {card_line()}", flush=True)
+
+
 def phase(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3114,6 +3484,7 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
             phase(f"{model} serving", unet_serve_path, unet_bundles[model], model)
         phase("generic U-Net Trainer", generic_trainer_check, root)
         phase("command line", cli_path, root)
+        phase("parallel", parallel_path, d, root)
         phase("serving profiles", serving_profiles, d)
         phase("fleet profiles", fleet_profiles, d)
         phase("offline profile", profile, f"one plain infer() over {N_TEST} utterances "

@@ -8,8 +8,11 @@ package's (`avsi/cli.py`) on the CPU.
 - The dispatch: each subcommand calls the port's function with the
   arguments the reference's command line gives the reference's, plus the
   top-level `--device` (functions replaced by recorders).
-- The parallel surface raises NotImplementedError naming the parallel
-  layer; without a GPU a model subcommand fails unless `--device cpu`.
+- The parallel surface reaches the parallel layer: `--coordinator`,
+  `--num_processes`, `--process_id` and `--distributed` call
+  `distributed.initialize` before training (mocked), `--data_shards`
+  reaches `infer` and `serve`, a config's `num_model_shards` reaches
+  `train()`; without a GPU a model subcommand fails unless `--device cpu`.
 - A CPU end-to-end run (fixture, stats, training, export, masking,
   inference, evaluation) equal, file for file, to the port's direct calls;
   `export_tf` / `import_tf` round trip through TensorFlow.
@@ -192,7 +195,7 @@ def test_serve_passes_the_port_names(impl, want):
     args, kw = serve.call_args
     assert args == ("/m", "127.0.0.1", 0)
     assert kw["lstm_impl"] == want and kw["device"] == "cpu" and kw["micro_batch"] == 4
-    assert "data_shards" not in kw
+    assert kw["data_shards"] == 0
     server.serve_forever.assert_called_once_with()
 
 
@@ -206,14 +209,44 @@ PARALLEL = [
 ]
 
 
-@pytest.mark.parametrize("argv", PARALLEL, ids=[a[0] + " " + a[-2] for a in PARALLEL])
-def test_parallel_flags_are_refused(argv):
-    """They parse as in the reference, then raise before anything runs."""
+# what each case's flag must reach: (the function the port calls, the
+# keyword or position it must carry, the value)
+PARALLEL_REACHES = [
+    ("init", (("127.0.0.1:1", None, None), {"device": "cuda"})),
+    ("init", ((None, 2, None), {"device": "cuda"})),
+    ("init", ((None, None, 0), {"device": "cuda"})),
+    ("init", ((None, None, None), {"device": "cuda"})),
+    ("infer", 2),
+    ("serve", 4),
+]
+
+
+@pytest.mark.parametrize("argv,reaches", zip(PARALLEL, PARALLEL_REACHES),
+                         ids=[a[0] + " " + a[-2] for a in PARALLEL])
+def test_parallel_flags_are_refused(argv, reaches):
+    """They parse as in the reference, then reach the parallel layer with
+    their values: the distributed flags `distributed.initialize` before
+    `train_or_exit`, `--data_shards` the `infer` or `serve` call."""
     assert jcli.parse_args(argv).subparser_name == argv[0]
-    with mock.patch("avsi_torch.train.loop.train_or_exit") as run, \
-            pytest.raises(NotImplementedError, match="parallel layer"):
+    order = []
+    server = mock.MagicMock()
+    with mock.patch("avsi_torch.parallel.distributed.initialize",
+                    side_effect=lambda *a, **k: order.append(("init", a, k))) as init, \
+            mock.patch("avsi_torch.train.loop.train_or_exit",
+                       side_effect=lambda *a, **k: order.append(("train", a, k))), \
+            mock.patch("avsi_torch.infer.inpaint.infer") as infer, \
+            mock.patch("avsi_torch.serve.serve", return_value=server) as serve:
         tcli.main(argv)
-    run.assert_not_called()
+    kind, want = reaches
+    if kind == "init":
+        assert [o[0] for o in order] == ["init", "train"]
+        init.assert_called_once_with(*want[0], **want[1])
+        assert order[1][1] == ("/c",) and order[1][2]["is_asr"] == (argv[0] == "training_asr")
+    elif kind == "infer":
+        assert infer.call_args.kwargs["data_shards"] == want and not order
+    else:
+        assert serve.call_args.kwargs["data_shards"] == want and not order
+        server.serve_forever.assert_called_once_with()
 
 
 def _config_file(tmp_path, **kw):
@@ -227,7 +260,10 @@ def _config_file(tmp_path, **kw):
 
 
 def test_config_num_model_shards_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    """A config's `num_model_shards = 2` reaches `train()`, which builds the
+    model axis over this process's devices: on one CPU it cannot (the
+    reference's over-ask ValueError)."""
+    with pytest.raises(ValueError, match=r"mesh 1x2 needs 2 devices, have 1"):
         tcli.main(["--device", "cpu", "training", "--config",
                    _config_file(tmp_path, num_model_shards=2)])
 

@@ -27,6 +27,7 @@ from avsi.parallel import mesh as jmesh
 from avsi.train import checkpoints as jckpt
 from avsi.utils import wav as jwav
 from avsi_torch.infer import inpaint as tinpaint
+from avsi_torch.parallel import mesh as tmesh
 from avsi_torch.utils import wav as twav
 
 AUDIO_LEN = 9600  # the fixture's 600 ms utterances: 50 frames
@@ -75,14 +76,14 @@ def test_compact_batch_matches_reference(name, batch):
     silent fallbacks (soft or free-form masks and non-integer or loud waves
     stay f32), and `expand_batch` restores the model's inputs."""
     want = jmesh.compact_batch(batch)
-    got = tinpaint.compact_batch(batch)
+    got = tmesh.compact_batch(batch)
     assert sorted(got) == sorted(want)
     for key in want:
         assert got[key].dtype == np.asarray(want[key]).dtype, key
         np.testing.assert_array_equal(got[key], np.asarray(want[key]), err_msg=key)
     assert ("mask_frames" in got) == (name in ("time_gaps", "fractional_wave", "loud_wave",
                                                "embeddings"))
-    back = tinpaint.expand_batch({k: torch.from_numpy(v) for k, v in got.items()}, 5)
+    back = tmesh.expand_batch({k: torch.from_numpy(v) for k, v in got.items()}, 5)
     np.testing.assert_array_equal(back["masks"].numpy(), batch["masks"])
     np.testing.assert_array_equal(back["target_sources"].numpy(), batch["target_sources"])
     assert back["target_sources"].dtype == torch.float32
@@ -176,8 +177,11 @@ def test_infer_levers_change_the_output(corpus):
 
 
 def test_infer_refuses_meshes_and_empty_dirs(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """A batch that does not divide the data shards, and a directory
+    without tfrecords, raise ValueError (sharded inference itself is held
+    against the reference in tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="batch_size 2 not divisible by data_shards 3"):
         tinpaint.infer(corpus["ckpt"], corpus["test"], str(tmp_path), "x", batch_size=2,
-                       data_shards=2, device="cpu")
+                       data_shards=3, device="cpu")
     with pytest.raises(ValueError, match="no tfrecords"):
         tinpaint.infer(corpus["ckpt"], str(tmp_path), str(tmp_path), "x", device="cpu")

@@ -380,8 +380,9 @@ def test_resolve_stream_impl():
 
 def test_unported_options_and_device_default(monkeypatch):
     """passthrough and gap_atten now work (their outputs differ from the
-    plain stream's); fleet meshes are still refused; no device means the
-    GPU."""
+    plain stream's); a fleet mesh without a `data` axis is refused (fleets
+    over a mesh are held against the reference in
+    tests/test_torch_parallel.py); no device means the GPU."""
     config, _, _, params_t, stats = _setup("a-blstm")
     waves, masks, _, _ = _inputs(config)
     plain = streaming.stream_utterance(
@@ -391,7 +392,7 @@ def test_unported_options_and_device_default(monkeypatch):
         got = streaming.stream_utterance(inp, waves[0], masks[0])
         assert got.shape == plain.shape and np.isfinite(got).all()
         assert np.abs(got - plain).max() > 1e-3 * np.abs(plain).max(), kw
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="mesh must carry a 'data' axis"):
         streaming.stream_utterances_lockstep(config, stats, params_t, waves, masks,
                                              mesh=object(), device="cpu")
     # alpha >= 1 is the reference's "off"

@@ -416,12 +416,14 @@ def test_train_resumes_jax_checkpoint_like_jax(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    """Meshes, not ported yet, raise; the device-resident corpus cache
-    (`device_cache_corpus`, held against the reference in
+    """Each option refused before it was ported now trains: a model axis
+    (`num_model_shards = 2`, over `devices=["cpu"] * 2`; on one CPU the
+    reference's over-ask ValueError; the sharded step is held against the
+    reference in tests/test_torch_parallel.py), the device-resident corpus
+    cache (`device_cache_corpus`, held against the reference in
     tests/test_torch_corpus_cache.py; off at one epoch, as in the
     reference), LC training (`lc_chunk`, held against the reference in
-    tests/test_torch_lc_training.py), `profile_steps` and `tb_media`, each
-    refused before it was ported, now train."""
+    tests/test_torch_lc_training.py), `profile_steps` and `tb_media`."""
     root = str(tmp_path / "corpus")
     _write_corpus(root, n_train=2, n_val=1)
     for key, value in (("num_model_shards", 2), ("device_cache_corpus", 1),
@@ -434,8 +436,10 @@ def test_train_refuses_what_is_not_ported(tmp_path):
             summary = tloop.train(path, device="cpu")
             assert summary["steps"] == 1 and np.isfinite(summary["best_val"])
             continue
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
             tloop.train(path, device="cpu")
+        summary = tloop.train(path, device="cpu", devices=["cpu"] * 2)
+        assert summary["steps"] == 1 and np.isfinite(summary["best_val"])
     log = (tmp_path / "exp_device_cache_corpus" / "training_log.txt").read_text()
     assert "# corpus cache" not in log  # one epoch: nothing to reuse
     tags = {t.split("/")[0] for _, t, _ in read_events(str(tmp_path / "exp_tb_media" / "tb"))}
