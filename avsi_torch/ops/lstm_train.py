@@ -24,6 +24,8 @@ Counterpart of the custom VJP `_layer` of `avsi/ops/pallas_lstm.py`
   * `BiLSTMLayer`: forward = the hoisted projection (`_project`,
     `:1208-1220`, a plain large product) then K3; backward = K4 then dWx,
     db and dx as whole-sequence products (`_layer_bwd`, `:1281-1323`).
+    Each is one span under a profiler session (`blstm.train_fwd`,
+    `blstm.train_bwd`; `avsi_torch.utils.profiling.span`).
 
 It lives beside `lstm_fused` (the forward-only serving stack, K1/K2) rather
 than in it because it is a different path with its own residual layout:
@@ -48,6 +50,7 @@ import dataclasses
 from avsi_torch.ops import _build, lstm_fused
 from avsi_torch.ops.lstm_fused import (
     BATCH_TILES, SMEM_PER_CTA, LaunchPlan, check_inputs, recurrence_plain)
+from avsi_torch.utils import profiling
 
 
 # ---------------------------------------------------------------- K3
@@ -254,35 +257,37 @@ class BiLSTMLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wx, wh, b, compute_dtype):
-        cd = compute_dtype
-        wx_c = wx.to(cd)
-        wh_c = wh.to(cd).contiguous()
-        xw = project(x, wx_c, b, cd)
-        out_f, out_b, c_f, c_b = bilstm_recurrence_train(xw, wh_c)
-        ctx.save_for_backward(x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b)
-        ctx.compute_dtype = cd
-        return torch.cat([out_f, out_b], dim=-1).transpose(0, 1).contiguous().to(x.dtype)
+        with profiling.span("blstm.train_fwd"):
+            cd = compute_dtype
+            wx_c = wx.to(cd)
+            wh_c = wh.to(cd).contiguous()
+            xw = project(x, wx_c, b, cd)
+            out_f, out_b, c_f, c_b = bilstm_recurrence_train(xw, wh_c)
+            ctx.save_for_backward(x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b)
+            ctx.compute_dtype = cd
+            return torch.cat([out_f, out_b], dim=-1).transpose(0, 1).contiguous().to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b = ctx.saved_tensors
-        cd = ctx.compute_dtype
-        hidden = wh_c.shape[1]
-        dyc = dy.to(cd).transpose(0, 1)  # (T, B, 2H)
-        dxw, dwh = bilstm_recurrence_bwd(
-            xw, wh_c, out_f, out_b, c_f, c_b,
-            dyc[..., :hidden].contiguous(), dyc[..., hidden:].contiguous(),
-        )
-        # dxw is in kernel time, the layout the projection came from, so
-        # the weight and input grads are whole-sequence products
-        dxw32 = dxw.float()
-        dwx = torch.einsum("dbti,tdbg->dig", _directions(x, cd), dxw32)
-        db = dxw32.sum(dim=(0, 2))
-        dx = None
-        if ctx.needs_input_grad[0]:
-            dx2 = torch.einsum("tdbg,dig->dbti", dxw32, wx_c.float())
-            dx = (dx2[0] + dx2[1].flip(1)).to(x.dtype)
-        return dx, dwx, dwh, db, None
+        with profiling.span("blstm.train_bwd"):
+            x, wx_c, wh_c, xw, out_f, out_b, c_f, c_b = ctx.saved_tensors
+            cd = ctx.compute_dtype
+            hidden = wh_c.shape[1]
+            dyc = dy.to(cd).transpose(0, 1)  # (T, B, 2H)
+            dxw, dwh = bilstm_recurrence_bwd(
+                xw, wh_c, out_f, out_b, c_f, c_b,
+                dyc[..., :hidden].contiguous(), dyc[..., hidden:].contiguous(),
+            )
+            # dxw is in kernel time, the layout the projection came from, so
+            # the weight and input grads are whole-sequence products
+            dxw32 = dxw.float()
+            dwx = torch.einsum("dbti,tdbg->dig", _directions(x, cd), dxw32)
+            db = dxw32.sum(dim=(0, 2))
+            dx = None
+            if ctx.needs_input_grad[0]:
+                dx2 = torch.einsum("tdbg,dig->dbti", dxw32, wx_c.float())
+                dx = (dx2[0] + dx2[1].flip(1)).to(x.dtype)
+            return dx, dwx, dwh, db, None
 
 
 def bilstm_layer_train(params: dict, x: torch.Tensor, compute_dtype=torch.float32):

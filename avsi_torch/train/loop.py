@@ -46,10 +46,11 @@ As the reference does, `train()` writes TensorBoard events to
 `<exp_folder>/tb` (`train/<loss>`, `val/metric` and `train/epoch_time_s`
 each epoch, and with `tb_media`, 1 by default, spectrogram images and
 enhanced audio of a validation batch read once); `profile_steps = N`
-traces steps 3..3+N of epoch 0 with `torch.profiler` into
-`<exp_folder>/profile`; a SIGTERM lets the step in flight finish, skips
-validation, writes the resume checkpoint `ckpt` with its optimizer sidecar
-and returns `preempted: True` (`train_or_exit` then exits with 143).
+traces steps 3..3+N of epoch 0 with `torch.profiler`, and the steps'
+spans, into `<exp_folder>/profile`; a SIGTERM lets the step in flight
+finish, skips validation, writes the resume checkpoint `ckpt` with its
+optimizer sidecar and returns `preempted: True` (`train_or_exit` then
+exits with 143).
 
 Meshes and processes (`avsi_torch/parallel`).  A config's
 `num_data_shards` / `num_model_shards` build a mesh over the process's
@@ -100,6 +101,7 @@ from avsi_torch.parallel import mesh as mesh_lib
 from avsi_torch.train import checkpoints
 from avsi_torch.train import state as state_lib
 from avsi_torch.train.tb import SummaryWriter
+from avsi_torch.utils import profiling
 
 
 def _log(logfile: str | None, msg: str) -> None:
@@ -218,6 +220,13 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
     (batch-norm running statistics) into the same leaves.  The gradients
     stay on the params' `.grad` until the next step.
 
+    Under a profiler session the step records its spans
+    (`utils/profiling.span`): `train.step` (the step span, whose step id is
+    `state.step`) around `train.input` (placing, expanding, the host's CTC
+    feasibility, `zero_grad`), `train.forward`, `train.loss`,
+    `train.backward` and `train.optimizer`; the BLSTM layers add theirs
+    (`ops/lstm_train.BiLSTMLayer`).
+
     With a `mesh` (data shards of this process) or inside a
     `torch.distributed` job the step is sharded (`_sharded_step`); the
     batch is placed on `device`, the mesh's first device."""
@@ -227,17 +236,23 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
     af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
-        if not isinstance(batch, Placed):
-            batch = place(batch, device)
-        dev = step_input(batch, af, k)
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
-        ldict = model.losses(out, dev, config)
-        ldict["loss"].backward()
-        state_lib.apply_gradients(state, config)
-        if model.apply_aux_update is not None:
-            model.apply_aux_update(state.params, out)
-        return {k: v.detach() for k, v in ldict.items()}
+        with profiling.span("train.step", step=state.step):
+            with profiling.span("train.input"):
+                if not isinstance(batch, Placed):
+                    batch = place(batch, device)
+                dev = step_input(batch, af, k)
+                state.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.forward"):
+                out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
+            with profiling.span("train.loss"):
+                ldict = model.losses(out, dev, config)
+            with profiling.span("train.backward"):
+                ldict["loss"].backward()
+            with profiling.span("train.optimizer"):
+                state_lib.apply_gradients(state, config)
+                if model.apply_aux_update is not None:
+                    model.apply_aux_update(state.params, out)
+            return {k: v.detach() for k, v in ldict.items()}
 
     return train_step
 
@@ -266,42 +281,50 @@ def _sharded_step(model, config: dict, stats: tuple, device, is_asr: bool,
     lockstep = model.lockstep_shards
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
-        if not isinstance(batch, Placed):
-            batch = place(batch, device)
-        dev = step_input(batch, af, k)
-        parts = mesh_lib.split_batch(dev, mesh) if mesh is not None else [dev]
-        contexts = mesh_lib.shard_contexts(mesh, len(batch.meta["sequence_lengths"]),
-                                           mesh_lib.batch_totals(dev))
-        state.optimizer.zero_grad(set_to_none=True)
-        gen_state = gen.get_state() if gen is not None else None
-        gens = [None if gen is None else _generator_like(gen_state, d) for d in shard_devs]
+        with profiling.span("train.step", step=state.step):
+            with profiling.span("train.input"):
+                if not isinstance(batch, Placed):
+                    batch = place(batch, device)
+                dev = step_input(batch, af, k)
+                parts = mesh_lib.split_batch(dev, mesh) if mesh is not None else [dev]
+                contexts = mesh_lib.shard_contexts(mesh, len(batch.meta["sequence_lengths"]),
+                                                   mesh_lib.batch_totals(dev))
+                state.optimizer.zero_grad(set_to_none=True)
+                gen_state = gen.get_state() if gen is not None else None
+                gens = [None if gen is None else _generator_like(gen_state, d) for d in shard_devs]
 
-        def shard(i: int):
-            d = shard_devs[i]
-            params = mesh_lib.gather_params(state.params, d)
-            out = model.forward(params, parts[i], config, stats_on[d], train=True, gen=gens[i])
-            ldict = model.losses(out, parts[i], config)
-            if not lockstep:
-                ldict["loss"].backward()
-            return out, ldict
+            def shard(i: int):
+                d = shard_devs[i]
+                params = mesh_lib.gather_params(state.params, d)
+                with profiling.span("train.forward"):
+                    out = model.forward(params, parts[i], config, stats_on[d], train=True,
+                                        gen=gens[i])
+                with profiling.span("train.loss"):
+                    ldict = model.losses(out, parts[i], config)
+                if not lockstep:
+                    with profiling.span("train.backward"):
+                        ldict["loss"].backward()
+                return out, ldict
 
-        results = mesh_lib.run_shards(contexts, shard, lockstep)
-        if lockstep:
-            torch.stack([ld["loss"].to(device) for _, ld in results]).sum().backward()
-        if gen is not None:
-            gen.set_state(gens[0].get_state())
-        keys = list(results[0][1])
-        losses = torch.stack([sum(ld[key].detach().to(device) for _, ld in results)
-                              for key in keys])
-        leaves = [p for g in state.optimizer.param_groups for p in g["params"]]
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        distributed.all_sum_tensors([p.grad for p in leaves] + [losses])
-        state_lib.apply_gradients(state, config)
-        if model.apply_aux_update is not None:
-            model.apply_aux_update(state.params, results[0][0])
-        return dict(zip(keys, losses))
+            results = mesh_lib.run_shards(contexts, shard, lockstep)
+            if lockstep:
+                with profiling.span("train.backward"):
+                    torch.stack([ld["loss"].to(device) for _, ld in results]).sum().backward()
+            if gen is not None:
+                gen.set_state(gens[0].get_state())
+            keys = list(results[0][1])
+            losses = torch.stack([sum(ld[key].detach().to(device) for _, ld in results)
+                                  for key in keys])
+            with profiling.span("train.optimizer"):  # with the gradients' all-reduce
+                leaves = [p for g in state.optimizer.param_groups for p in g["params"]]
+                for p in leaves:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                distributed.all_sum_tensors([p.grad for p in leaves] + [losses])
+                state_lib.apply_gradients(state, config)
+                if model.apply_aux_update is not None:
+                    model.apply_aux_update(state.params, results[0][0])
+            return dict(zip(keys, losses))
 
     return train_step
 
@@ -803,10 +826,11 @@ class _CorpusCache:
 
 
 class _StepProfiler:
-    """`profile_steps = n`: a `torch.profiler` trace of steps 3..3+n of
+    """`profile_steps = n`: a `profiling.Session` trace of steps 3..3+n of
     the run (counted from its first step) into `logdir` as a Chrome trace
-    (`trace.json`); a run that ends inside the window writes what it has
-    and logs a partial trace."""
+    (`trace.json`: the host, the device's kernels and the steps' spans); a
+    run that ends inside the window writes what it has and logs a partial
+    trace."""
 
     FIRST = 3
 
@@ -817,11 +841,7 @@ class _StepProfiler:
     def before(self, done: int) -> None:
         if self.n_steps and done == self.FIRST and self.prof is None:
             os.makedirs(self.logdir, exist_ok=True)
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=acts)
-            self.prof.start()
+            self.prof = profiling.Session(self.device).start()
 
     def after(self, done: int) -> None:
         if self.prof is not None and done == self.FIRST + self.n_steps:
@@ -830,10 +850,7 @@ class _StepProfiler:
             _log(self.logfile, f"# profiler trace written to {self.logdir}")
 
     def _stop(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the traced steps' device work ends
-        self.prof.stop()
-        self.prof.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
+        self.prof.stop(os.path.join(self.logdir, "trace.json"))
         self.prof = None
 
     def close(self) -> None:

@@ -247,34 +247,14 @@ def test_stft_helpers_match_reference(shape, fl, fs, nfft):
                                atol=1e-6 * np.abs(x).max())
 
 
-def test_step_timer_summary():
-    """The reference's keys: steps, mean and the 50/90/99th percentiles of
-    the recorded walls; empty before any step."""
-    timer = profiling.StepTimer()
-    assert timer.summary() == {}
-    walls = [0.01, 0.03, 0.02, 0.05]
-    clock = iter([0.0, walls[0], 1.0, 1.0 + walls[1], 2.0, 2.0 + walls[2], 3.0, 3.0 + walls[3]])
-    orig = profiling.time.perf_counter
-    profiling.time.perf_counter = lambda: next(clock)
-    try:
-        for _ in walls:
-            with timer:
-                pass
-    finally:
-        profiling.time.perf_counter = orig
-    got = timer.summary()
-    assert list(got) == ["steps", "mean_s", "p50_s", "p90_s", "p99_s"]
-    assert got["steps"] == 4
-    np.testing.assert_allclose([got["mean_s"], got["p50_s"], got["p90_s"], got["p99_s"]],
-                               [np.mean(walls), *np.percentile(walls, [50, 90, 99])],
-                               rtol=1e-9)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
-    """`trace(logdir)` on the CPU: a Chrome trace naming the ops it ran."""
+    """`trace(logdir)` on the CPU: a Chrome trace naming the ops it ran and
+    the spans recorded inside it."""
     logdir = str(tmp_path / "trace")
     with profiling.trace(logdir):
-        torch.matmul(torch.ones(64, 64), torch.ones(64, 64)).sum()
+        with profiling.span("train.step", step=0):
+            torch.matmul(torch.ones(64, 64), torch.ones(64, 64)).sum()
     with open(os.path.join(logdir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+    assert [e["name"] for e in events if e.get("cat") == "span"] == ["train.step"]

@@ -586,3 +586,45 @@ def test_unet_forward_and_gradients_cuda_match_cpu(model, train):
             assert gg[key].abs().max().item() <= 1e-6 * peak, key
         else:
             assert (gg[key] - want).norm().item() <= 1e-3 * want.norm().item(), key
+
+
+def test_spans_share_the_device_trace_clock():
+    """`profiling.span` stamps its spans on the clock of the profiler's
+    CUDA events: under a CUDA-only session (as the benchmark's device
+    trace opens it), the kernels of a span that launches over 1 ms of them
+    and synchronises lie inside it within 50 us at each end, and a span
+    opened after the synchronise starts after the last kernel's end, less
+    50 us."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from avsi_torch.utils import profiling
+
+    tol = 50_000
+    a = torch.randn(2048, 2048, device="cuda")
+    for _ in range(3):
+        a @ a  # noqa: B018 - cuBLAS's set-up before the session
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        with profiling.span("work"):
+            x = a
+            for _ in range(20):
+                x = (x @ a) * 1e-3
+            torch.cuda.synchronize()
+        with profiling.span("after"):
+            pass
+    finally:
+        prof.stop()
+    spans = {s.name: s for s in profiling.spans()}
+    profiling.clear_spans()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and e.end_ns() > e.start_ns()]
+    assert sum(e.end_ns() - e.start_ns() for e in kernels) >= 1_000_000
+    first, last = min(e.start_ns() for e in kernels), max(e.end_ns() for e in kernels)
+    work, after = spans["work"], spans["after"]
+    assert first >= work.start_ns - tol, (first - work.start_ns)
+    assert last <= work.end_ns + tol, (last - work.end_ns)
+    assert after.start_ns >= last - tol, (after.start_ns - last)

@@ -10,6 +10,7 @@ function as the scan).  Weights come from the JAX init and reach the port
 through the npz bridge.  Each test states its tolerance.
 """
 
+import json
 import os
 
 import jax
@@ -570,7 +571,13 @@ def test_profile_steps_trace(tmp_path):
     done = tloop.train(_train_config(tmp_path, root, "full", max_n_epochs=3, profile_steps=1),
                        device="cpu")
     assert done["steps"] == 6
-    assert os.path.isfile(str(tmp_path / "full" / "profile" / "trace.json"))
+    with open(str(tmp_path / "full" / "profile" / "trace.json")) as fh:
+        spans = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "span"]
+    # the one traced step's spans (the fourth step: its step id is 3)
+    assert [e["args"]["step"] for e in spans if e["name"] == "train.step"] == [3]
+    assert {e["name"] for e in spans} == {
+        "train.step", "train.input", "train.forward", "train.loss", "train.backward",
+        "train.optimizer", "blstm.train_fwd", "blstm.train_bwd"}
     assert "# profiler trace written to" in open(str(tmp_path / "full" / "training_log.txt")).read()
     short = tloop.train(_train_config(tmp_path, root, "short", max_n_epochs=2,
                                       profile_steps=999), device="cpu")
