@@ -35,17 +35,16 @@ def make_asr_step(config: dict, stats: tuple, apply_mask: bool, use_beam: bool, 
     `use_beam`, else the greedy ids (B, T') padded with -1."""
     device = resolve_device(device)
     stats_t = tuple(torch.as_tensor(s, dtype=torch.float32).to(device) for s in stats)
-    af, k = int(config["audio_feat_dim"]), int(config.get("frame_stack", 1))
+    af = int(config["audio_feat_dim"])
 
     @torch.inference_mode()
     def step(params, batch):
-        infeasible = asr_model.ctc_infeasible(batch, k)
         batch = {n: torch.as_tensor(v).to(device, non_blocking=True) for n, v in batch.items()}
         batch = expand_batch(batch, af)
         out = asr_model.forward(params, batch, config, stats_t, apply_mask=apply_mask)
         lengths = out["logit_lengths"]
         loss = ctc_ops.ctc_loss_per_seq(out["logits"], lengths, batch["labels"],
-                                        batch["labels_lengths"], infeasible)
+                                        batch["labels_lengths"])
         dec = out["logits"] if use_beam else asr_model.decode_greedy(out)
         return dec, loss, lengths
 

@@ -14,7 +14,6 @@ The stack is `core.blstm_stack`: K1/K2 with `train=False`, `BiLSTMLayer`
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,15 +62,6 @@ def logit_lengths(sequence_lengths, frame_stack: int):
     return (sequence_lengths + (k - 1)) // k
 
 
-def ctc_infeasible(batch: dict, frame_stack: int):
-    """`ctc_ops.infeasible_rows` of a host batch (numpy arrays or CPU
-    tensors) on its logit lengths: the host-side feasibility the loss takes
-    so that it needs no device sync."""
-    return ctc_ops.infeasible_rows(
-        logit_lengths(np.asarray(batch["sequence_lengths"]), frame_stack),
-        np.asarray(batch["labels"]), np.asarray(batch["labels_lengths"]))
-
-
 def asr_features(target_sources: torch.Tensor, stats: tuple, masks: torch.Tensor | None = None,
                  num_frames: int | None = None, num_spec_bins: int = 257) -> torch.Tensor:
     """wave -> normalized log-mel."""
@@ -118,10 +108,9 @@ def forward(params: dict, batch: dict, config: dict, stats: tuple, apply_mask: b
 
 
 def losses(outputs: dict, batch: dict, config: dict) -> dict:
-    """The mean CTC loss on the logit lengths.  `ctc_infeasible` (host
-    numpy, `ctc_infeasible` of the host batch) saves a device sync."""
+    """The mean CTC loss on the logit lengths."""
     loss = ctc_ops.ctc_loss(outputs["logits"], outputs["logit_lengths"], batch["labels"],
-                            batch["labels_lengths"], infeasible=batch.get("ctc_infeasible"))
+                            batch["labels_lengths"])
     return {"loss": loss, "ctc_loss": loss}
 
 

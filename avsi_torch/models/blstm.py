@@ -304,7 +304,6 @@ def losses(outputs: dict, batch: dict, config: dict, spec: BLSTMSpec | None = No
             batch["sequence_lengths"],
             batch["labels"],
             batch["labels_lengths"],
-            infeasible=batch.get("ctc_infeasible"),
         )
         loss_func = loss_func + float(config["ctc_loss"]) * out["ctc_loss"]
     out["loss"] = loss_func

@@ -32,7 +32,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "lstm_fused.cu", _PKG / "csrc" / "lstm_train.cu")
+SOURCES = (_PKG / "csrc" / "lstm_fused.cu", _PKG / "csrc" / "lstm_train.cu",
+           _PKG / "csrc" / "ctc.cu")
 HEADERS = (_PKG / "csrc" / "lstm_common.cuh", _PKG / "csrc" / "lstm_cluster.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +57,9 @@ _SIGNATURES = {
     "avsi_bilstm_recurrence_bwd": [_P] * 11 + [_I] * 11 + [_P],
     "avsi_bilstm_recurrence_carry": [_P] * 7 + [_I] * 9 + [_P],
     "avsi_bilstm_recurrence": [_P] * 4 + [_I] * 9 + [_P],
+    # the CTC loss: logits, both lengths, labels, loss, grad (or null), the
+    # tables' scratch (or null); then batch, T, C, N and the three dtype codes
+    "avsi_ctc_loss": [_P] * 7 + [_I] * 7 + [_P],
 }
 # launches per kernel wrapper (K1's and K2's projection and recurrence, and
 # K4's walk, dWh's chunks and their sum, count as one)

@@ -11,12 +11,26 @@ Infeasible rows.  The reference's `optax.ctc_loss` runs its alpha
 recursion in log space with a floor `log_epsilon = -1e5` in place of
 log(0), so a row whose labels cannot be aligned in its frames (fewer
 frames than labels plus adjacent repeats) gets a large finite loss
-(~1e5) and a finite gradient, where `F.ctc_loss` gives inf.  Such rows
-take `_ctc_loss_optax`, a plain port of optax's recursion; feasible rows
-keep `F.ctc_loss`, whose value and gradient agree with optax's there.
-Which rows are infeasible is decided on the host from the label lengths
-and repeats (`infeasible_rows`), so the common all-feasible batch pays no
-device sync and no extra work.
+(~1e5) and a finite gradient, where `F.ctc_loss` gives inf.
+
+On the card.  `ctc_loss_per_seq` launches the hand-written kernel of
+`avsi_torch/csrc/ctc.cu` for every row: the log-softmax, the recursions
+and, when the logits need a gradient, the gradient, in one launch that
+reads the labels and both lengths from device memory.  `F.ctc_loss` is not
+called there: its CUDA implementation builds its target offsets and
+lengths on the host in its forward and again in its backward and uploads
+them with blocking copies from pageable memory, so the host would wait for
+the device twice a train step whatever lengths it is given.  The kernel
+splits the rows as the CPU path does, on the device: feasible rows repeat
+`F.ctc_loss`'s own f32 arithmetic (its loss bit for bit), infeasible rows
+run optax's recursion, with its log_epsilon floor counted exactly.  A
+shape the kernel does not take raises (`ctc_plan`).
+
+On the CPU.  Feasible rows take `F.ctc_loss`, whose value and gradient
+agree with optax's there; infeasible rows take `_ctc_loss_optax`, a plain
+port of optax's recursion.  Which rows are infeasible is decided from the
+label lengths and repeats (`infeasible_rows`, on CPU tensors, so nothing
+waits), and the common all-feasible batch does no extra work.
 
 Beam search.  A host decoder, as in the reference: the CTC prefix beam
 search of `native/avsi_ctc.cc` (the reference's C++ decoder, compiled here
@@ -30,6 +44,7 @@ gives the same sequences, equal scores at the beam's cut included.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import heapq
 import math
 import os
@@ -39,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avsi_torch.ops import _build
+from avsi_torch.ops import _build, lstm_fused
 from avsi_torch.parallel import mesh as mesh_lib
 
 LOG_EPSILON = -1e5  # optax.ctc_loss's log(+0)
@@ -50,7 +65,7 @@ def infeasible_rows(logit_lengths, labels, label_lengths) -> np.ndarray:
     have.  A CTC path emits each label once and needs a blank between two
     equal adjacent labels, so L labels with r adjacent repeats need L + r
     frames.  Takes numpy arrays or tensors (a CUDA tensor is copied, which
-    waits for the device; callers on the hot path pass host arrays)."""
+    waits for the device: on the card the kernel decides it itself)."""
     logit_lengths, labels, label_lengths = (
         np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
         for a in (logit_lengths, labels, label_lengths)
@@ -64,26 +79,28 @@ def infeasible_rows(logit_lengths, labels, label_lengths) -> np.ndarray:
 
 def _ctc_loss_optax(logits, logit_lengths, labels, label_lengths):
     """Per-sequence loss by optax's log-space alpha recursion
-    (`optax.ctc_loss_with_forward_probs`), step for step, in f32.  Labels
-    are the padded (B, N) rows; blank is the last class."""
+    (`optax.ctc_loss_with_forward_probs`), step for step, in f32 (in f64
+    for f64 logits).  Labels are the padded (B, N) rows; blank is the last
+    class."""
     b_sz, t_len, n_cls = logits.shape
     n = labels.shape[1]
     dev = logits.device
-    logprobs = F.log_softmax(logits.float(), dim=-1)
+    dt = torch.promote_types(logits.dtype, torch.float32)
+    logprobs = F.log_softmax(logits.to(dt), dim=-1)
     labels = labels.long()
-    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))  # (B, N)
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(dt), (0, 1))  # (B, N)
     lp_phi = logprobs[:, :, n_cls - 1].transpose(0, 1)[:, :, None]  # (T, B, 1)
     lp_emit = torch.gather(logprobs, 2, labels[:, None, :].expand(b_sz, t_len, n))
     lp_emit = lp_emit.transpose(0, 1)  # (T, B, N)
     pad = (torch.arange(t_len, device=dev)[:, None]
-           >= logit_lengths.to(dev)[None, :]).float()[:, :, None]  # (T, B, 1)
+           >= logit_lengths.to(dev)[None, :]).to(dt)[:, :, None]  # (T, B, 1)
 
     def add_phi(phi, score):  # phi[:, 1:] (+)= score in log space
         return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], score)], dim=-1)
 
-    phi = torch.full((b_sz, n + 1), LOG_EPSILON, device=dev)
+    phi = torch.full((b_sz, n + 1), LOG_EPSILON, device=dev, dtype=dt)
     phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], dim=-1)
-    emit = torch.full((b_sz, n), LOG_EPSILON, device=dev)
+    emit = torch.full((b_sz, n), LOG_EPSILON, device=dev, dtype=dt)
     for t in range(t_len):
         phi_orig = phi
         phi = add_phi(phi, emit + LOG_EPSILON * repeat)
@@ -95,20 +112,127 @@ def _ctc_loss_optax(logits, logit_lengths, labels, label_lengths):
     return -torch.gather(phi_last, 1, label_lengths.to(dev).long()[:, None])[:, 0]
 
 
+# ------------------------------------------------------------ the kernel
+
+CTC_WARPS = 16  # warps of the kernel's block (csrc/ctc.cu kWarps)
+CTC_MAX_LABELS = 127  # padded label width: a lane holds at most 4 labels' states
+_DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class CtcPlan:
+    """The kernel's layout at a shape: `k_max` labels a lane can hold,
+    the shared bytes of the log-softmax's max and log-sum of each frame,
+    the per-warp class sums and the row's loss (`base_bytes`),
+    the bytes of one row's alpha and beta tables, and whether those fit
+    beside them in one block's shared memory (else a scratch tensor)."""
+
+    k_max: int
+    base_bytes: int
+    table_bytes: int
+    tables_in_smem: bool
+
+
+def ctc_plan(t_len: int, n_cls: int, n_lab: int) -> CtcPlan:
+    """The kernel's layout for logits (B, t_len, n_cls) and labels padded to
+    n_lab, as `avsi_ctc_loss` lays it out; raises ValueError where the
+    kernel does not take the shape."""
+    if n_cls < 1 or not 0 <= n_lab <= CTC_MAX_LABELS:
+        raise ValueError(f"ctc kernel: takes C >= 1 classes and a padded label width up to "
+                         f"{CTC_MAX_LABELS}, got C={n_cls}, N={n_lab}")
+    base = 8 * ((4 * (2 * t_len + CTC_WARPS * n_cls + 1) + 7) // 8)
+    if base > lstm_fused.SMEM_PER_CTA:
+        raise ValueError(f"ctc kernel: T={t_len} frames of C={n_cls} classes need {base} bytes "
+                         f"of shared memory, over {lstm_fused.SMEM_PER_CTA}")
+    k_max = (n_lab + 32) // 32
+    table = 2 * t_len * 64 * k_max * 8
+    return CtcPlan(k_max, base, table, base + table <= lstm_fused.SMEM_PER_CTA)
+
+
+def _code(name: str, t: torch.Tensor, allowed) -> int:
+    if t.dtype not in allowed:
+        raise ValueError(f"ctc kernel: {name} must be one of {[str(d) for d in allowed]}, "
+                         f"got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def ctc_loss_cuda(logits, logit_lengths, labels, label_lengths, want_grad: bool):
+    """The kernel on CUDA tensors: (loss (B,) f32, dloss/dlogits (B, T, C)
+    f32 or None).  logits (B, T, C) f32 with blank last; labels (B, N)
+    float32, int32 or int64; logit_lengths and label_lengths (B,) int32 or
+    int64; all on one device.  Rows whose labels cannot be read (a length
+    outside [0, N], a label outside [0, C)) get NaN.  An empty batch
+    launches nothing."""
+    if logits.dim() != 3 or logits.dtype != torch.float32 or labels.dim() != 2:
+        raise ValueError(f"ctc kernel: takes logits (B, T, C) float32 and labels (B, N), got "
+                         f"{tuple(logits.shape)} {logits.dtype} and {tuple(labels.shape)}")
+    (b_sz, t_len, n_cls), n_lab = logits.shape, labels.shape[1]
+    device = logits.device
+    for arg, t, shape in (("logit_lengths", logit_lengths, (b_sz,)),
+                          ("labels", labels, (b_sz, n_lab)),
+                          ("label_lengths", label_lengths, (b_sz,))):
+        if t.device != device or tuple(t.shape) != shape:
+            raise ValueError(f"ctc kernel: {arg} must be {shape} on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    ints = (torch.int32, torch.int64)
+    codes = (_code("labels", labels, (torch.float32, *ints)),
+             _code("logit_lengths", logit_lengths, ints),
+             _code("label_lengths", label_lengths, ints))
+    plan = ctc_plan(t_len, n_cls, n_lab)
+    logits, labels = logits.contiguous(), labels.contiguous()
+    logit_lengths, label_lengths = logit_lengths.contiguous(), label_lengths.contiguous()
+    loss = torch.empty((b_sz,), dtype=torch.float32, device=device)
+    grad = torch.empty_like(logits) if want_grad else None
+    if b_sz == 0:
+        return loss, grad
+    table = None
+    if want_grad and not plan.tables_in_smem:
+        table = torch.empty((b_sz * plan.table_bytes // 4,), dtype=torch.int32, device=device)
+    _build.launch(
+        "ctc_loss", device, logits.data_ptr(), logit_lengths.data_ptr(), labels.data_ptr(),
+        label_lengths.data_ptr(), loss.data_ptr(), 0 if grad is None else grad.data_ptr(),
+        0 if table is None else table.data_ptr(), b_sz, t_len, n_cls, n_lab, *codes,
+    )
+    return loss, grad
+
+
+class CtcLoss(torch.autograd.Function):
+    """Per-sequence CTC on the card: the kernel computes the loss and, when
+    the logits need a gradient, dloss/dlogits in the same launch; the
+    backward scales it by each row's upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, logit_lengths, labels, label_lengths):
+        loss, grad = ctc_loss_cuda(logits, logit_lengths, labels, label_lengths,
+                                   want_grad=ctx.needs_input_grad[0])
+        ctx.save_for_backward(grad)
+        return loss
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dloss):
+        (grad,) = ctx.saved_tensors
+        return grad * dloss[:, None, None], None, None, None
+
+
 def ctc_loss_per_seq(
     logits: torch.Tensor,
     logit_lengths: torch.Tensor,
     labels: torch.Tensor,
     label_lengths: torch.Tensor,
-    infeasible: np.ndarray | None = None,
 ) -> torch.Tensor:
     """Per-sequence CTC negative log-likelihood, shape (B,).
 
     logits: (B, T, C) with blank as the LAST class; labels: (B, L) class
-    ids in [0, C-1), padded past `label_lengths`.  `infeasible`: the
-    host-side `infeasible_rows` of these inputs, computed here if None."""
-    if infeasible is None:
-        infeasible = infeasible_rows(logit_lengths, labels, label_lengths)
+    ids in [0, C-1), padded past `label_lengths`.  CUDA logits take the
+    kernel: through `CtcLoss` where they need a gradient, else for the loss
+    alone.  CPU logits take `F.ctc_loss` and, for the rows that
+    `infeasible_rows` marks, `_ctc_loss_optax`."""
+    if logits.is_cuda:
+        if torch.is_grad_enabled() and logits.requires_grad:
+            return CtcLoss.apply(logits.float(), logit_lengths, labels, label_lengths)
+        return ctc_loss_cuda(logits.float(), logit_lengths, labels, label_lengths, False)[0]
+    infeasible = infeasible_rows(logit_lengths, labels, label_lengths)
     log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # (T, B, C)
     loss = F.ctc_loss(
         log_probs,
@@ -131,12 +255,10 @@ def ctc_loss(
     logit_lengths: torch.Tensor,
     labels: torch.Tensor,
     label_lengths: torch.Tensor,
-    infeasible: np.ndarray | None = None,
 ) -> torch.Tensor:
     """Mean CTC negative log-likelihood (see ctc_loss_per_seq); a shard of a
     sharded step takes its share of the global batch's mean."""
-    return mesh_lib.batch_mean(
-        ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths, infeasible))
+    return mesh_lib.batch_mean(ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths))
 
 
 def greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor) -> torch.Tensor:

@@ -171,7 +171,7 @@ class Placed:
     """A batch as the steps take it: its tensors on the device (`dev`,
     compacted unless the caller asked otherwise) and its host meta (`meta`:
     labels, their lengths, the sequence lengths and `num_real`), which the
-    CTC feasibility and the validation's PER read without a device sync."""
+    validation's PER and the shard contexts read without a device sync."""
 
     dev: dict
     meta: dict
@@ -194,25 +194,17 @@ def place(batch: dict, device, compact: bool = True) -> Placed:
 
 def step_input(placed: Placed, audio_feat_dim: int, frame_stack: int = 1) -> dict:
     """What the model reads: the batch expanded on the device (a new dict;
-    the placed tensors are never written), plus the host-side CTC
-    feasibility of each row (`ctc_infeasible`, numpy) so the loss needs no
-    device sync to find infeasible alignments.  Feasibility is decided on
-    the logits' frames: an ASR model's `frame_stack` k leaves ceil(T / k)."""
-    out = mesh_lib.expand_batch(placed.dev, audio_feat_dim)
-    out["ctc_infeasible"] = asr_model.ctc_infeasible(placed.meta, frame_stack)
-    return out
-
-
-def _frame_stack(config: dict, is_asr: bool) -> int:
-    """The logits' time subsampling: an ASR model's `frame_stack`, else 1."""
-    return int(config.get("frame_stack", 1)) if is_asr else 1
+    the placed tensors are never written).  `frame_stack` is not read: the
+    CTC loss decides which rows its logit frames can align by itself; the
+    parameter stays because perfbench's controls wrap this signature."""
+    return mesh_lib.expand_batch(placed.dev, audio_feat_dim)
 
 
 def _stats_on(stats: tuple, device) -> tuple:
     return tuple(torch.as_tensor(np.asarray(s), dtype=torch.float32).to(device) for s in stats)
 
 
-def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = False,
+def make_train_step(model, config: dict, stats: tuple, device,
                     mesh: mesh_lib.Mesh | None = None):
     """Step `(state, batch, gen) -> losses` over a `Placed` batch (or a host
     batch, placed first): forward with train=True, losses, backward, one
@@ -222,25 +214,24 @@ def make_train_step(model, config: dict, stats: tuple, device, is_asr: bool = Fa
 
     Under a profiler session the step records its spans
     (`utils/profiling.span`): `train.step` (the step span, whose step id is
-    `state.step`) around `train.input` (placing, expanding, the host's CTC
-    feasibility, `zero_grad`), `train.forward`, `train.loss`,
-    `train.backward` and `train.optimizer`; the BLSTM layers add theirs
-    (`ops/lstm_train.BiLSTMLayer`).
+    `state.step`) around `train.input` (placing, expanding, `zero_grad`),
+    `train.forward`, `train.loss`, `train.backward` and `train.optimizer`;
+    the BLSTM layers add theirs (`ops/lstm_train.BiLSTMLayer`).
 
     With a `mesh` (data shards of this process) or inside a
     `torch.distributed` job the step is sharded (`_sharded_step`); the
     batch is placed on `device`, the mesh's first device."""
     if mesh is not None or distributed.active():
-        return _sharded_step(model, config, stats, device, is_asr, mesh)
+        return _sharded_step(model, config, stats, device, mesh)
     stats_t = _stats_on(stats, device)
-    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
+    af = int(config["audio_feat_dim"])
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
         with profiling.span("train.step", step=state.step):
             with profiling.span("train.input"):
                 if not isinstance(batch, Placed):
                     batch = place(batch, device)
-                dev = step_input(batch, af, k)
+                dev = step_input(batch, af)
                 state.optimizer.zero_grad(set_to_none=True)
             with profiling.span("train.forward"):
                 out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
@@ -263,8 +254,7 @@ def _generator_like(state: torch.Tensor, device) -> torch.Generator:
     return gen
 
 
-def _sharded_step(model, config: dict, stats: tuple, device, is_asr: bool,
-                  mesh: mesh_lib.Mesh | None):
+def _sharded_step(model, config: dict, stats: tuple, device, mesh: mesh_lib.Mesh | None):
     """The data-parallel train step: the global batch's step, computed per
     shard.  The batch (this rank's rows) is split over the mesh's data
     shards (one shard on `device` without a mesh); each shard gathers the
@@ -277,7 +267,7 @@ def _sharded_step(model, config: dict, stats: tuple, device, is_asr: bool,
     model-sharded) leaves."""
     shard_devs = mesh.data_devices if mesh is not None else [torch.device(device)]
     stats_on = {d: _stats_on(stats, d) for d in set(shard_devs)}
-    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
+    af = int(config["audio_feat_dim"])
     lockstep = model.lockstep_shards
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
@@ -285,7 +275,7 @@ def _sharded_step(model, config: dict, stats: tuple, device, is_asr: bool,
             with profiling.span("train.input"):
                 if not isinstance(batch, Placed):
                     batch = place(batch, device)
-                dev = step_input(batch, af, k)
+                dev = step_input(batch, af)
                 parts = mesh_lib.split_batch(dev, mesh) if mesh is not None else [dev]
                 contexts = mesh_lib.shard_contexts(mesh, len(batch.meta["sequence_lengths"]),
                                                    mesh_lib.batch_totals(dev))
@@ -335,14 +325,14 @@ def _eval_outputs(model, config: dict, params, dev: dict, stats_t: tuple, is_asr
     if is_asr:
         return {"loss_ps": ctc_ops.ctc_loss_per_seq(
                     out["logits"], out["logit_lengths"], dev["labels"],
-                    dev["labels_lengths"], dev["ctc_infeasible"]),
+                    dev["labels_lengths"]),
                 "decoded": asr_model.decode_greedy(out)}
     total, hole = common.per_sample_losses(out, dev)
     res = {"loss_ps": total, "loss_hole_ps": hole}
     if "asr_logits" in out:
         res["ctc_ps"] = ctc_ops.ctc_loss_per_seq(
             out["asr_logits"], dev["sequence_lengths"], dev["labels"],
-            dev["labels_lengths"], dev["ctc_infeasible"],
+            dev["labels_lengths"],
         )
         res["decoded"] = ctc_ops.greedy_decode(out["asr_logits"], dev["sequence_lengths"])
     return res
@@ -359,13 +349,13 @@ def make_eval_step(model, config: dict, stats: tuple, device, is_asr: bool = Fal
     concatenated on `device`."""
     devs = mesh.data_devices if mesh is not None else [torch.device(device)]
     stats_on = {d: _stats_on(stats, d) for d in set(devs)}
-    af, k = int(config["audio_feat_dim"]), _frame_stack(config, is_asr)
+    af = int(config["audio_feat_dim"])
 
     @torch.inference_mode()
     def eval_step(params, batch) -> dict:
         if not isinstance(batch, Placed):
             batch = place(batch, device)
-        dev = step_input(batch, af, k)
+        dev = step_input(batch, af)
         if mesh is None:
             return _eval_outputs(model, config, params, dev, stats_on[devs[0]], is_asr)
         res = [_eval_outputs(model, config, mesh_lib.gather_params(params, d), part,
@@ -612,7 +602,7 @@ def train(config_file: str, is_asr: bool = False, device=None,
 
     config["lstm_impl"] = lstm_fused.resolve_impl(
         config.get("lstm_impl"), device, config["net_dim"], blstm_lib.dtypes(config)[0])
-    train_step = make_train_step(model, config, stats, device, is_asr, mesh=mesh)
+    train_step = make_train_step(model, config, stats, device, mesh=mesh)
     eval_step = make_eval_step(model, config, stats, device, is_asr, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(seed)  # dropout masks
 

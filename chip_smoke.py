@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero:
      twice as many, at B=32 and 128; plus the 3-layer stack; K1 at the
      input widths of the recognition and two-step paths (D = 80, 136, 216,
      240 and 393 at T = 84 and 250, B=8, f32 and bf16), held against its
-     plain version and timed the same way;
+     plain version and timed the same way; the CTC kernel (`csrc/ctc.cu`)
+     at the flagship's train step (B=8 and 32, T=250, 34 classes, labels
+     padded to 50) and the ASR's under frame_stack 3 (B=8, T=84): loss
+     and gradient on feasible rows against `F.ctc_loss` on the card, on
+     infeasible rows against the plain version (`_ctc_loss_optax`) in
+     float64 on the CPU, timed beside that plain version on the card,
+     `F.ctc_loss` and its bound;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
@@ -229,11 +235,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from avsi_torch import config as config_lib  # noqa: E402
 from avsi_torch.device import resolve_device  # noqa: E402
-from avsi_torch.data import fixture, generator, native_loader  # noqa: E402
+from avsi_torch.data import fixture, generator, native_loader, phonemes  # noqa: E402
 from avsi_torch.data import stats as stats_lib  # noqa: E402
 from avsi_torch.data import tfrecord  # noqa: E402
 from avsi_torch.data.reader import DataManager  # noqa: E402
-from avsi_torch.flagship import AUDIO_LEN, T_FRAMES, flagship_config, synthetic_batch  # noqa: E402
+from avsi_torch.flagship import AUDIO_LEN, NUM_ASR_LABELS, T_FRAMES  # noqa: E402
+from avsi_torch.flagship import flagship_config, synthetic_batch  # noqa: E402
 from avsi_torch.infer import asr as asr_infer  # noqa: E402
 from avsi_torch.infer import inpaint, masking, siasr, streaming  # noqa: E402
 from avsi_torch.models import blstm, registry, unet_generic  # noqa: E402
@@ -1481,11 +1488,12 @@ def train_path(root: str) -> dict:
     val_steps = EPOCHS * -(-N_VAL // TRAIN_BATCH)
     # + the TensorBoard media forward of each epoch (tb_media defaults to 1)
     want = {"bilstm_recurrence_train": 3 * steps, "bilstm_recurrence_bwd": 3 * steps,
-            "bilstm_fused_proj": val_steps + EPOCHS, "bilstm_fused_proj2": 2 * (val_steps + EPOCHS)}
+            "bilstm_fused_proj": val_steps + EPOCHS, "bilstm_fused_proj2": 2 * (val_steps + EPOCHS),
+            "ctc_loss": steps + val_steps}
     if summary["steps"] != steps or {k: v for k, v in counts.items() if v} != want:
         fail(f"training ran {summary['steps']} steps with launches {counts}; want {steps} "
              f"steps and {want} (K3, K4: 3 per train step; K1 1, K2 2 per validation step "
-             "and per epoch's TensorBoard media)")
+             "and per epoch's TensorBoard media; the CTC kernel 1 per train and validation step)")
     exp = os.path.join(root, "exp")
     log = open(os.path.join(exp, "training_log.txt")).read()
     losses = [float(v) for line in log.splitlines() if line.startswith("epoch ")
@@ -1524,7 +1532,7 @@ def _train_step_setup(config: dict, device: str, params: dict, is_asr: bool = Fa
     state = train_state.create_train_state(
         params, config, model.trainable_mask(params) if model.trainable_mask else None)
     stats = tuple(np.load(config[k]) for k in ("audio_feat_mean", "audio_feat_std"))
-    return state, train_loop.make_train_step(model, config, stats, device, is_asr)
+    return state, train_loop.make_train_step(model, config, stats, device)
 
 
 def profile_train_step(root: str, config: dict, label: str = "train step",
@@ -1606,9 +1614,11 @@ def lc_train_path(root: str) -> str:
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in _build.launch_counts.items() if v}
     steps = N_LC_TRAIN // LC_BATCH
-    if summary["steps"] != steps or counts:
+    want = {"ctc_loss": steps + -(-N_LC_VAL // LC_BATCH)}
+    if summary["steps"] != steps or counts != want:
         fail(f"LC training ran {summary['steps']} steps with launches {counts}; want {steps} "
-             "steps and no K1-K6 launch (the LC stack scans)")
+             f"steps and {want} (no K1-K6 launch: the LC stack scans; the CTC kernel 1 per "
+             "train and validation step)")
     exp = os.path.join(root, "exp_lc")
     log = open(os.path.join(exp, "training_log.txt")).read()
     losses = [float(v) for line in log.splitlines() if line.startswith("epoch ")
@@ -1696,6 +1706,137 @@ def recognition_k1_widths() -> dict:
     return rows
 
 
+# the CTC kernel's shapes, (B, T): the flagship's train step, at the
+# training phase's batch, and the ASR's under frame_stack 3; its labels are
+# padded to the corpus's 50
+CTC_SHAPES = ((8, T_FRAMES), (TRAIN_BATCH, T_FRAMES), (8, -(-T_FRAMES // 3)))
+CTC_LABELS = phonemes.MAX_LABEL_LEN
+# tolerances of the CTC check: loss relative, gradient absolute.  Feasible
+# rows against F.ctc_loss on the card, whose f32 arithmetic for large
+# problems the kernel repeats (its loss bit for bit, its gradient within
+# 3.6e-7 on the H100); F.ctc_loss is given the logits padded to CTC_LIB_FRAMES
+# frames, past every row's length, so that it takes that formula at T=84
+# too (for small problems it has another, ~1e-4 of a posterior away).
+# Infeasible rows against the f64 plain version (1.5e-6 measured).
+CTC_LOSS_RTOL, CTC_LIB_ATOL, CTC_F64_ATOL, CTC_LIB_FRAMES = 1e-6, 1e-6, 5e-6, 250
+
+
+def ctc_inputs(batch: int, t_len: int, seed: int = 0) -> tuple:
+    """GRID-shaped CTC inputs on the card: logits (B, T, 34) of scale 2,
+    labels (f32, as the corpus gives them) padded to 50 with 12-23 labels a
+    row, adjacent repeats in one row, shorter logit lengths in two, and
+    the last two rows infeasible (23 labels in 20 frames; no frames)."""
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(batch, t_len, NUM_ASR_LABELS) * 2).astype(np.float32))
+    labels = np.zeros((batch, CTC_LABELS), np.float32)
+    lens = np.full(batch, t_len, np.int64)
+    lab_lens = np.asarray([[12, 17, 15, 23, 20, 18][i % 6] for i in range(batch)])
+    for i, n in enumerate(lab_lens):
+        labels[i, :n] = rng.randint(0, NUM_ASR_LABELS - 1, n)
+    labels[2, 3:6] = labels[2, 2]
+    lens[1], lens[2] = t_len - 1 - rng.randint(t_len // 2), t_len - 7
+    lab_lens[-2], lens[-2], lens[-1] = 23, 20, 0
+    return (logits.cuda(), torch.from_numpy(lens).cuda(), torch.from_numpy(labels).cuda(),
+            torch.from_numpy(lab_lens).cuda())
+
+
+def ctc_bound(inp: tuple) -> tuple[float, str]:
+    """Least time for the CTC kernel's work: the logits read and their
+    gradient written once, the labels, lengths and losses, over HBM
+    bandwidth; or its f32 operations over the f32 peak: per frame the
+    log-softmax and the gradient's softmax (about 5 a class), per frame
+    and state of each real row alpha and beta (a log-sum of three terms,
+    about 8 each) and the posterior (2).  The walk is a chain of T
+    dependent steps, which neither figure sees."""
+    logits, lens, labels, lab_lens = inp
+    n_bytes = 2 * logits.numel() * 4 + sum(t.numel() * t.element_size()
+                                           for t in (lens, labels, lab_lens)) + 4 * len(lens)
+    frames = lens.clamp(max=logits.shape[1]).double()
+    states = 2 * lab_lens.double() + 1
+    ops = float((frames * (5 * logits.shape[2] + 18 * states)).sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ctc_gaps(got: tuple, want: tuple, rows) -> tuple[float, float]:
+    """(the largest relative loss gap, the largest gradient gap) on `rows`."""
+    (loss, grad), (ref_loss, ref_grad) = got, want
+    rel = (loss[rows].double() - ref_loss[rows]).abs() / ref_loss[rows].abs().clamp(min=1.0)
+    return rel.max().item(), (grad[rows].double() - ref_grad[rows]).abs().max().item()
+
+
+def check_and_time_ctc() -> dict:
+    """The CTC kernel at CTC_SHAPES: one launch of `ops.ctc.ctc_loss_per_seq`
+    on card tensors that need a gradient, its loss and dloss/dlogits (of a
+    weighted sum) held against F.ctc_loss on the card on the feasible rows
+    and against `_ctc_loss_optax` through autograd in float64 on the CPU on
+    the infeasible ones; then the kernel (loss and gradient, as the train
+    step calls it), its plain version (`_ctc_loss_optax` forward and
+    backward on the card), F.ctc_loss (forward and backward, through
+    F.log_softmax) and the bound, timed.  Returns the rows keyed by (B, T),
+    with `max_abs_err` the larger gradient gap of the two checks."""
+    rows = {}
+    for batch, t_len in CTC_SHAPES:
+        inp = ctc_inputs(batch, t_len, seed=batch + t_len)
+        logits, lens, labels, lab_lens = inp
+        weights = torch.linspace(0.5, 2.0, batch, device="cuda", dtype=torch.float64)
+        infeasible = torch.from_numpy(ctc_ops.infeasible_rows(lens, labels, lab_lens))
+        if infeasible.tolist() != [False] * (batch - 2) + [True, True]:
+            fail(f"CTC inputs at B={batch} T={t_len}: infeasible rows {infeasible.tolist()}")
+
+        def loss_and_grad(fn, dt=torch.float32, device="cuda"):
+            lg = logits.to(device, dt, copy=True).requires_grad_()
+            loss = fn(lg)
+            (loss * weights.to(device, dt)).sum().backward()
+            return loss.detach().cpu().double(), lg.grad.cpu().double()
+
+        before = _build.launch_counts["ctc_loss"]
+        got = loss_and_grad(lambda lg: ctc_ops.ctc_loss_per_seq(lg, lens, labels, lab_lens))
+        if _build.launch_counts["ctc_loss"] != before + 1:
+            fail(f"the CTC loss at B={batch} T={t_len} took "
+                 f"{_build.launch_counts['ctc_loss'] - before} kernel launches, want 1")
+
+        def library(lg, frames=CTC_LIB_FRAMES):  # F.ctc_loss on the logits padded to `frames`
+            padded = torch.nn.functional.pad(lg, (0, 0, 0, max(0, frames - t_len)))
+            return torch.nn.functional.ctc_loss(
+                torch.nn.functional.log_softmax(padded, -1).transpose(0, 1), labels.long(), lens,
+                lab_lens, blank=NUM_ASR_LABELS - 1, reduction="none", zero_infinity=True)
+
+        lib = loss_and_grad(library)
+        exact = loss_and_grad(
+            lambda lg: ctc_ops._ctc_loss_optax(lg, lens.cpu(), labels.cpu(), lab_lens.cpu()),
+            torch.float64, "cpu")
+        feas = ctc_gaps(got, lib, ~infeasible)
+        infeas = ctc_gaps(got, exact, infeasible)
+        ok = (feas[0] <= CTC_LOSS_RTOL and feas[1] <= CTC_LIB_ATOL and infeas[0] <= CTC_LOSS_RTOL
+              and infeas[1] <= CTC_F64_ATOL and torch.isfinite(got[1]).all().item())
+        print(f"check CTC kernel B={batch} T={t_len}: feasible rows vs F.ctc_loss loss rel "
+              f"{feas[0]:.2e} grad {feas[1]:.2e} (tol {CTC_LOSS_RTOL:.0e}, {CTC_LIB_ATOL:.0e}); "
+              f"infeasible rows vs the f64 plain version loss rel {infeas[0]:.2e} grad "
+              f"{infeas[1]:.2e} (tol {CTC_LOSS_RTOL:.0e}, {CTC_F64_ATOL:.0e}); feasible rows vs "
+              "f64: kernel grad {:.2e}, F.ctc_loss grad {:.2e} {}".format(
+                  ctc_gaps(got, exact, ~infeasible)[1], ctc_gaps(lib, exact, ~infeasible)[1],
+                  "ok" if ok else "OVER"), flush=True)
+        if not ok:
+            fail(f"the CTC kernel at B={batch} T={t_len} disagrees with its references: "
+                 f"feasible {feas}, infeasible {infeas}")
+        lens32, lab_lens32 = lens.int(), lab_lens.int()
+        lg = logits.clone().requires_grad_()
+        ms = time_ms(lambda: ctc_ops.ctc_loss_cuda(logits, lens32, labels, lab_lens32, True),
+                     reps=50)
+        plain_ms = time_ms(lambda: ctc_ops._ctc_loss_optax(lg, lens, labels, lab_lens).sum()
+                           .backward(), reps=2, warmup=1)
+        library_ms = time_ms(lambda: library(lg, t_len).sum().backward(), reps=20)
+        bound_ms, bound_by = ctc_bound(inp)
+        rows[(batch, t_len)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=library_ms,
+                                    max_abs_err=max(feas[1], infeas[1]),
+                                    loss_rel_err=max(feas[0], infeas[0]))
+        print(f"time CTC kernel B={batch} T={t_len}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), F.ctc_loss {library_ms:.3f} ms", flush=True)
+    return rows
+
+
 def launched() -> dict:
     return {k: v for k, v in _build.launch_counts.items() if v}
 
@@ -1738,10 +1879,12 @@ def asr_train_path(root: str) -> str:
     val_steps = -(-N_LC_VAL // batch)
     layers = len(cfg["net_dim"])
     want = {"bilstm_recurrence_train": layers * steps, "bilstm_recurrence_bwd": layers * steps,
-            "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": (layers - 1) * val_steps}
+            "bilstm_fused_proj": val_steps, "bilstm_fused_proj2": (layers - 1) * val_steps,
+            "ctc_loss": steps + val_steps}
     if summary["steps"] != steps or counts != want:
         fail(f"ASR training ran {summary['steps']} steps with launches {counts}; want {steps} "
-             f"and {want} (K3, K4: 2 per train step; K1 1, K2 1 per validation step)")
+             f"and {want} (K3, K4: 2 per train step; K1 1, K2 1 per validation step; the CTC "
+             "kernel 1 per train and validation step)")
     exp = cfg["exp_folder"]
     log = training_log(exp)
     pers = [float(f.split("=")[1]) for line in log.splitlines() if line.startswith("epoch ")
@@ -1792,7 +1935,8 @@ def asr_infer_path(root: str, asr_dir: str) -> None:
                               batch_size=INFER_BATCH, beam_width=beam)
         counts = launched()
         files = count_files(out_dir, f"gpu_{mode}.lbl")
-        want = {"bilstm_fused_proj": n_batches, "bilstm_fused_proj2": n_batches}
+        want = {"bilstm_fused_proj": n_batches, "bilstm_fused_proj2": n_batches,
+                "ctc_loss": n_batches}
         if res["num_samples"] != N_TEST or files != N_TEST or counts != want:
             fail(f"ASR infer() {mode} wrote {files} .lbl files for {res['num_samples']} "
                  f"utterances with launches {counts}; want {N_TEST} and {want}")
@@ -2557,7 +2701,7 @@ def cli_path(root: str) -> None:
     train_counts = launched()
     n_train = 2 * int(CLI_SPLIT[0]) // CLI_BATCH
     want = {"bilstm_recurrence_train": 3 * n_train, "bilstm_recurrence_bwd": 3 * n_train,
-            "bilstm_fused_proj": 1, "bilstm_fused_proj2": 2}
+            "bilstm_fused_proj": 1, "bilstm_fused_proj2": 2, "ctc_loss": n_train + 1}
     log = training_log(cfg["exp_folder"])
     model_dir = os.path.join(base, "inference_model")
     run("inference_model_generation", "inference_model_generation", "--config", config_file,
@@ -3142,7 +3286,7 @@ def par_data_parallel() -> dict:
     one = par_steps(params0, batches, None, cfg)
     two = par_steps(params0, batches, mesh_lib.get_mesh(2, two_devices()), cfg)
     want = on_card({"bilstm_recurrence_train": 6 * PAR_STEPS,
-                    "bilstm_recurrence_bwd": 6 * PAR_STEPS})
+                    "bilstm_recurrence_bwd": 6 * PAR_STEPS, "ctc_loss": 2 * PAR_STEPS})
     rel = tree_rel(two["params"], one["params"])
     errs = [max(abs(a[k] / b[k] - 1) for k in b if b[k])
             for a, b in zip(two["losses"], one["losses"])]
@@ -3437,6 +3581,7 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
         phase(f"layer grads B={batch}", check_layer_grads, batch)
     phase("stack", time_stack)
     phase("K1 at the recognition widths", recognition_k1_widths)
+    ctc_rows = phase("CTC kernel", check_and_time_ctc)
 
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
         os.symlink(data_dir, os.path.join(root, "data"))  # the ASR phase's stats
@@ -3457,7 +3602,7 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
         phase("reader", reader_check, corpus)
         cache = phase("data path", data_path, corpus)
         counts.update({k: v for k, v in phase("training", train_path, root).items()
-                       if k in TRAINING})
+                       if k in (*TRAINING, "ctc_loss")})
         for batch in (8, TRAIN_BATCH):
             phase(f"training reference B={batch}", train_reference_check, train_config(root), batch)
         netmodel = phase("LC training", lc_train_path, root)
@@ -3509,6 +3654,9 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
             "launches": counts[name], "max_abs_err": errs[(name, torch.float32, batch)],
             **rows[(name, torch.float32, batch)],
         })
+    kernels.append({"name": "ctc_loss", "route": "cuda", "source": "avsi_torch/csrc/ctc.cu",
+                    "replaces": "avsi/ops/ctc.py:40", "launches": counts["ctc_loss"],
+                    **ctc_rows[CTC_SHAPES[0]]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

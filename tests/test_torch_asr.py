@@ -186,7 +186,7 @@ def test_train_step_loss_and_gradients_match_jax_grad(case):
     j_loss, j_grads = jax.value_and_grad(loss_fn)(params_j)
     model = tregistry.get_asr_model(config["model"])
     state = tstate.create_train_state(_port(params_j), config)
-    step = tloop.make_train_step(model, config, stats, "cpu", is_asr=True)
+    step = tloop.make_train_step(model, config, stats, "cpu")
     host = {k: np.asarray(v) for k, v in jb.items()}
     # the batch as jax.grad takes it here, uncompacted (placement is held
     # against the reference in tests/test_torch_compaction.py)
@@ -224,7 +224,7 @@ def test_frame_stack_decides_ctc_feasibility_on_logit_frames():
     res = tloop.make_eval_step(model, config, stats, "cpu", is_asr=True)(_port(params_j), host)
     np.testing.assert_allclose(res["loss_ps"].numpy(), ref_ps, rtol=1e-5)
     state = tstate.create_train_state(_port(params_j), config)
-    loss = float(tloop.make_train_step(model, config, stats, "cpu", is_asr=True)(
+    loss = float(tloop.make_train_step(model, config, stats, "cpu")(
         state, host, None)["loss"])
     np.testing.assert_allclose(loss, ref_ps.mean(), rtol=1e-5)
     assert all(np.isfinite(p.grad.numpy()).all() for p in tckpt.named_leaves(state.params).values())
