@@ -280,7 +280,8 @@ def _restate(state, make):
                 if torch.is_tensor(v0) and v0.dim() > 0:
                     parts = convert([s[key] for s in slots])
                 else:
-                    parts = [v0.clone() if torch.is_tensor(v0) else v0 for _ in news]
+                    parts = [v0.to(n.device, copy=True) if torch.is_tensor(v0) else v0
+                             for n in news]  # an Adam count stays beside its leaf
                 for d, part in zip(per, parts):
                     d[key] = part
             new_state.update(zip(news, per))

@@ -165,8 +165,9 @@ def load_opt_state(train_state, flat: dict) -> None:
         state = {torch_name: torch.as_tensor(np.array(flat[f"{pre}0/{jax_name}/{key}"],
                                                       np.float32)).to(leaf)
                  for jax_name, torch_name in _SLOTS[kind]}
-        if kind == "adam":
-            state["step"] = torch.tensor(float(flat[pre + "0/count"]))
+        if kind == "adam":  # `state.CapturableAdam` keeps its count beside the leaf, in f64
+            state["step"] = torch.tensor(float(flat[pre + "0/count"]), dtype=torch.float64,
+                                         device=leaf.device)
         if state:
             opt.state[leaf] = state
 

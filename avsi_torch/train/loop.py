@@ -99,6 +99,7 @@ from avsi_torch.ops import lstm_fused
 from avsi_torch.parallel import distributed
 from avsi_torch.parallel import mesh as mesh_lib
 from avsi_torch.train import checkpoints
+from avsi_torch.train import graphs as graphs_lib
 from avsi_torch.train import state as state_lib
 from avsi_torch.train.tb import SummaryWriter
 from avsi_torch.utils import profiling
@@ -212,11 +213,19 @@ def make_train_step(model, config: dict, stats: tuple, device,
     (batch-norm running statistics) into the same leaves.  The gradients
     stay on the params' `.grad` until the next step.
 
+    On a CUDA device the step is captured into a CUDA graph per batch key
+    and replayed (`train/graphs.py`), after `graphs.WARMUP` eager calls of
+    a key; `train_step.graphs` is its `GraphCache` (None off CUDA), whose
+    `limit = 0` makes every call eager.  Every call is one update, and the
+    returned losses are the caller's to keep.
+
     Under a profiler session the step records its spans
     (`utils/profiling.span`): `train.step` (the step span, whose step id is
-    `state.step`) around `train.input` (placing, expanding, `zero_grad`),
-    `train.forward`, `train.loss`, `train.backward` and `train.optimizer`;
-    the BLSTM layers add theirs (`ops/lstm_train.BiLSTMLayer`).
+    `state.step`) around `train.input` (placing, expanding, `zero_grad`; on
+    a replay, the copies into the graph's inputs), `train.forward`,
+    `train.loss`, `train.backward` and `train.optimizer`; the BLSTM layers
+    add theirs (`ops/lstm_train.BiLSTMLayer`).  A replay runs no Python of
+    the phases, so it records `train.step` and `train.input` alone.
 
     With a `mesh` (data shards of this process) or inside a
     `torch.distributed` job the step is sharded (`_sharded_step`); the
@@ -225,26 +234,77 @@ def make_train_step(model, config: dict, stats: tuple, device,
         return _sharded_step(model, config, stats, device, mesh)
     stats_t = _stats_on(stats, device)
     af = int(config["audio_feat_dim"])
+    cache = graphs_lib.GraphCache() if torch.device(device).type == "cuda" else None
+
+    def phases(state: state_lib.TrainState, dev: dict, gen) -> dict:
+        with profiling.span("train.forward"):
+            out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
+        with profiling.span("train.loss"):
+            ldict = model.losses(out, dev, config)
+        with profiling.span("train.backward"):
+            ldict["loss"].backward()
+        with profiling.span("train.optimizer"):
+            state_lib.apply_gradients(state, config)
+            if model.apply_aux_update is not None:
+                model.apply_aux_update(state.params, out)
+        return {k: v.detach() for k, v in ldict.items()}
+
+    def graphed(state, placed: Placed, gen) -> dict:
+        return phases(state, step_input(placed, af), gen)
+
+    def off(why: str) -> None:
+        """Every later call eager; said once."""
+        cache.limit = 0
+        cache.graphs.clear()
+        print(f"# train step: CUDA graphs off, every step eager ({why})", flush=True)
+
+    def route(state, batch: Placed, gen) -> tuple:
+        key = graphs_lib.graph_key(state, batch.dev, gen,
+                                   state_lib.learning_rate(config, state.step))
+        how = cache.route(key)
+        if how == "replay" and not cache.graphs[key].holds(state):
+            cache.drop(key)  # the state's tensors were replaced: start the key anew
+            how = cache.route(key)
+        if how in ("warmup", "capture"):
+            why = graphs_lib.uncapturable(state)
+            if why:
+                off(why)
+                return "eager", key
+        if how == "capture" and (profiling.recording() or graphs_lib.unready(state)):
+            how = "warmup"  # no capture under a profiler, nor of Adam's first step
+        return how, key
+
+    def capture(state, batch: Placed, gen, key) -> dict:
+        try:
+            held = graphs_lib.capture(graphed, state, batch, gen)
+        except Exception as e:  # e.g. a host read inside the step, which capture refuses
+            off(f"capture failed: {type(e).__name__}: {e}")
+            state.optimizer.zero_grad(set_to_none=True)
+            return graphed(state, batch, gen)
+        cache.add(key, held)
+        return held.replay(state)
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
         with profiling.span("train.step", step=state.step):
             with profiling.span("train.input"):
                 if not isinstance(batch, Placed):
                     batch = place(batch, device)
-                dev = step_input(batch, af)
-                state.optimizer.zero_grad(set_to_none=True)
-            with profiling.span("train.forward"):
-                out = model.forward(state.params, dev, config, stats_t, train=True, gen=gen)
-            with profiling.span("train.loss"):
-                ldict = model.losses(out, dev, config)
-            with profiling.span("train.backward"):
-                ldict["loss"].backward()
-            with profiling.span("train.optimizer"):
-                state_lib.apply_gradients(state, config)
-                if model.apply_aux_update is not None:
-                    model.apply_aux_update(state.params, out)
-            return {k: v.detach() for k, v in ldict.items()}
+                how, key = route(state, batch, gen) if cache is not None else ("eager", None)
+                if how == "replay":
+                    held = cache.graphs[key]
+                    held.load(batch.dev)
+                elif how != "capture":
+                    dev = step_input(batch, af)
+                    state.optimizer.zero_grad(set_to_none=True)
+            if how == "replay":
+                return held.replay(state)
+            if how == "capture":
+                return capture(state, batch, gen, key)
+            if how == "warmup":
+                return graphs_lib.on_side_stream(phases, device, state, dev, gen)
+            return phases(state, dev, gen)
 
+    train_step.graphs = cache
     return train_step
 
 

@@ -21,7 +21,8 @@ their clock (port of `avsi/utils/profiling.py`).
     carry, and a span opened on a thread with no open span (autograd's
     device thread, a shard's thread) takes the open step span as its
     parent;
-  * `spans()` / `clear_spans()`: the buffer's records, and emptying it.
+  * `spans()` / `clear_spans()`: the buffer's records, and emptying it;
+    `recording()`: whether a session records now.
 
 Spans are plain host timestamps, not `record_function` ranges: a reader
 of the profiler's device events sees exactly what it saw without them.
@@ -102,6 +103,11 @@ def span(name: str, step: int | None = None):
     if not _autograd_profiler._is_profiler_enabled:
         return _NOOP
     return _Span(name, step)
+
+
+def recording() -> bool:
+    """True while a profiler session records (when `span` records)."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def spans() -> list[SpanRecord]:

@@ -83,7 +83,17 @@ Phases, in order; any failure exits non-zero:
      `sinet.npz` read back by `inpaint.load_model_bundle`; steady-state
      step time; one train step on the GPU held against the same step on
      the CPU (loss and every gradient), at B=8 and at the training batch
-     of 32;
+     of 32.  Launch counts are of kernels run: a replay of the train
+     step's CUDA graph (`train/graphs.py`) counts the kernels its capture
+     recorded;
+ 9b. the train step's CUDA graph: the flagship step (B=8, T=250) eagerly
+     and replayed, 240 calls each in alternating blocks on the same
+     batches from the same weights (ms a step, utterances/s, the host's ms
+     a call in the blocks and alone on an idle card; both states bit for
+     bit equal at the end); the LC model of
+     `scripts/config/blstm_lc_stream.config` (C=8, L=16, B=8, bf16) through
+     the same step: whether it captures, and utterances/s eagerly and
+     replayed over 3 repeats with their spread;
  10. LC training: `train()` with `scripts/config/blstm_lc_stream.config`'s
      model settings (lc_chunk 8, lc_lookahead 16, batch 8, ctc_loss 0.05)
      in f32 at full width, one epoch over the first 48 training and 8
@@ -193,7 +203,8 @@ Phases, in order; any failure exits non-zero:
      apart), then the requests timed again after those 9 sessions; one
      window step (the second of a whole fleet run) and one push of a live
      stream that completes a window; one plain `infer()` run and each
-     lever's device work on a batch of 8; one train step; one LC train
+     lever's device work on a batch of 8; one train step (eager: no
+     capture under a profiler); one replayed train step; one LC train
      step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
      its dWh apart; one ASR train step; one siasr batch; one U-Net train
      step of 32 and one U-Net `infer()` batch of 8, each model; each
@@ -1576,6 +1587,155 @@ def train_reference_check(config: dict, batch_size: int, label: str = "flagship"
           f"{rel[worst]:.2e} ({worst}, tol 1e-3) over {len(rel)} leaves", flush=True)
     if abs(lg / lc - 1) > 1e-4 or rel[worst] > 1e-3:
         fail(f"GPU train step disagrees with the CPU step at B={batch_size}: {rel}")
+
+
+# ------------------------------------------------------------ the train step's CUDA graph
+
+GRAPH_CALLS, GRAPH_BLOCKS = 240, 4  # timed calls each way, in alternating blocks
+GRAPH_ALONE = 20  # calls each way timed one at a time, the card idle before each
+LC_STREAM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "config",
+                                "blstm_lc_stream.config")
+LC_GRAPH_REPEATS = 3
+
+
+def _graph_twins(config: dict, n_batches: int, seed: int = 0):
+    """A train state and step each way from the same weights: eager
+    (`step.graphs.limit = 0`) and graphed (`train/graphs.py`), over the
+    same placed synthetic batches at the config's batch; the stats are the
+    identity."""
+    config = config_lib.check_trainconfiguration(dict(
+        config, root_folder=".", exp_folder=".", audio_feat_mean="", audio_feat_std=""))
+    config["lstm_impl"] = lstm_fused.resolve_impl(None, "cuda", config["net_dim"],
+                                                  blstm.dtypes(config)[0])
+    model = registry.get_model(config["model"])
+    stats = (np.zeros(config["audio_feat_dim"], np.float32),
+             np.ones(config["audio_feat_dim"], np.float32))
+    flat = checkpoints.params_to_flat(model.init(torch.Generator().manual_seed(seed), config))
+    b = int(config["batch_size"])
+    placed = [train_loop.place(synthetic_batch(config, b, seed=seed + k), "cuda")
+              for k in range(n_batches)]
+    ways = {}
+    for way in ("eager", "graph"):
+        state = train_state.create_train_state(checkpoints.params_from_flat(flat, "cuda"), config)
+        ways[way] = state, train_loop.make_train_step(model, config, stats, "cuda")
+    ways["eager"][1].graphs.limit = 0
+    return ways, placed, b
+
+
+def _same_states(a, b) -> bool:
+    """The two train states bit for bit equal: the count, every parameter
+    and Adam's `exp_avg`, `exp_avg_sq` and `step`."""
+    pa, pb = checkpoints.named_leaves(a.params), checkpoints.named_leaves(b.params)
+    slots = ("exp_avg", "exp_avg_sq", "step")
+    return a.step == b.step and pa.keys() == pb.keys() and all(
+        torch.equal(pa[k], pb[k]) and all(torch.equal(a.optimizer.state[pa[k]][n],
+                                                      b.optimizer.state[pb[k]][n]) for n in slots)
+        for k in pa)
+
+
+def _timed_calls(state, step, placed: list, n: int, first: int = 0) -> tuple[float, float]:
+    """(wall seconds of `n` calls ending on a synchronise, the host's
+    seconds in the calls)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(first, first + n):
+        step(state, placed[k % len(placed)], None)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, host
+
+
+def train_graph_timed() -> None:
+    """The flagship train step (B=8, T=250: the benchmark's shape) eagerly
+    and replayed from its CUDA graph, in alternating blocks on the same
+    batches from the same weights: ms a step and utterances/s each way, and
+    the host's ms a call, in the blocks and alone on an idle card.
+    Both states end bit for bit equal, and the graphed step holds one
+    graph."""
+    ways, placed, b = _graph_twins(flagship_config(batch_size=8), 16)
+    done = {}
+    for way, (state, step) in ways.items():  # warm-ups and the capture
+        for k in range(train_loop.graphs_lib.WARMUP + 1):
+            step(state, placed[k], None)
+        done[way] = train_loop.graphs_lib.WARMUP + 1
+    wall, host = {w: 0.0 for w in ways}, {w: 0.0 for w in ways}
+    per = GRAPH_CALLS // GRAPH_BLOCKS
+    for block in range(GRAPH_BLOCKS):
+        for way in (("eager", "graph") if block % 2 == 0 else ("graph", "eager")):
+            state, step = ways[way]
+            dw, dh = _timed_calls(state, step, placed, per, done[way])
+            wall[way] += dw
+            host[way] += dh
+            done[way] += per
+    alone = {w: 0.0 for w in ways}  # one call at a time on an idle card: the host's own work
+    for way, (state, step) in ways.items():
+        for k in range(GRAPH_ALONE):
+            alone[way] += _timed_calls(state, step, placed, 1, done[way] + k)[1]
+        done[way] += GRAPH_ALONE
+    (se, _), (sg, stepg) = ways["eager"], ways["graph"]
+    same = _same_states(se, sg)
+    ms = {w: 1e3 * wall[w] / GRAPH_CALLS for w in ways}
+    hms = {w: (1e3 * host[w] / GRAPH_CALLS, 1e3 * alone[w] / GRAPH_ALONE) for w in ways}
+    print(f"train step graph: flagship B={b} T={T_FRAMES}, {GRAPH_CALLS} calls each way in "
+          f"{GRAPH_BLOCKS} alternating blocks: eager {ms['eager']:.3f} ms a step "
+          f"({b / ms['eager'] * 1e3:.1f} utt/s), replayed {ms['graph']:.3f} ms a step "
+          f"({b / ms['graph'] * 1e3:.1f} utt/s): x{ms['eager'] / ms['graph']:.3f}; the host's ms "
+          f"a call in the blocks (waits on a full launch queue included) / alone on an idle card: "
+          f"eager {hms['eager'][0]:.3f} / {hms['eager'][1]:.3f}, replayed {hms['graph'][0]:.3f} / "
+          f"{hms['graph'][1]:.3f}; states bit for bit equal: {same}; card {card_line()}",
+          flush=True)
+    if not same or len(stepg.graphs.graphs) != 1:
+        fail("the replayed flagship train step disagrees with the eager one, or held no graph")
+
+
+def lc_graph_measured() -> None:
+    """The LC model of `scripts/config/blstm_lc_stream.config` (C=8, L=16,
+    B=8, bf16 compute: the eager scan) through `make_train_step`: whether
+    its step captures, and utterances/s eagerly and replayed over
+    LC_GRAPH_REPEATS repeats (spread: (max - min) / median of each way).
+    Both ways make the same calls on the same batches, and their states
+    must end bit for bit equal."""
+    config = config_lib.load_configfile(LC_STREAM_CONFIG)
+    ways, placed, b = _graph_twins(config, 4)
+    first = train_loop.graphs_lib.WARMUP + 1
+    for way, (state, step) in ways.items():
+        t0 = time.perf_counter()
+        for k in range(first):
+            step(state, placed[k], None)
+        torch.cuda.synchronize()
+        what = " (warm-ups, capture)" if way == "graph" else ""
+        print(f"LC train step graph: {way} {first} calls{what} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    captured = len(ways["graph"][1].graphs.graphs) == 1
+    n = 4
+    rates = {w: [] for w in ways}
+    for r in range(LC_GRAPH_REPEATS):
+        for way, (state, step) in ways.items():
+            wall, _ = _timed_calls(state, step, placed, n, first + r * n)
+            rates[way].append(b * n / wall)
+    same = _same_states(ways["eager"][0], ways["graph"][0])
+
+    def spread(v):
+        return (max(v) - min(v)) / float(np.median(v))
+
+    print(f"LC train step graph: captured {captured}; eager "
+          f"{', '.join(f'{r:.2f}' for r in rates['eager'])} utt/s (spread "
+          f"{spread(rates['eager']):.3f}), {'replayed' if captured else 'graphed step (eager)'} "
+          f"{', '.join(f'{r:.2f}' for r in rates['graph'])} utt/s (spread "
+          f"{spread(rates['graph']):.3f}); {first + LC_GRAPH_REPEATS * n} calls each way, states "
+          f"bit for bit equal: {same}; card {card_line()}", flush=True)
+    if not same:
+        fail("the replayed LC train step disagrees with the eager one")
+
+
+def profile_replayed_train_step() -> None:
+    """Where one replayed flagship train step (B=8) goes on the card: the
+    graph's kernels as the profiler sees them."""
+    ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4)
+    state, step = ways["graph"]
+    for k in range(train_loop.graphs_lib.WARMUP + 2):
+        step(state, placed[k], None)
+    profile("one replayed flagship train step of 8", lambda: step(state, placed[0], None), top=14)
 
 
 # ------------------------------------------------------------ LC training
@@ -3605,6 +3765,8 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
                        if k in (*TRAINING, "ctc_loss")})
         for batch in (8, TRAIN_BATCH):
             phase(f"training reference B={batch}", train_reference_check, train_config(root), batch)
+        phase("train step graph", train_graph_timed)
+        phase("LC train step graph", lc_graph_measured)
         netmodel = phase("LC training", lc_train_path, root)
         phase("LC training reference", train_reference_check, lc_train_config(root), LC_BATCH,
               f"flagship LC C={LC_CHUNK} L={LC_LOOK}")
@@ -3638,6 +3800,7 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
                   batch_size=INFER_BATCH, gl_iters=INFER_GL), 12, False)
         phase("lever profiles", lever_profiles, *test_set)
         phase("train step profile", profile_train_step, root, train_config(root))
+        phase("replayed train step profile", profile_replayed_train_step)
         phase("LC train step profile", profile_train_step, root, lc_train_config(root),
               "LC train step", False)
         phase("ASR train step profile", profile_train_step, root, asr_train_config(root),

@@ -248,35 +248,41 @@ def test_unreadable_rows_give_nan():
 
 
 def test_flagship_train_step_makes_no_host_sync():
-    """One flagship train step at full width (B=8, T=250) on a placed batch,
-    after a warm-up step, runs under `set_sync_debug_mode("error")`: nothing
-    in it waits for the device.  The CTC kernel's launch count rises by one,
-    so the step's loss went through it."""
+    """One flagship train step at full width (B=8, T=250) on a placed batch
+    runs under `set_sync_debug_mode("error")`: nothing in it waits for the
+    device.  Both ways: the eager step after a warm-up step, and a replay
+    of the captured step (`train/graphs.py`) after its warm-ups and
+    capture.  The CTC kernel's launch count rises by one each, so the
+    step's loss went through it (a replay counts the kernels it runs)."""
     _need_cuda()
     from avsi_torch import flagship
     from avsi_torch.device import resolve_device
     from avsi_torch.models import blstm, registry
     from avsi_torch.ops import lstm_fused
-    from avsi_torch.train import loop, state as state_lib
+    from avsi_torch.train import graphs, loop, state as state_lib
 
     device = resolve_device("cuda")
     config = flagship.flagship_config(batch_size=8)
     config["lstm_impl"] = lstm_fused.resolve_impl(None, device, config["net_dim"],
                                                   blstm.dtypes(config)[0])
     model = registry.get_model(config["model"])
-    params = model.init(torch.Generator().manual_seed(0), config, device=device)
-    state = state_lib.create_train_state(params, config)
     stats = (np.zeros(flagship.AUDIO_FEAT_DIM, np.float32),
              np.ones(flagship.AUDIO_FEAT_DIM, np.float32))
-    step = loop.make_train_step(model, config, stats, device)
     placed = [loop.place(flagship.synthetic_batch(config, 8, seed=s), device) for s in (0, 1)]
-    step(state, placed[0], None)
-    torch.cuda.synchronize()
-    before = _build.launch_counts["ctc_loss"]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        losses = step(state, placed[1], None)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert _build.launch_counts["ctc_loss"] == before + 1
-    assert torch.isfinite(torch.stack(list(losses.values()))).all()
+    for limit, before_calls in ((0, 1), (graphs.LIMIT, graphs.WARMUP + 1)):
+        params = model.init(torch.Generator().manual_seed(0), config, device=device)
+        state = state_lib.create_train_state(params, config)
+        step = loop.make_train_step(model, config, stats, device)
+        step.graphs.limit = limit  # 0: the eager step
+        for k in range(before_calls):
+            step(state, placed[k % 2], None)
+        torch.cuda.synchronize()
+        before = _build.launch_counts["ctc_loss"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = step(state, placed[1], None)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert _build.launch_counts["ctc_loss"] == before + 1
+        assert torch.isfinite(torch.stack(list(losses.values()))).all()
+        assert len(step.graphs.graphs) == min(limit, 1)

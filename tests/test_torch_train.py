@@ -173,6 +173,8 @@ def test_optimizer_matches_optax(name, tmp_path):
     tx = jstate.make_optimizer(cfg)
     opt = tx.init(params_j)
     state = tstate.create_train_state(tckpt.params_from_flat(flat), cfg)
+    # the Adam a CUDA graph replays, on the CPU as on the card
+    assert isinstance(state.optimizer, tstate.CapturableAdam) == (cfg["optimizer_type"] == "adam")
     atol = 2e-5 * cfg["starter_learning_rate"] if cfg["optimizer_type"] == "adam" else 1e-8
     for i, g in enumerate(grads):
         updates, opt = tx.update(tree(g), opt, params_j)
