@@ -1,7 +1,8 @@
 // The bidirectional LSTM recurrence on thread-block clusters, for Hopper:
 // one body for K1/K2 (lstm_fused.cu, after their projection GEMM) and for
 // K3, K5 and K6 (lstm_train.cu, over a precomputed gate input), and K4's
-// reverse walk on the same clusters and slices (rec_cluster_bwd, below).
+// reverse walk on the same clusters and slices over K3's saved gate sums
+// (rec_cluster_bwd, below).
 //
 // What it computes, per direction d and step s (the TPU kernels' `_cell`,
 // avsi/ops/pallas_lstm.py:100-118):
@@ -58,6 +59,15 @@
 //   straight from global memory, and c with c0 of its own units; rows past
 //   the batch keep h = c = 0.  Without it both start at zero.
 // - kCellOut: write the f32 c streams beside h (K3, K5).
+// - kGatesOut: write the f32 gate sums, xw + the partial products in the
+//   cell's order (K3 in training: K4's walk reads them back in place of
+//   recomputing them), (T, 2, B, H, 4) in kernel time, unit-major: a cell's
+//   four gates are one 16-byte store, and consecutive threads write
+//   consecutive units.  The cell leaves its sums in its own columns of the
+//   partial gates' plane 0 as soon as it has made them, so no register
+//   lives on across the cell, and they go out with h and c after the
+//   barrier's arrive: stored before it, the release waits for them (K3 bf16
+//   ran up to 35% slower so on the H100).  Compile-time, like the others.
 // - kSpill: the plan keeps only the slice's first `resident` depth rows in
 //   shared memory (tiles of 8 only); the product reads the rest from wh.
 //   Its own instances, so that whole plans run the single resident loop
@@ -121,9 +131,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
@@ -156,6 +163,7 @@ struct RecArgs {
   void* out_b;
   float* c_f;         // kCellOut: f32 c streams (T, B, H), original time order
   float* c_b;
+  float* gates;       // kGatesOut: f32 gate sums (T, 2, B, H, 4), kernel time
   int t_len, batch, hidden, units, ksplit, resident;
 };
 
@@ -193,15 +201,15 @@ __host__ __device__ inline RecLayout rec_layout(int hidden, int units, int bt, i
 
 // What avsi_torch/ops/lstm_train.py:bilstm_recurrence_bwd hands the walk.
 struct BwdArgs {
-  const void* xw;     // (T, 2, B, 4H) compute dtype, gate-major, direction 1 in walk order
-  const void* wh;     // (2, H, 4H) compute dtype
-  const float* h_f;   // K3's h streams (T, B, H) f32, original time order
+  const float* gates;  // K3's f32 gate sums (T, 2, B, H, 4), kernel time, unit-major
+  const void* wh;      // (2, H, 4H) compute dtype
+  const float* h_f;    // K3's h streams (T, B, H) f32, original time order (dWh's)
   const float* h_b;
-  const float* c_f;   // K3's c streams
+  const float* c_f;    // K3's c streams
   const float* c_b;
   const void* dout_f;  // upstream h gradients (T, B, H), compute dtype
   const void* dout_b;
-  void* dxw;          // (T, 2, B, 4H) compute dtype, like xw
+  void* dxw;           // (T, 2, B, 4H) compute dtype, gate-major, direction 1 in walk order
   int t_len, batch, hidden, units, ksplit, resident;
 };
 
@@ -216,22 +224,17 @@ __host__ __device__ inline int bwd_slice_stride(int units) {
 // Byte offsets of the walk's shared buffers (16-byte aligned each);
 // avsi_torch/ops/lstm_train.py:bwd_smem_bytes mirrors the total.
 struct BwdLayout {
-  size_t wh, hs, hf, gs, dg, recv, total;
+  size_t wh, dg, recv, total;
 };
 
 template <typename T>
-__host__ __device__ inline BwdLayout bwd_layout(int hidden, int units, int cluster, int bt,
-                                                int ksplit, int resident) {
+__host__ __device__ inline BwdLayout bwd_layout(int units, int cluster, int bt, int resident) {
   const size_t g = 4 * (size_t)units;
-  const size_t kp = padded_depth(hidden);
   const bool bf16 = sizeof(T) == 2;
   BwdLayout l;
   l.wh = 0;  // f32: [resident][4U + 4]; bf16: mma A fragments of [4U][resident]
-  l.hs = l.wh + align16((bf16 ? g : (size_t)bwd_slice_stride<T>(units)) * resident * sizeof(T));
-  l.hf = l.hs + align16(bt * (kp + 8) * sizeof(T));       // h_prev, [bt][kp + 8]
-  l.gs = l.hf + (bf16 ? align16((size_t)bt * hidden * 4) : 0);  // bf16: f32 h_prev [bt][H]
-  l.dg = l.gs + align16((size_t)ksplit * bt * g * 4);     // partial gates [ksplit][bt][4U]
-  l.recv = l.dg + (bf16 ? align16(bt * (g + 8) * 2) : 0);  // bf16 dgates [bt][4U + 8]
+  l.dg = l.wh + align16((bf16 ? g : (size_t)bwd_slice_stride<T>(units)) * resident * sizeof(T));
+  l.recv = l.dg + align16(bf16 ? bt * (g + 8) * 2 : bt * g * 4);  // dgates: bf16 rows padded by 8
   l.total = l.recv + align16(2 * (size_t)cluster * bt * units * 4);  // [2][N][bt][U] f32
   return l;
 }
@@ -293,13 +296,13 @@ __device__ __forceinline__ void load_slice(T* whs, int ws, const Slice<T>& sl, i
 
 // The recurrent product's partial gates over depth slice ks:
 // gs[ks][r][c] = sum_k round_cd(h)[r][k] slice[k][c], h rows at a stride of
-// `hrow`, depth rows past `kres` (kSpill) read from global memory in the
-// same order.  rec_cluster and rec_cluster_bwd run this one code, so at one
+// `hrow`, the f32 slice's rows at G, depth rows past `kres` (kSpill) read from global memory in the
+// same order.  Every instance of rec_cluster runs this one code, so at one
 // depth split their gates are equal bit for bit.
 template <typename T, int BT, bool kSpill>
-__device__ __forceinline__ void partial_gates(const T* whs, int ws, const Slice<T>& sl,
-                                              const T* h_cur, int hrow, float* gs, int G,
-                                              int ksplit, int kres, int tid, int nthr) {
+__device__ __forceinline__ void partial_gates(const T* whs, const Slice<T>& sl, const T* h_cur,
+                                              int hrow, float* gs, int G, int ksplit, int kres,
+                                              int tid, int nthr) {
   const int kp = padded_depth(sl.hidden);
   if constexpr (sizeof(T) == 2) {
     const int ksteps = kp / 16, ks_res = kres / 16, mt_n = G / 16;
@@ -361,7 +364,7 @@ __device__ __forceinline__ void partial_gates(const T* whs, int ws, const Slice<
       for (; k < (kSpill ? min(k_hi, kres) : k_hi); k += 4) {
         float wv[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) load4(wv[kk], whs + (k + kk) * ws + cq * 4);
+        for (int kk = 0; kk < 4; ++kk) load4(wv[kk], whs + (k + kk) * G + cq * 4);
         fma_rows(wv, k);
       }
       for (; kSpill && k < k_hi; k += 4) {
@@ -384,7 +387,8 @@ __device__ __forceinline__ void partial_gates(const T* whs, int ws, const Slice<
 
 // One CTA of the cluster for (direction blockIdx.y, batch tile blockIdx.x / N):
 // gate columns of units [rank*U, rank*U + nu), rows [b0, b0 + BT) of the batch.
-template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut, bool kSpill>
+template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut,
+          bool kGatesOut, bool kSpill>
 __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
   constexpr bool kGateMajor = kXw == XwLayout::kGateMajor;
   cg::cluster_group cluster = cg::this_cluster();
@@ -482,7 +486,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
     T* h_next = hs + ((s + 1) & 1) * h_buf;
 
     // (b) partial gates over depth slice ks
-    partial_gates<T, BT, kSpill>(whs, G, sl, h_cur, hrow, gs, G, p.ksplit, kres, tid, nthr);
+    partial_gates<T, BT, kSpill>(whs, sl, h_cur, hrow, gs, G, p.ksplit, kres, tid, nthr);
     if constexpr (!kGateMajor) cp_async_wait_one();  // (a) this step's xw rows have landed
     __syncthreads();  // every partial gate is in gs
 
@@ -510,6 +514,10 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) gate[q] += prod[q];
+        if constexpr (kGatesOut) {  // kept in the cell's own columns of plane 0 until (e)
+          *reinterpret_cast<float4*>(gs + r * G + lu * 4) =
+              make_float4(gate[0], gate[1], gate[2], gate[3]);
+        }
         const float c = sigmoid(gate[1]) * cs[r * U + lu] + sigmoid(gate[0]) * tanhf(gate[2]);
         h = sigmoid(gate[3]) * tanhf(c);
         cs[r * U + lu] = c;
@@ -526,17 +534,23 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
     }
     // (f) one cluster barrier per step: arrive releases the DSMEM stores; the
     // peers' h is visible, and nobody reads this step's buffers, after wait.
-    // (e) h (and c) go out to global memory between the two, off the release.
-    // After the last step the barrier is the cluster sync before exit: no
-    // peer writes into this CTA's shared memory after it.
+    // (e) h (and c, and the gate sums) go out to global memory between the
+    // two, off the release, which would wait for them.  After the last step
+    // the barrier is the cluster sync before exit: no peer writes into this
+    // CTA's shared memory after it.
     cluster_arrive();
 #pragma unroll
     for (int j = 0; j < kRecItemsMax; ++j) {
-      const int i = tid + j * nthr, lu = i % U, b = b0 + i / U;
+      const int i = tid + j * nthr, lu = i % U, r = i / U, b = b0 + r;
       if (i < items && lu < nu && b < p.batch) {
         const size_t at = ((size_t)t * p.batch + b) * H + u0 + lu;
         out[at] = from_f32<O>(h_out[j]);
         if constexpr (kCellOut) c_out[at] = c_new[j];
+        if constexpr (kGatesOut) {
+          *reinterpret_cast<float4*>(p.gates + (((size_t)s * 2 + dir) * p.batch + b) * g4 +
+                                     (size_t)(u0 + lu) * 4) =
+              *reinterpret_cast<const float4*>(gs + r * G + lu * 4);
+        }
       }
     }
     cluster_wait();
@@ -549,33 +563,26 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
 // avsi/ops/pallas_lstm.py:563-596) on rec_cluster's cluster and plan.  Per
 // direction d and kernel step s = T-1 .. 0, with the f32 carries dc and
 // dh_rec (zero at s = T-1):
-//   gates = xw_s + round_cd(h_prev) . wh[d]             (partial_gates: K3's sums)
+//   gates = xw_s + round_cd(h_prev) . wh[d]             (K3's saved sums)
 //   dh = dout_s + dh_rec;  do = dh tanh(c) o(1-o);  dc += dh o (1 - tanh(c)^2)
 //   di = dc g i(1-i);  df = dc c_prev f(1-f);  dg = dc i (1-g^2);  dc *= f
 //   dxw_s = round_cd(dgates);  dh_rec = dxw_s . wh[d]^T  (f32 sums)
-// h_prev and c_prev are K3's f32 streams at the previous kernel step (zero at
-// s = 0); c and dout are at this one.
+// The gates are the f32 sums K3 wrote under kGatesOut, so they are K3's bit
+// for bit and the walk runs no forward product (the TPU kernel recomputes
+// them, as VMEM favoured there).  c_prev is K3's f32 c stream at the
+// previous kernel step (zero at s = 0); c and dout are at this one.
 //
 // CTA `rank` owns units [rank*U, rank*U + nu) with their four gates and keeps
 // the same (H x 4U) slice of wh[d] in shared memory as the forward (its first
-// `resident` depth rows; the rest from global memory in the same order).
-// The slice serves both products: the gates read it along the depth, dh_rec
-// along the gate columns.  Per step:
-//  1. h_prev for all H units of the tile's rows, staged from global memory
-//     into one buffer by cp.async, issued a step ahead (as soon as the
-//     gates have read the buffer), so the copies fly during the cell, the
-//     dh_rec product and the barrier and hold no registers (loaded into
-//     registers a step ahead, they held the step up on the H100); bf16
-//     lands in an f32 buffer and is rounded into hs by the thread that
-//     copied it.
-//  2. the partial gates, partial_gates (K3's code at K3's depth split).
-//  3. the cell backward for the CTA's own (row, unit) cells, dc in
-//     registers; round_cd(dgates) kept for dxw, which goes out gate-major
-//     (consecutive threads, consecutive units) between the cluster
-//     barrier's arrive and wait, and into a shared [BT][4U] buffer (f32: the
-//     partial gates' plane 0, which each cell reads before it writes the
-//     same four columns; bf16: a buffer of its own, rows padded by 8).
-//  4. the partial dh_rec over the CTA's 4U columns for all H units:
+// `resident` depth rows; the rest from global memory in the same order), for
+// the dh_rec product along its gate columns.  Per step:
+//  1. the cell backward for the CTA's own (row, unit) cells, dc in
+//     registers, from the gates, c, c_prev and dout loaded into registers a
+//     step ahead (one float4 of gates a cell, consecutive threads on
+//     consecutive units); round_cd(dgates) kept for dxw, which goes out
+//     gate-major between the cluster barrier's arrive and wait, and into a
+//     shared [BT][4U] buffer (bf16: rows padded by 8); one block barrier.
+//  2. the partial dh_rec over the CTA's 4U columns for all H units:
 //     P[r][k] = sum_c dg[r][c] slice[k][c].  f32: a thread per depth row k
 //     and all BT rows, the slice's rows padded by 4 floats so that a warp's
 //     rows fall in different banks, dgates read as broadcasts.  bf16:
@@ -583,12 +590,15 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
 //     the resident fragments of slice^T by movmatrix.trans, four per
 //     fragment, so the slice is held once in the forward's fragment order
 //     and costs no resident rows; B = dgates^T.
-//  5. reduce-scatter through DSMEM: P[:, units of q] goes into CTA q's
+//  3. reduce-scatter through DSMEM: P[:, units of q] goes into CTA q's
 //     receive buffer, slot `rank`, double-buffered by step parity.  After the
 //     step's one cluster barrier each CTA sums its N slots in rank order 0 ..
 //     N-1 (in the next step's cell), so dh_rec is the same from run to run.
-//     Only a unit's owner needs its dh_rec: nothing is all-gathered.
+//     Only a unit's owner needs its dh_rec: nothing is all-gathered.  The
+//     cluster barrier also ends every thread's reads of the dgates buffer
+//     before the next step's cell writes it.
 // The last step (s = 0) has no dh_rec to pass on, so it ends after its cell.
+// The plan's depth split sets only the thread count (K3's).
 template <typename T, int BT, bool kSpill>
 __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs p) {
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -598,44 +608,38 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
   const int H = p.hidden, U = p.units, G = 4 * U, u0 = rank * U;
   const int nu = max(0, min(U, H - u0));
   const int kp = padded_depth(H), kres = p.resident;
-  const int hrow = kp + 8, ws = bwd_slice_stride<T>(U), dgrow = G + 8, slots = n_cta * BT * U;
+  const int ws = bwd_slice_stride<T>(U), dgrow = G + 8, slots = n_cta * BT * U;
   const size_t g4 = 4 * (size_t)H;
-  const BwdLayout lay = bwd_layout<T>(H, U, n_cta, BT, p.ksplit, kres);
+  const BwdLayout lay = bwd_layout<T>(U, n_cta, BT, kres);
   extern __shared__ __align__(16) unsigned char rec_smem[];
   T* whs = reinterpret_cast<T*>(rec_smem + lay.wh);
-  T* hs = reinterpret_cast<T*>(rec_smem + lay.hs);
-  float* gs = reinterpret_cast<float*>(rec_smem + lay.gs);
-  T* dgs = reinterpret_cast<T*>(rec_smem + lay.dg);  // bf16 only
-  float* hf = reinterpret_cast<float*>(rec_smem + lay.hf);  // bf16 only
+  float* dgf = reinterpret_cast<float*>(rec_smem + lay.dg);  // f32 dgates [BT][4U]
+  T* dgs = reinterpret_cast<T*>(rec_smem + lay.dg);  // bf16 dgates [BT][4U + 8]
   float* recv = reinterpret_cast<float*>(rec_smem + lay.recv);  // [2][N][BT][U]
   const Slice<T> sl{static_cast<const T*>(p.wh) + (size_t)dir * H * g4, H, u0, nu};
-  const T* xw = static_cast<const T*>(p.xw) + (size_t)dir * p.batch * g4;  // rows (s, dir, b)
+  const float* gates = p.gates + (size_t)dir * p.batch * g4;  // rows (s, dir, b) of H float4s
   T* dxw = static_cast<T*>(p.dxw) + (size_t)dir * p.batch * g4;
-  const float* h_src = dir == 0 ? p.h_f : p.h_b;
   const float* c_src = dir == 0 ? p.c_f : p.c_b;
   const T* d_src = static_cast<const T*>(dir == 0 ? p.dout_f : p.dout_b);
   const int tid = threadIdx.x, nthr = blockDim.x, items = U * BT;
 
   load_slice<T>(whs, ws, sl, G, kres, tid, nthr);
-  for (int i = tid; i < BT * hrow; i += nthr) hs[i] = from_f32<T>(0.0f);  // pads stay 0
   for (int i = tid; i < 2 * slots; i += nthr) recv[i] = 0.0f;  // dh_rec = 0 at the first step
 
   // original time of kernel step s, and of step s - 1 (valid for s > 0)
   auto t_of = [&](int s) { return dir == 0 ? s : p.t_len - 1 - s; };
   auto tp_of = [&](int s) { return dir == 0 ? s - 1 : p.t_len - s; };
-  // this thread's cells j at step s: the four gates of xw, c, c_prev, dout
-  T xg[kRecItemsMax][4];
-  float cc[kRecItemsMax], cprev[kRecItemsMax], dy[kRecItemsMax], dc[kRecItemsMax];
+  // this thread's cells j at step s: the four gates, c, c_prev, dout
+  float gt[kRecItemsMax][4], cc[kRecItemsMax], cprev[kRecItemsMax], dy[kRecItemsMax];
+  float dc[kRecItemsMax];
   auto fetch = [&](int s) {
-    const T* row = xw + (size_t)s * 2 * p.batch * g4;
+    const float* row = gates + (size_t)s * 2 * p.batch * g4;
     const size_t t = t_of(s), tp = tp_of(s);
 #pragma unroll
     for (int j = 0; j < kRecItemsMax; ++j) {
       const int i = tid + j * nthr, lu = i % U, b = b0 + i / U;
       if (i < items && lu < nu && b < p.batch) {
-        const T* x = row + (size_t)b * g4 + u0 + lu;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) xg[j][q] = x[(size_t)q * H];
+        load4(gt[j], row + (size_t)b * g4 + (size_t)(u0 + lu) * 4);
         const size_t at = (t * p.batch + b) * H + u0 + lu;
         cc[j] = c_src[at];
         dy[j] = to_f32<T>(d_src[at]);
@@ -643,47 +647,13 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
       }
     }
   };
-  // h_prev of step s >= 1 (K3's h at kernel step s - 1) for the tile's rows
-  // in the batch: f32 straight into hs, bf16 into the f32 buffer hf, by
-  // cp.async, so that neither registers nor the barrier's release wait on
-  // the loads.  Thread tid copies units tid, tid + nthr, ... of every row.
-  float* h_dst = kBf16 ? hf : reinterpret_cast<float*>(hs);
-  const int h_stride = kBf16 ? H : hrow;
-  auto fetch_h = [&](int s) {
-    const size_t tp = tp_of(s);
-    for (int r = 0; r < BT && b0 + r < p.batch; ++r) {
-      const float* src = h_src + (tp * p.batch + b0 + r) * H;
-      for (int k = tid; k < H; k += nthr) cp_async<4>(h_dst + r * h_stride + k, src + k);
-    }
-    cp_async_commit();
-  };
-  // hs = round_cd(h_prev) of step s, zero at s = 0 (rows past the batch and
-  // the pads stay 0): each thread waits for its own copies and rounds them
-  auto stage_h = [&](int s) {
-    cp_async_wait_all();
-    if (!kBf16 && s > 0) return;
-    for (int r = 0; r < BT && b0 + r < p.batch; ++r) {
-      for (int k = tid; k < H; k += nthr) {
-        hs[r * hrow + k] = from_f32<T>(s > 0 ? h_dst[r * h_stride + k] : 0.0f);
-      }
-    }
-  };
 #pragma unroll
   for (int j = 0; j < kRecItemsMax; ++j) dc[j] = 0.0f;
   if (p.t_len > 0) fetch(p.t_len - 1);
-  // every CTA runs and has zeroed its receive slots before any peer writes,
-  // and hs before its own copies land there
-  cluster.sync();
-  if (p.t_len > 1) fetch_h(p.t_len - 1);
+  cluster.sync();  // every CTA runs and has zeroed its receive slots before any peer writes
 
   for (int s = p.t_len - 1, n = 0; s >= 0; --s, ++n) {
-    stage_h(s);
-    __syncthreads();  // h_prev staged
-    partial_gates<T, BT, kSpill>(whs, ws, sl, hs, hrow, gs, G, p.ksplit, kres, tid, nthr);
-    __syncthreads();  // every partial gate is in gs; hs is free
-    if (s > 1) fetch_h(s - 1);
-
-    // (3) the cell backward; dh_rec = the N slots of parity n, in rank order
+    // (1) the cell backward; dh_rec = the N slots of parity n, in rank order
     const float* rin = recv + (n & 1) * slots;
     T dq[kRecItemsMax][4];  // round_cd(dgates) of this thread's cells, for dxw
 #pragma unroll
@@ -692,22 +662,11 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
       if (i >= items) continue;
       float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // dgates; 0 past the batch and the units
       if (lu < nu && b < p.batch) {
-        float gate[4], prod[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gate[q] = to_f32<T>(xg[j][q]);
-        for (int ks = 0; ks < p.ksplit; ++ks) {
-          float part[4];
-          load4(part, gs + (ks * BT + r) * G + lu * 4);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) prod[q] = ks == 0 ? part[q] : prod[q] + part[q];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gate[q] += prod[q];
         float dh_rec = 0.0f;
 #pragma unroll 4
         for (int q = 0; q < n_cta; ++q) dh_rec += rin[(q * BT + r) * U + lu];
-        const float ig = sigmoid(gate[0]), fg = sigmoid(gate[1]);
-        const float gg = tanhf(gate[2]), og = sigmoid(gate[3]);
+        const float ig = sigmoid(gt[j][0]), fg = sigmoid(gt[j][1]);
+        const float gg = tanhf(gt[j][2]), og = sigmoid(gt[j][3]);
         const float tc = tanhf(cc[j]);
         const float dh = dy[j] + dh_rec;
         const float d_o = dh * tc * og * (1.0f - og);
@@ -727,7 +686,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
 #pragma unroll
         for (int q = 0; q < 4; ++q) dgs[r * dgrow + lu * 4 + q] = from_f32<T>(d[q]);
       } else {
-        *reinterpret_cast<float4*>(gs + r * G + lu * 4) = make_float4(d[0], d[1], d[2], d[3]);
+        *reinterpret_cast<float4*>(dgf + r * G + lu * 4) = make_float4(d[0], d[1], d[2], d[3]);
       }
     }
     // dxw of this step's cells, gate-major: consecutive threads, consecutive units
@@ -749,7 +708,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
     fetch(s - 1);  // the next step's inputs fly during the product and the barrier
     __syncthreads();  // every dgate is staged
 
-    // (4, 5) P[r][k] for all H units k, into the slot `rank` of k's owner
+    // (2, 3) P[r][k] for all H units k, into the slot `rank` of k's owner
     float* rout = recv + ((n + 1) & 1) * slots + rank * BT * U;
     auto slot = [&](int k) {  // unit k's column of this CTA's slot in its owner
       const int q = k / U;
@@ -797,7 +756,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
 #pragma unroll
           for (int r = 0; r < BT; ++r) {
             float dv[4];
-            load4(dv, gs + r * G + c);
+            load4(dv, dgf + r * G + c);
             acc[r] = fmaf(dv[3], wv[3], fmaf(dv[2], wv[2], fmaf(dv[1], wv[1], fmaf(dv[0], wv[0], acc[r]))));
           }
         };
@@ -897,7 +856,8 @@ int launch_cluster(void (*kernel)(Args), const Args& p, int cluster, int tiles, 
   return (int)cudaLaunchKernelEx(&cfg, kernel, p);
 }
 
-template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut, bool kSpill>
+template <typename T, typename O, int BT, XwLayout kXw, bool kCarry, bool kCellOut,
+          bool kGatesOut, bool kSpill>
 int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
   if (!plan_ok<T, BT, kSpill>(p.hidden, cluster, p.units, p.ksplit, p.resident)) {
     return (int)cudaErrorInvalidValue;  // not a plan of launch_plan's
@@ -905,7 +865,8 @@ int launch_rec(const RecArgs& p, int cluster, cudaStream_t stream) {
   const size_t smem =
       rec_layout<T>(p.hidden, p.units, BT, p.ksplit, p.resident, kXw == XwLayout::kUnitMajor)
           .total;
-  return launch_cluster(rec_cluster<T, O, BT, kXw, kCarry, kCellOut, kSpill>, p, cluster,
+  return launch_cluster(rec_cluster<T, O, BT, kXw, kCarry, kCellOut, kGatesOut, kSpill>, p,
+                        cluster,
                         (p.batch + BT - 1) / BT,
                         (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit, smem, stream);
 }
@@ -915,7 +876,7 @@ int launch_bwd_walk(const BwdArgs& p, int cluster, cudaStream_t stream) {
   if (!plan_ok<T, BT, kSpill>(p.hidden, cluster, p.units, p.ksplit, p.resident)) {
     return (int)cudaErrorInvalidValue;  // not a plan of bwd_plan's
   }
-  const size_t smem = bwd_layout<T>(p.hidden, p.units, cluster, BT, p.ksplit, p.resident).total;
+  const size_t smem = bwd_layout<T>(p.units, cluster, BT, p.resident).total;
   return launch_cluster(rec_cluster_bwd<T, BT, kSpill>, p, cluster, (p.batch + BT - 1) / BT,
                         (sizeof(T) == 2 ? 8 : 1) * p.units * p.ksplit, smem, stream);
 }
@@ -938,7 +899,8 @@ int launch_bwd_walk_plan(BwdArgs p, const Plan& plan, cudaStream_t s) {
 
 // The recurrence under a plan of launch_plan's (the batch tile and the resident depth pick the
 // instance).  Nothing to do at T = 0 or B = 0.
-template <typename T, typename O, XwLayout kXw, bool kCarry = false, bool kCellOut = false>
+template <typename T, typename O, XwLayout kXw, bool kCarry = false, bool kCellOut = false,
+          bool kGatesOut = false>
 int launch_rec_plan(RecArgs p, const Plan& plan, cudaStream_t s) {
   if (p.t_len == 0 || p.batch == 0) return 0;
   p.units = plan.units;
@@ -946,11 +908,13 @@ int launch_rec_plan(RecArgs p, const Plan& plan, cudaStream_t s) {
   p.resident = plan.resident;
   if (plan.resident < padded_depth(p.hidden)) {  // a wide layer: launch_plan spills on tiles of 8
     if (plan.btile != 8) return (int)cudaErrorInvalidValue;
-    return launch_rec<T, O, 8, kXw, kCarry, kCellOut, true>(p, plan.cluster, s);
+    return launch_rec<T, O, 8, kXw, kCarry, kCellOut, kGatesOut, true>(p, plan.cluster, s);
   }
   const int n = plan.cluster;
-  if (plan.btile == 8) return launch_rec<T, O, 8, kXw, kCarry, kCellOut, false>(p, n, s);
-  if (plan.btile == 16) return launch_rec<T, O, 16, kXw, kCarry, kCellOut, false>(p, n, s);
+  if (plan.btile == 8) return launch_rec<T, O, 8, kXw, kCarry, kCellOut, kGatesOut, false>(p, n, s);
+  if (plan.btile == 16) {
+    return launch_rec<T, O, 16, kXw, kCarry, kCellOut, kGatesOut, false>(p, n, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -362,7 +362,8 @@ int avsi_bilstm_fused_proj(const void* x, const void* wx, const float* b, const 
                            int units, int btile, int ksplit, int resident,
                            void* stream) {
   const ProjArgs proj{x, nullptr, wx, nullptr, b, xw, t_len * batch, d_in, 0, hidden};
-  const RecArgs rec{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const RecArgs rec{xw,      wh,    nullptr, out_f,  out_b, nullptr, nullptr,
+                    nullptr, t_len, batch,   hidden, 0,     0,       0};
   const Plan plan{cluster, units, btile, ksplit, resident};
   return dispatch(proj, rec, plan, in_bf16, out_bf16, stream);
 }
@@ -374,7 +375,8 @@ int avsi_bilstm_fused_proj2(const void* af, const void* ab, const void* wxa, con
                             int in_bf16, int out_bf16, int cluster, int units, int btile,
                             int ksplit, int resident, void* stream) {
   const ProjArgs proj{af, ab, wxa, wxb, b, xw, t_len * batch, h_in, h_in, hidden};
-  const RecArgs rec{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const RecArgs rec{xw,      wh,    nullptr, out_f,  out_b, nullptr, nullptr,
+                    nullptr, t_len, batch,   hidden, 0,     0,       0};
   const Plan plan{cluster, units, btile, ksplit, resident};
   return dispatch(proj, rec, plan, in_bf16, out_bf16, stream);
 }

@@ -4,8 +4,8 @@
 // Replaces four Pallas TPU kernels of avsi/ops/pallas_lstm.py.  The pair under
 // the custom VJP of `_layer` (:1236-1326):
 //   K3  bilstm_recurrence_train (_kernel_train, :148-173): the recurrence over a
-//       precomputed gate input xw, writing the h streams and the f32 cell-state
-//       streams (the residual of the backward);
+//       precomputed gate input xw, writing the h streams, the f32 cell-state
+//       streams and the f32 gate sums (the residual of the backward);
 //   K4  bilstm_recurrence_bwd   (_bwd_kernel :599-656, _bwd_dir :563-596): the
 //       reverse walk that writes dgates as dxw and accumulates dWh.
 // And two more instances of K3's body (compile-time switches: read initial
@@ -18,7 +18,9 @@
 //
 // Layouts (the TPU kernels'): xw and dxw are (T, 2, B, 4H) in kernel time, so
 // direction 1 is time-reversed there, gate-major (column gate*H + u); h, c
-// and dout are (T, B, H) per direction in ORIGINAL time order.  At kernel
+// and dout are (T, B, H) per direction in ORIGINAL time order.  K3's gate
+// sums are (T, 2, B, H, 4) f32 in kernel time, unit-major (a cell's four
+// gates side by side), which the TPU kernels do not keep.  At kernel
 // step s, direction 0 is at original time s and direction 1 at T-1-s; the
 // previous step (s-1) is at original time s-1 for direction 0 and T-s for
 // direction 1 (zero state at s = 0).
@@ -26,10 +28,9 @@
 // Numerics (the TPU kernels' function):
 //   K3:  gates = xw_s + round_cd(h_prev) . wh   (f32 sums)
 //        c = sig(f) c + sig(i) tanh(g);  h = sig(o) tanh(c)     all f32
-//   K4:  the gates are recomputed by K3's own product code under K3's
-//        cluster, units and depth split (partial_gates, lstm_cluster.cuh;
-//        bwd_plan keeps them at every width), so they are K3's bit for bit,
-//        then with dh = dout_s + dh_rec and the f32 carries dc, dh_rec:
+//   K4:  the gates are K3's saved sums (the TPU kernel recomputes them;
+//        these are the same bits), then with dh = dout_s + dh_rec and the
+//        f32 carries dc, dh_rec:
 //        do = dh tanh(c) o(1-o);  dc += dh o (1 - tanh(c)^2)
 //        di = dc g i(1-i);  df = dc c_prev f(1-f);  dg = dc i (1-g^2)
 //        dxw_s = round_cd(dgates);  dh_rec = dxw_s . wh^T;  dc = dc f
@@ -59,12 +60,13 @@
 //   K4a, the walk: rec_cluster_bwd (lstm_cluster.cuh) on the cluster and the
 //        resident wh slices of K3, under avsi_torch/ops/lstm_train.py:bwd_plan
 //        (K3's plan, with fewer resident depth rows where the walk's buffers
-//        need the room).  Each CTA recomputes its units' gates, runs their
-//        cell backward, and sends its partial dh_rec = dgates . slice^T for
-//        every unit to the unit's owner through DSMEM; one cluster barrier
-//        per step, and no read of the whole wh from L2.  The first design
-//        (one 1,024-thread block per direction and batch row) read all of wh
-//        from L2 twice a step.
+//        need the room).  Each CTA reads its units' gates from K3's saved
+//        sums, runs their cell backward, and sends its partial dh_rec =
+//        dgates . slice^T for every unit to the unit's owner through DSMEM;
+//        one cluster barrier per step, and no read of the whole wh from L2.
+//        The first design (one 1,024-thread block per direction and batch
+//        row) read all of wh from L2 twice a step; the second recomputed
+//        the gates with K3's product every step.
 //   K4b, dWh: a split-K product.  The depth of T x B rows is cut into
 //        `nsplit` chunks (bilstm_recurrence_bwd's `dwh_splits`, so that the
 //        grid fills the SMs several times over); each CTA writes the
@@ -75,9 +77,9 @@
 //
 // What bounds them: not the work.  The bound (bytes once at 3.35 TB/s, or the
 // products at peak) is far below a chain of 250 dependent steps: K3 and K4a
-// are set by their per-step latency (products, cell, DSMEM exchange,
-// barrier).  K4b is a plain product, bound by the f32 FMA rate or, in bf16,
-// by staging its operands.
+// are set by their per-step latency (a product, the cell, the DSMEM
+// exchange, the barrier).  K4b is a plain product, bound by the f32 FMA rate
+// or, in bf16, by staging its operands.
 
 #include <algorithm>
 
@@ -314,14 +316,15 @@ __global__ void __launch_bounds__(256) dwh_sum(const float4* __restrict__ part,
 // ------------------------------------------------------------------ launchers
 
 // K3, K5, K6: the cluster recurrence over the TPU layout of xw; outputs f32.
-template <bool kCarry, bool kCellOut>
+template <bool kCarry, bool kCellOut, bool kGatesOut = false>
 int recurrence(int in_bf16, const RecArgs& p, const Plan& plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
-    return launch_rec_plan<__nv_bfloat16, float, XwLayout::kGateMajor, kCarry, kCellOut>(
-        p, plan, s);
+    return launch_rec_plan<__nv_bfloat16, float, XwLayout::kGateMajor, kCarry, kCellOut,
+                           kGatesOut>(p, plan, s);
   }
-  return launch_rec_plan<float, float, XwLayout::kGateMajor, kCarry, kCellOut>(p, plan, s);
+  return launch_rec_plan<float, float, XwLayout::kGateMajor, kCarry, kCellOut, kGatesOut>(p, plan,
+                                                                                       s);
 }
 
 // K4: the walk (rec_cluster_bwd), then dWh's partial products and their sum.
@@ -357,15 +360,16 @@ int launch_bwd(const BwdArgs& walk, const Plan& plan, float* dwh, float* part, i
 extern "C" {
 
 // K3: xw (T,2,B,4H) and wh (2,H,4H) at the compute dtype; out_f/out_b and
-// c_f/c_b (T,B,H) f32; the plan of launch_plan (cluster, units, batch tile,
-// depth split, resident depth rows).  Returns the launch's CUDA error.
+// c_f/c_b (T,B,H) f32; gates (T,2,B,H,4) f32; the plan of launch_plan
+// (cluster, units, batch tile, depth split, resident depth rows).  Returns
+// the launch's CUDA error.
 int avsi_bilstm_recurrence_train(const void* xw, const void* wh, float* out_f,
-                                 float* out_b, float* c_f, float* c_b, int t_len,
-                                 int batch, int hidden, int in_bf16, int cluster, int units,
-                                 int btile, int ksplit, int resident, void* stream) {
-  const RecArgs p{xw, wh, nullptr, out_f, out_b, c_f, c_b, t_len, batch, hidden, 0, 0, 0};
+                                 float* out_b, float* c_f, float* c_b, float* gates,
+                                 int t_len, int batch, int hidden, int in_bf16, int cluster,
+                                 int units, int btile, int ksplit, int resident, void* stream) {
+  const RecArgs p{xw, wh, nullptr, out_f, out_b, c_f, c_b, gates, t_len, batch, hidden, 0, 0, 0};
   const Plan plan{cluster, units, btile, ksplit, resident};
-  return recurrence<false, true>(in_bf16, p, plan, stream);
+  return recurrence<false, true, true>(in_bf16, p, plan, stream);
 }
 
 // K5: K3 from the initial carries hc0 (2, 2, B, H) f32 ([h|c][dir]).
@@ -373,7 +377,7 @@ int avsi_bilstm_recurrence_carry(const void* xw, const void* wh, const float* hc
                                  float* out_f, float* out_b, float* c_f, float* c_b,
                                  int t_len, int batch, int hidden, int in_bf16, int cluster,
                                  int units, int btile, int ksplit, int resident, void* stream) {
-  const RecArgs p{xw, wh, hc0, out_f, out_b, c_f, c_b, t_len, batch, hidden, 0, 0, 0};
+  const RecArgs p{xw, wh, hc0, out_f, out_b, c_f, c_b, nullptr, t_len, batch, hidden, 0, 0, 0};
   const Plan plan{cluster, units, btile, ksplit, resident};
   return recurrence<true, true>(in_bf16, p, plan, stream);
 }
@@ -382,22 +386,23 @@ int avsi_bilstm_recurrence_carry(const void* xw, const void* wh, const float* hc
 int avsi_bilstm_recurrence(const void* xw, const void* wh, float* out_f, float* out_b,
                            int t_len, int batch, int hidden, int in_bf16, int cluster,
                            int units, int btile, int ksplit, int resident, void* stream) {
-  const RecArgs p{xw, wh, nullptr, out_f, out_b, nullptr, nullptr, t_len, batch, hidden, 0, 0, 0};
+  const RecArgs p{xw,      wh,    nullptr, out_f,  out_b, nullptr, nullptr,
+                  nullptr, t_len, batch,   hidden, 0,     0,       0};
   const Plan plan{cluster, units, btile, ksplit, resident};
   return recurrence<false, false>(in_bf16, p, plan, stream);
 }
 
-// K4: xw, wh, dout_f/dout_b and dxw at the compute dtype; out_f/out_b and
+// K4: wh, dout_f/dout_b and dxw at the compute dtype; gates, out_f/out_b and
 // c_f/c_b f32 (K3's outputs); dwh (2,H,4H) f32; part (nsplit,2,H,4H) f32
 // scratch; the walk's plan of bwd_plan (cluster, units, batch tile, depth
 // split, resident depth rows); dWh's depth chunks (nsplit of rows_per rows).
-int avsi_bilstm_recurrence_bwd(const void* xw, const void* wh, const float* out_f,
+int avsi_bilstm_recurrence_bwd(const float* gates, const void* wh, const float* out_f,
                                const float* out_b, const float* c_f, const float* c_b,
                                const void* dout_f, const void* dout_b, void* dxw, float* dwh,
                                float* part, int t_len, int batch, int hidden, int in_bf16,
                                int cluster, int units, int btile, int ksplit, int resident,
                                int nsplit, int rows_per, void* stream) {
-  const BwdArgs p{xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b, dxw,
+  const BwdArgs p{gates, wh, out_f, out_b, c_f, c_b, dout_f, dout_b, dxw,
                   t_len, batch, hidden, 0, 0, 0};
   const Plan plan{cluster, units, btile, ksplit, resident};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

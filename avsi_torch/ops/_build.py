@@ -51,7 +51,7 @@ _SIGNATURES = {
     # of the cluster recurrence (cluster, units, btile, ksplit, resident)
     "avsi_bilstm_fused_proj": [_P] * 7 + [_I] * 11 + [_P],
     "avsi_bilstm_fused_proj2": [_P] * 9 + [_I] * 11 + [_P],
-    "avsi_bilstm_recurrence_train": [_P] * 6 + [_I] * 9 + [_P],
+    "avsi_bilstm_recurrence_train": [_P] * 7 + [_I] * 9 + [_P],
     # K4: pointers (dwh's chunk scratch last), shape and dtype ints, the
     # walk's plan, then dWh's chunks (nsplit, rows_per)
     "avsi_bilstm_recurrence_bwd": [_P] * 11 + [_I] * 11 + [_P],

@@ -45,7 +45,8 @@ from avsi_torch.ops import _build
 # ---------------------------------------------------------------- plain
 
 def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtype,
-                     h0: torch.Tensor | None = None, c0: torch.Tensor | None = None):
+                     h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
+                     gates_out: bool = False):
     """Both directions' recurrence over projected gates (`_cell`,
     `pallas_lstm.py:100-118`).
 
@@ -54,7 +55,8 @@ def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtyp
     f32 initial carries per direction (zeros when absent; h0 is rounded to
     the compute dtype inside the product, as every h is).  Returns (out_f,
     out_b, c_f, c_b), each (T, B, H) in original time order: h in
-    `out_dtype`, the cell state c in f32."""
+    `out_dtype`, the cell state c in f32; with `gates_out` also the f32
+    gate sums (2, T, B, 4H) in walk order."""
     _, t_len, b_sz, g4 = xw.shape
     hidden = g4 // 4
     wh32 = wh.float()
@@ -62,15 +64,18 @@ def recurrence_plain(xw: torch.Tensor, wh: torch.Tensor, compute_dtype, out_dtyp
     c = xw.new_zeros(2, b_sz, hidden) if c0 is None else c0.float()
     out = xw.new_empty(2, t_len, b_sz, hidden)
     cell = xw.new_empty(2, t_len, b_sz, hidden)
+    sums = xw.new_empty(2, t_len, b_sz, g4) if gates_out else None
     for s in range(t_len):
         gates = xw[:, s] + torch.bmm(h.to(compute_dtype).float(), wh32)
+        if gates_out:
+            sums[:, s] = gates
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         out[:, s] = h
         cell[:, s] = c
-    return (out[0].to(out_dtype), out[1].flip(0).to(out_dtype),
-            cell[0], cell[1].flip(0))
+    streams = (out[0].to(out_dtype), out[1].flip(0).to(out_dtype), cell[0], cell[1].flip(0))
+    return (*streams, sums) if gates_out else streams
 
 
 def _parity_cast(xw: torch.Tensor, compute_dtype) -> torch.Tensor:

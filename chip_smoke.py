@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (`avsi_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --walk-ab <another checkout>   (`walk_ab` alone)
 
 Phases, in order; any failure exits non-zero:
 
@@ -338,8 +339,9 @@ def card_line() -> str:
 def kernel_inputs(name: str, batch: int, dtype, seed: int = 0, t_len: int | None = None) -> dict:
     """Flagship-shaped inputs: K1 reads x (T,B,593); K2 the two 250-wide
     streams of the previous layer (values of h, in (-1, 1)); K3 and K6 a
-    gate input xw (T,2,B,4H) of projection-sized values; K4 K3's inputs and
-    outputs and the upstream h gradients; K5 a window's xw (W,2,B,4H) and
+    gate input xw (T,2,B,4H) of projection-sized values; K4 K3's outputs
+    on such an xw (its saved gate sums first) with K3's wh, and the
+    upstream h gradients; K5 a window's xw (W,2,B,4H) and
     random carries hc0 (h in (-1, 1), c of cell-state size) in both
     directions.  t_len overrides the time axis (T, or W for K5)."""
     gen = torch.Generator().manual_seed(seed)
@@ -356,10 +358,11 @@ def kernel_inputs(name: str, batch: int, dtype, seed: int = 0, t_len: int | None
             inp["hc0"] = torch.stack([torch.tanh(u(2, batch, H, scale=2.0)),
                                       u(2, batch, H, scale=2.0)])
         if name == "bilstm_recurrence_bwd":
-            out = lstm_train.bilstm_recurrence_train(inp["xw"], wh)
-            inp.update(zip(("out_f", "out_b", "c_f", "c_b"), out))
-            inp["dout_f"] = u(T, batch, H, scale=1.0).to(dtype)
-            inp["dout_b"] = u(T, batch, H, scale=1.0).to(dtype)
+            *streams, gates = lstm_train.bilstm_recurrence_train(inp.pop("xw"), wh)
+            inp = {"gates": gates, "wh": wh,
+                   **dict(zip(("out_f", "out_b", "c_f", "c_b"), streams)),
+                   "dout_f": u(T, batch, H, scale=1.0).to(dtype),
+                   "dout_b": u(T, batch, H, scale=1.0).to(dtype)}
         return inp
     common = {"b": u(2, 4 * H, scale=0.1), "wh": wh}
     if name == "bilstm_fused_proj":
@@ -381,11 +384,12 @@ def bound(name: str, inp: dict, out, dtype) -> tuple[float, str]:
     once, over HBM bandwidth; the products' multiply-adds over the peak rate
     of the operand type.  K1/K2: the projection and the recurrent product
     per step and direction; K3, K5, K6: the recurrent product; K4: three
-    products (gate recompute, dh_rec = dgates.wh^T, dWh).  Returns (ms,
-    "bytes" | "operations")."""
+    products (the gates' recompute, which its walk no longer runs, kept so
+    that the bound stays the benchmark's `lib/roofline.py`; dh_rec =
+    dgates.wh^T; dWh).  Returns (ms, "bytes" | "operations")."""
     n_bytes = sum(t.numel() * t.element_size() for t in list(inp.values()) + list(out))
     if name in TRAINING or name in WINDOW:
-        t_len, _, batch, _ = inp["xw"].shape
+        t_len, _, batch = inp["gates" if name == "bilstm_recurrence_bwd" else "xw"].shape[:3]
         products = 3 if name == "bilstm_recurrence_bwd" else 1
         ops = products * 2 * t_len * 2 * batch * H * 4 * H  # 2 dirs, 2 ops per MAC
     else:
@@ -613,8 +617,8 @@ def check_wide_layers(batch: int = 8) -> None:
         b = u(2, 4 * h, scale=0.1)
         xw, xw5 = (u(t, 2, batch, 4 * h, scale=1.5).to(dtype) for t in (T, W))
         hc0 = torch.stack([torch.tanh(u(2, batch, h, scale=2.0)), u(2, batch, h, scale=2.0)])
-        fwd = lstm_train.bilstm_recurrence_train(xw, wh)
-        k4_in = (xw, wh, *fwd, *(u(T, batch, h, scale=1.0).to(dtype) for _ in range(2)))
+        *streams, gates = lstm_train.bilstm_recurrence_train(xw, wh)
+        k4_in = (gates, wh, *streams, *(u(T, batch, h, scale=1.0).to(dtype) for _ in range(2)))
         k3_plan = lstm_fused.launch_plan(h, batch, dtype, sms, gate_major=True)
         runs = {
             "K1": (lambda: lstm_fused.bilstm_fused_proj(x, wx, b, wh),
@@ -980,6 +984,135 @@ def k4_profiles() -> None:
                   f"(" + " + ".join(f"{'chunks' if 'partial' in r[0] else 'sum'} {r[2]:.3f}"
                                     for r in dwh) + ")", flush=True)
             del inp
+
+
+WALK_CALLS = 10  # profiled K3 + K4 calls per batch and dtype in `walk_record`
+# a child of `walk_ab`: a checkout's own avsi_torch first, then this file's
+# functions over it
+WALK_CHILD = ("import importlib.util, json, sys; sys.path.insert(0, sys.argv[1]); "
+              "import avsi_torch; "
+              "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[2]); "
+              "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+              "m.resolve_device(); json.dump(m.walk_record(), open(sys.argv[3], 'w'))")
+
+
+def _digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (bf16 read as int16)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def walk_record() -> dict:
+    """K3 then K4 at the flagship width (T=250, H=250) at each of K4's
+    timed batches, f32 and bf16, on kernel_inputs' seeded xw and wh and
+    seeded upstream gradients: the sha256 of K4's dxw and dWh; the device
+    ms a launch of K3's `rec_cluster`, K4's walk `rec_cluster_bwd` and its
+    dWh (`dwh_*`), each the mean over WALK_CALLS profiled calls, and of K3
+    and K4 whole by CUDA events.  Then the flagship train step (B=8) made
+    and replayed from its CUDA graph as `train_graph_timed` does: the
+    sha256 of the train state after its two eager warm-ups, the capture
+    and three replays.  A checkout whose K3 returns no gate sums (four
+    tensors) has a K4 that takes xw, and gets xw."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in BATCHES["bilstm_recurrence_bwd"]:
+            inp = kernel_inputs("bilstm_recurrence_train", batch, dtype)
+            xw, wh = inp["xw"], inp["wh"]
+            gen = torch.Generator().manual_seed(batch)
+            dout = [(torch.rand(T, batch, H, generator=gen) * 2 - 1).cuda().to(dtype)
+                    for _ in range(2)]
+            out = lstm_train.bilstm_recurrence_train(xw, wh)
+            saved = out[4] if len(out) == 5 else xw
+
+            def k3():
+                return lstm_train.bilstm_recurrence_train(xw, wh)
+
+            def k4():
+                return lstm_train.bilstm_recurrence_bwd(saved, wh, *out[:4], *dout)
+
+            dxw, dwh = k4()
+            row = {"digest": _digest(dxw, dwh), "k3_events_ms": time_ms(k3, reps=WALK_CALLS),
+                   "k4_events_ms": time_ms(k4, reps=WALK_CALLS)}
+            for attempt in range(3):
+                torch.cuda.synchronize()
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(WALK_CALLS):
+                        k3()
+                        k4()
+                    torch.cuda.synchronize()
+                times = {"k3_ms": [], "walk_ms": [], "dwh_ms": []}
+                for e in prof.key_averages():
+                    if e.device_type != torch.autograd.DeviceType.CUDA:
+                        continue
+                    key = ("walk_ms" if "rec_cluster_bwd" in e.key else "k3_ms"
+                           if "rec_cluster" in e.key else "dwh_ms" if "dwh_" in e.key else None)
+                    if key:
+                        times[key].append(e.self_device_time_total / 1e3)
+                if all(times.values()):
+                    break
+            row.update({k: sum(v) / WALK_CALLS if v else None for k, v in times.items()})
+            rows[f"{str(dtype)[6:]} B={batch}"] = row
+    ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4)
+    state, step = ways["graph"]
+    for k in range(train_loop.graphs_lib.WARMUP + 4):
+        step(state, placed[k % len(placed)], None)
+    torch.cuda.synchronize()
+    leaves = checkpoints.named_leaves(state.params)
+    slots = [state.optimizer.state[leaves[k]][n] for k in sorted(leaves)
+             for n in ("exp_avg", "exp_avg_sq", "step")]
+    return {"kernels": rows, "graphs": len(step.graphs.graphs),
+            "state": _digest(*(leaves[k] for k in sorted(leaves)), *slots)}
+
+
+def walk_ab(parent: str) -> None:
+    """K4's walk and K3, and the replayed train step, in this checkout and
+    in `parent` (another checkout of the repo, e.g. unpacked by `git
+    archive` under build/), in child processes in the order parent,
+    change, change, parent (`walk_record` in each): every digest equal
+    across all four (dxw and dWh at every batch and dtype, the train state
+    after three replays), and the device ms a launch of each side, the
+    mean of its two runs.  Fails on any digest that differs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    runs = {name: [] for name in trees}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, name in enumerate(("parent", "change", "change", "parent")):
+            out = os.path.join(tmp, f"{i}.json")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", WALK_CHILD, trees[name],
+                            os.path.abspath(__file__), out], cwd=trees[name], check=True,
+                           timeout=900)
+            runs[name].append(json.load(open(out)))
+            print(f"walk A/B: {name} run in {time.perf_counter() - t0:.1f} s", flush=True)
+    records = runs["parent"] + runs["change"]
+    first = records[0]
+    same = {key: all(r["kernels"][key]["digest"] == first["kernels"][key]["digest"]
+                     for r in records) for key in first["kernels"]}
+    same["train state after 3 replays"] = all(r["state"] == first["state"] for r in records)
+
+    def mean(name, key, field):
+        vals = [r["kernels"][key][field] for r in runs[name]]
+        return None if None in vals else sum(vals) / len(vals)
+
+    for key in first["kernels"]:
+        cells = []
+        for field in ("walk_ms", "k3_ms", "dwh_ms", "k4_events_ms", "k3_events_ms"):
+            a, b = mean("parent", key, field), mean("change", key, field)
+            cells.append(f"{field[:-3]} {a:.4f} -> {b:.4f} ms (x{b / a:.3f})" if a and b
+                         else f"{field[:-3]} not measured")
+        print(f"walk A/B {key}: " + "; ".join(cells) + f"; dxw and dWh bit-equal {same[key]}",
+              flush=True)
+    graphs = {name: [r["graphs"] for r in runs[name]] for name in runs}
+    print(f"walk A/B: train state after 3 replayed flagship steps bit-equal "
+          f"{same['train state after 3 replays']} (graphs held: {graphs}); card {card_line()}",
+          flush=True)
+    if not all(same.values()):
+        fail(f"the change's K4 or train state differs from the parent's: {same}")
 
 
 def fused_plans_and_profiles() -> None:
@@ -3830,5 +3963,8 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-corpus"]:
         build_data_corpus(sys.argv[2], tuple(int(n) for n in sys.argv[3:6]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--walk-ab"]:  # python3 chip_smoke.py --walk-ab <other checkout>
+        walk_ab(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -162,6 +162,8 @@ def _train_inputs(gen, t, b, h, dtype):
 @pytest.mark.parametrize("shape", [(20, 2, 24), (250, 8, 250), (250, 32, 250), (250, 128, 250),
                                    (60, 13, 250), (60, 13, 251), (20, 3, 5)])
 def test_k3_k4_kernels_match_plain(dtype, shape):
+    """K3's five outputs (h, c and the saved gate sums) and K4 over them
+    against the plain versions."""
     _need_cuda()
     t, b, h = shape
     gen = torch.Generator().manual_seed(2)
@@ -170,44 +172,54 @@ def test_k3_k4_kernels_match_plain(dtype, shape):
     fwd = lstm_train.bilstm_recurrence_train(xw, wh)
     torch.cuda.synchronize()
     want = lstm_train.bilstm_recurrence_train_plain(xw, wh)
+    assert len(fwd) == len(want) == 5
+    assert fwd[4].dtype == torch.float32 and fwd[4].shape == (t, 2, b, h, 4)
     for g, w in zip(fwd, want):
         assert (g - w).abs().max().item() <= TOL[dtype]
     dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
-    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    dxw, dwh = _k4(wh, fwd, dout)
     torch.cuda.synchronize()
     assert _build.launch_counts["bilstm_recurrence_train"] == before["bilstm_recurrence_train"] + 1
     assert _build.launch_counts["bilstm_recurrence_bwd"] == before["bilstm_recurrence_bwd"] + 1
-    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    dxw_p, dwh_p = _k4(wh, fwd, dout, plain=True)
     assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
     # dWh sums T x B products: relative to its scale
     assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
 
 
-def _k4_check(xw, wh, fwd, dout, dtype):
+def _k4(wh, fwd, dout, plain=False):
+    """K4 (or its plain version) over K3's five outputs `fwd`."""
+    *streams, gates = fwd
+    fn = lstm_train.bilstm_recurrence_bwd_plain if plain else lstm_train.bilstm_recurrence_bwd
+    return fn(gates, wh, *streams, *dout)
+
+
+def _k4_check(wh, fwd, dout, dtype):
     """K4 on the card against its plain version, one counted launch."""
     before = dict(_build.launch_counts)
-    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    dxw, dwh = _k4(wh, fwd, dout)
     torch.cuda.synchronize()
     assert _build.launch_counts["bilstm_recurrence_bwd"] == before["bilstm_recurrence_bwd"] + 1
-    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    dxw_p, dwh_p = _k4(wh, fwd, dout, plain=True)
     assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
     assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
     return dxw, dwh
 
 
 def _k4_inputs(seed, t, b, h, dtype):
+    """(wh, K3's outputs, dout) on a seeded xw."""
     gen = torch.Generator().manual_seed(seed)
     xw, wh = _train_inputs(gen, t, b, h, dtype)
     fwd = lstm_train.bilstm_recurrence_train(xw, wh)
     dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
-    return xw, wh, fwd, dout
+    return wh, fwd, dout
 
 
 # K4's walk at widths where K3 holds its whole wh slice but the walk's
-# buffers leave room for only part of it (f32 H=400, bf16 H=624), and bf16
-# H=400 at B=128, where the walk leaves K3's batch tile of 16 for 8.
-@pytest.mark.parametrize("case", [(torch.float32, 30, 8, 400), (torch.bfloat16, 30, 8, 624),
-                                  (torch.bfloat16, 20, 128, 400)],
+# buffers leave room for only part of it (f32 H=424, bf16 H=624), and bf16
+# H=408 at B=128, where the walk leaves K3's batch tile of 16 for 8.
+@pytest.mark.parametrize("case", [(torch.float32, 30, 8, 424), (torch.bfloat16, 30, 8, 624),
+                                  (torch.bfloat16, 20, 128, 408)],
                          ids=lambda c: f"{str(c[0])[6:]}-T{c[1]}-B{c[2]}-H{c[3]}")
 def test_k4_walk_spills_where_k3_does_not(case):
     _need_cuda()
@@ -235,9 +247,26 @@ def test_k4_repeated_calls_bit_equal(dtype, b):
     _need_cuda()
     inputs = _k4_inputs(16, 250, b, 250, dtype)
     first = _k4_check(*inputs, dtype)
-    second = lstm_train.bilstm_recurrence_bwd(inputs[0], inputs[1], *inputs[2], *inputs[3])
+    second = _k4(*inputs)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_walk_reads_no_xw(dtype):
+    """K4 given K3's gate sums alone: xw filled with NaN and freed after K3
+    leaves dxw and dWh bit for bit those of a call made before, and
+    finite."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(18)
+    xw, wh = _train_inputs(gen, 250, 8, 250, dtype)
+    fwd = lstm_train.bilstm_recurrence_train(xw, wh)
+    dout = [_w(gen, 250, 8, 250, scale=1.0).to(dtype) for _ in range(2)]
+    first = _k4(wh, fwd, dout)
+    xw.fill_(float("nan"))
+    del xw
+    second = _k4_check(wh, fwd, dout, dtype)
+    assert all(torch.equal(x, y) and torch.isfinite(y).all() for x, y in zip(first, second))
 
 
 def test_k4_refuses_a_width_without_a_plan():
@@ -245,10 +274,11 @@ def test_k4_refuses_a_width_without_a_plan():
     _need_cuda()
     gen = torch.Generator().manual_seed(11)
     t, b, h = 4, 2, 2050
-    xw, wh = _train_inputs(gen, t, b, h, torch.float32)
+    _, wh = _train_inputs(gen, t, b, h, torch.float32)
+    gates = torch.zeros(t, 2, b, h, 4, device="cuda")
     streams = [torch.zeros(t, b, h, device="cuda") for _ in range(6)]
     with pytest.raises(ValueError, match="hidden=2050"):
-        lstm_train.bilstm_recurrence_bwd(xw, wh, *streams)
+        lstm_train.bilstm_recurrence_bwd(gates, wh, *streams)
 
 
 @pytest.mark.parametrize("b", [8, 32])  # 32: the training batch of chip_smoke.py
@@ -428,7 +458,7 @@ def test_wide_k3_k4_k5_k6_match_plain(wide):
     k5 = lstm_window.bilstm_recurrence_carry(xw, wh, hc0)
     k6 = lstm_window.bilstm_recurrence(xw, wh)
     dout = [_w(gen, t, b, h, scale=1.0).to(dtype) for _ in range(2)]
-    dxw, dwh = lstm_train.bilstm_recurrence_bwd(xw, wh, *fwd, *dout)
+    dxw, dwh = _k4(wh, fwd, dout)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _build.launch_counts.items() if v != before[k]} == {
         "bilstm_recurrence_train": 1, "bilstm_recurrence_carry": 1, "bilstm_recurrence": 1,
@@ -440,7 +470,7 @@ def test_wide_k3_k4_k5_k6_match_plain(wide):
         assert (g - w).abs().max().item() <= TOL[dtype]
     for g, w in zip(k5, lstm_window.bilstm_recurrence_carry_plain(xw, wh, hc0)):
         assert (g - w).abs().max().item() <= TOL[dtype]
-    dxw_p, dwh_p = lstm_train.bilstm_recurrence_bwd_plain(xw, wh, *fwd, *dout)
+    dxw_p, dwh_p = _k4(wh, fwd, dout, plain=True)
     assert (dxw.float() - dxw_p.float()).abs().max().item() <= TOL[dtype]
     assert (dwh - dwh_p).abs().max().item() <= TOL[dtype] * max(1.0, dwh_p.abs().max().item())
 

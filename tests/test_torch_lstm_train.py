@@ -106,14 +106,68 @@ def test_k4_plain_matches_pallas_kernel(dtype, t_len, block_steps):
         xw_t, pp["wh"], *ref, jnp.asarray(dpad[0]).astype(jd), jnp.asarray(dpad[1]).astype(jd),
         block_steps=block_steps, interpret=True)
     out_f, out_b, c_f, c_b = (_t(np.asarray(r)[..., :H]) for r in ref)
+    gates = lstm_train.bilstm_recurrence_train(xw, wh)[4]  # the port's K3 on the same xw
     dxw, dwh = lstm_train.bilstm_recurrence_bwd(
-        xw, wh, out_f, out_b, c_f, c_b, _t(dout[0], td), _t(dout[1], td))
+        gates, wh, out_f, out_b, c_f, c_b, _t(dout[0], td), _t(dout[1], td))
     assert dxw.dtype == td and dxw.shape == (t_len, 2, B, 4 * H)
     assert dwh.dtype == torch.float32 and dwh.shape == (2, H, 4 * H)
     np.testing.assert_allclose(_np(dxw), _unpad(np.asarray(dxw_r.astype(jnp.float32))),
                                atol=ATOL[dtype])
     dwh_atol = 1e-4 if dtype == "float32" else ATOL[dtype] * max(1.0, float(np.abs(dwh_r).max()))
     np.testing.assert_allclose(_np(dwh), _unpad(np.asarray(dwh_r)[:, :H]), atol=dwh_atol)
+
+
+def _recomputing_walk(xw, wh, out_f, out_b, c_f, c_b, dout_f, dout_b):
+    """The plain K4 that recomputed the gates from xw and h_prev each step
+    (`_bwd_dir` as the TPU kernel runs it): the oracle for the walk over
+    K3's saved gate sums."""
+    cd = xw.dtype
+    t_len, _, b_sz, g4 = xw.shape
+    hidden = g4 // 4
+    wh32 = wh.float()
+    zero = xw.new_zeros((1, 2, b_sz, hidden), dtype=torch.float32)
+    h = lstm_train._walk_order(out_f, out_b).float()
+    c = lstm_train._walk_order(c_f, c_b)
+    dout = lstm_train._walk_order(dout_f, dout_b).float()
+    h_prev = torch.cat([zero, h[:-1]]).to(cd).float()
+    c_prev = torch.cat([zero, c[:-1]])
+    dh_rec = torch.zeros_like(zero[0])
+    dc = torch.zeros_like(zero[0])
+    dxw = torch.empty_like(xw)
+    for s in range(t_len - 1, -1, -1):
+        gates = xw[s].float() + torch.bmm(h_prev[s], wh32)
+        i, f, g, o = gates.split(hidden, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        tc = torch.tanh(c[s])
+        dh = dout[s] + dh_rec
+        do = dh * tc * o * (1.0 - o)
+        dc = dc + dh * o * (1.0 - tc * tc)
+        di = dc * g * i * (1.0 - i)
+        df = dc * c_prev[s] * f * (1.0 - f)
+        dg = dc * i * (1.0 - g * g)
+        dxw[s] = torch.cat([di, df, dg, do], dim=-1).to(cd)
+        dh_rec = torch.bmm(dxw[s].float(), wh32.transpose(1, 2))
+        dc = dc * f
+    dwh = torch.einsum("sdbk,sdbj->dkj", h_prev, dxw.float())
+    return dxw, dwh
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t_len,batch,hidden", [(20, 2, 24), (7, 3, 5), (1, 1, 8), (12, 5, 33)])
+def test_k4_plain_over_k3_gates_equals_the_recomputing_walk(dtype, t_len, batch, hidden):
+    """Plain K3's saved gate sums, fed to plain K4, give the recomputing
+    walk's dxw and dWh bit for bit: the gates are the same sums."""
+    gen = torch.Generator().manual_seed(t_len * 100 + hidden)
+    td = TDT[dtype]
+    xw = ((torch.rand(t_len, 2, batch, 4 * hidden, generator=gen) * 2 - 1) * 1.5).to(td)
+    wh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * hidden ** -0.5).to(td)
+    dout = [torch.randn(t_len, batch, hidden, generator=gen).to(td) for _ in range(2)]
+    *streams, gates = lstm_train.bilstm_recurrence_train(xw, wh)
+    assert gates.dtype == torch.float32 and gates.shape == (t_len, 2, batch, hidden, 4)
+    dxw, dwh = lstm_train.bilstm_recurrence_bwd(gates, wh, *streams, *dout)
+    want_dxw, want_dwh = _recomputing_walk(xw, wh, *streams, *dout)
+    assert dxw.dtype == td and torch.equal(dxw, want_dxw)
+    assert torch.equal(dwh, want_dwh)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -176,7 +230,7 @@ def test_wrappers_take_the_plain_version_only_off_cuda():
     xw = torch.zeros(3, 2, 1, 8)
     wh = torch.zeros(2, 2, 8)
     before = dict(_build.launch_counts)
-    out = lstm_train.bilstm_recurrence_train(xw, wh)
-    lstm_train.bilstm_recurrence_bwd(xw, wh, *out, out[0], out[1])
+    *streams, gates = lstm_train.bilstm_recurrence_train(xw, wh)
+    lstm_train.bilstm_recurrence_bwd(gates, wh, *streams, streams[0], streams[1])
     assert _build.launch_counts == before
     assert {"bilstm_recurrence_train", "bilstm_recurrence_bwd"} <= set(_build.launch_counts)
