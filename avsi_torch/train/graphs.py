@@ -1,7 +1,8 @@
-"""The single-device train step as a CUDA graph, captured once per batch
-key and replayed (`train/loop.make_train_step`).
+"""The single-device train step as a CUDA graph, captured once and
+replayed (`train/loop.make_train_step`).
 
-A call of the step on a CUDA device goes one of four ways (`GraphCache`):
+A step holds one graph at most, in its `Slot`, and a call of the step on a
+CUDA device goes one of four ways:
 
   * "warmup": the first `WARMUP` calls of a key run eagerly on a side
     stream, as `torch.cuda.graph` requires (lazy initialisation, Adam's
@@ -12,13 +13,21 @@ A call of the step on a CUDA device goes one of four ways (`GraphCache`):
     optimizer update and the auxiliary update) into a `torch.cuda.CUDAGraph`
     and replays it once, so that the call is one real update like the
     others;
-  * "replay": later calls copy the batch's device tensors into the static
-    buffers (`copy_`, device to device) and replay the graph;
-  * "eager": every call of a new key once `limit` graphs are held (0:
-    every call, the eager twin the tests hold replays against), and every
-    call of a step whose capture failed or whose optimizer cannot be
-    captured (each logged once).  A call due for capture while a profiler
-    session records, or before Adam's state exists, is one more warm-up.
+  * "replay": later calls of that key copy the batch's device tensors into
+    the static buffers (`copy_`, device to device) and replay the graph;
+  * "eager": every call of another key once the graph is held, and every
+    call of a step whose slot is `eager`: the eager twin the tests hold
+    replays against, a step whose capture failed or whose optimizer cannot
+    be captured (each logged once), and a step off CUDA.  A call due for
+    capture while a profiler session records, or before Adam's state
+    exists, is one more warm-up.
+
+Until the graph is held the slot follows the key of the latest call: a
+call of another key starts the warm-ups over.  `train()` batches with
+`drop_remainder` and compacts the batches of a corpus alike
+(`parallel.mesh.compact_batch`), so it gives one key, as the benchmark's
+cell does; a batch whose waves keep float32 among int16 ones would be a
+second key, and runs eagerly.
 
 The key (`graph_key`) holds what the captured step reads from the host:
 the placed tensors' names, shapes and dtypes, the learning rate (which
@@ -45,12 +54,6 @@ import torch
 
 from avsi_torch.ops import _build
 
-# Graphs a step keeps, one per batch key; later keys run eagerly.  `train()`
-# batches with `drop_remainder` and compacts the batches of a corpus alike
-# (`parallel.mesh.compact_batch`), so it gives one key, as the benchmark's
-# cell does; a batch whose waves keep float32 among int16 ones would be a
-# second key, and runs eagerly.
-LIMIT = 1
 WARMUP = 2  # eager calls of a key before its capture
 
 
@@ -60,34 +63,33 @@ def graph_key(state, dev: dict, gen, rate: float) -> tuple:
             tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(dev.items())))
 
 
-class GraphCache:
-    """The route of each call by its key, and the graphs held (at most
-    `limit`).  Plain Python: it runs and is tested without a device."""
+class Slot:
+    """A step's one graph (`graph`, a `Captured`, or None), the key it
+    serves and that key's warm-ups so far; `eager` sends every call eager.
+    Plain Python: it runs and is tested without a device."""
 
-    def __init__(self, limit: int = LIMIT, warmup: int = WARMUP):
-        self.limit, self.warmup = limit, warmup
-        self.graphs: dict = {}
-        self._calls: dict = {}  # key -> eager warm-up calls so far
+    def __init__(self):
+        self.eager = False
+        self.key = None
+        self.graph = None
+        self.calls = 0
 
     def route(self, key) -> str:
         """"replay", "capture", "warmup" or "eager" for this call of `key`."""
-        if key in self.graphs:
-            return "replay"
-        if len(self.graphs) >= self.limit:
+        if self.eager:
             return "eager"
-        n = self._calls.get(key, 0)
-        if n >= self.warmup:
+        if self.graph is not None:
+            return "replay" if key == self.key else "eager"
+        if key != self.key:
+            self.key, self.calls = key, 0
+        if self.calls >= WARMUP:
             return "capture"
-        self._calls[key] = n + 1
+        self.calls += 1
         return "warmup"
 
-    def add(self, key, graph) -> None:
-        self._calls.pop(key, None)
-        self.graphs[key] = graph
-
-    def drop(self, key) -> None:
-        self.graphs.pop(key, None)
-        self._calls.pop(key, None)
+    def drop(self) -> None:
+        """Forget the graph: its key warms up anew."""
+        self.graph, self.calls = None, 0
 
 
 def _leaves(state) -> list:

@@ -205,6 +205,20 @@ def _stats_on(stats: tuple, device) -> tuple:
     return tuple(torch.as_tensor(np.asarray(s), dtype=torch.float32).to(device) for s in stats)
 
 
+def _update(model, config: dict, state: state_lib.TrainState, out: dict,
+            summed: tuple = ()) -> None:
+    """Both steps' last phase, `train.optimizer`: every leaf's gradient (a
+    zero one where the loss did not reach, `state.fill_grads`), summed over
+    a job's ranks in one `all_reduce` with the tensors `summed`, one
+    optimizer update, then the model's auxiliary update from the forward's
+    `out` into the same leaves."""
+    with profiling.span("train.optimizer"):
+        distributed.all_sum_tensors(state_lib.fill_grads(state) + list(summed))
+        state_lib.apply_gradients(state, config)
+        if model.apply_aux_update is not None:
+            model.apply_aux_update(state.params, out)
+
+
 def make_train_step(model, config: dict, stats: tuple, device,
                     mesh: mesh_lib.Mesh | None = None):
     """Step `(state, batch, gen) -> losses` over a `Placed` batch (or a host
@@ -213,11 +227,11 @@ def make_train_step(model, config: dict, stats: tuple, device,
     (batch-norm running statistics) into the same leaves.  The gradients
     stay on the params' `.grad` until the next step.
 
-    On a CUDA device the step is captured into a CUDA graph per batch key
-    and replayed (`train/graphs.py`), after `graphs.WARMUP` eager calls of
-    a key; `train_step.graphs` is its `GraphCache` (None off CUDA), whose
-    `limit = 0` makes every call eager.  Every call is one update, and the
-    returned losses are the caller's to keep.
+    On a CUDA device the step is captured into a CUDA graph and replayed
+    (`train/graphs.py`), after `graphs.WARMUP` eager calls of its batch
+    key; `train_step.slot` is its `graphs.Slot`, and `slot.eager = True`
+    makes every call eager (off CUDA it is set).  Every call is one update,
+    and the returned losses are the caller's to keep.
 
     Under a profiler session the step records its spans
     (`utils/profiling.span`): `train.step` (the step span, whose step id is
@@ -234,7 +248,8 @@ def make_train_step(model, config: dict, stats: tuple, device,
         return _sharded_step(model, config, stats, device, mesh)
     stats_t = _stats_on(stats, device)
     af = int(config["audio_feat_dim"])
-    cache = graphs_lib.GraphCache() if torch.device(device).type == "cuda" else None
+    slot = graphs_lib.Slot()
+    slot.eager = torch.device(device).type != "cuda"
 
     def phases(state: state_lib.TrainState, dev: dict, gen) -> dict:
         with profiling.span("train.forward"):
@@ -243,10 +258,7 @@ def make_train_step(model, config: dict, stats: tuple, device,
             ldict = model.losses(out, dev, config)
         with profiling.span("train.backward"):
             ldict["loss"].backward()
-        with profiling.span("train.optimizer"):
-            state_lib.apply_gradients(state, config)
-            if model.apply_aux_update is not None:
-                model.apply_aux_update(state.params, out)
+        _update(model, config, state, out)
         return {k: v.detach() for k, v in ldict.items()}
 
     def graphed(state, placed: Placed, gen) -> dict:
@@ -254,57 +266,57 @@ def make_train_step(model, config: dict, stats: tuple, device,
 
     def off(why: str) -> None:
         """Every later call eager; said once."""
-        cache.limit = 0
-        cache.graphs.clear()
+        slot.eager = True
+        slot.drop()
         print(f"# train step: CUDA graphs off, every step eager ({why})", flush=True)
 
-    def route(state, batch: Placed, gen) -> tuple:
-        key = graphs_lib.graph_key(state, batch.dev, gen,
-                                   state_lib.learning_rate(config, state.step))
-        how = cache.route(key)
-        if how == "replay" and not cache.graphs[key].holds(state):
-            cache.drop(key)  # the state's tensors were replaced: start the key anew
-            how = cache.route(key)
-        if how in ("warmup", "capture"):
-            why = graphs_lib.uncapturable(state)
-            if why:
-                off(why)
-                return "eager", key
-        if how == "capture" and (profiling.recording() or graphs_lib.unready(state)):
-            how = "warmup"  # no capture under a profiler, nor of Adam's first step
-        return how, key
-
-    def capture(state, batch: Placed, gen, key) -> dict:
+    def capture(state, batch: Placed, gen) -> dict:
         try:
             held = graphs_lib.capture(graphed, state, batch, gen)
         except Exception as e:  # e.g. a host read inside the step, which capture refuses
             off(f"capture failed: {type(e).__name__}: {e}")
             state.optimizer.zero_grad(set_to_none=True)
             return graphed(state, batch, gen)
-        cache.add(key, held)
+        slot.graph = held
         return held.replay(state)
+
+    def routed(state, batch: Placed, gen):
+        """Decide this call's way and ready its input (inside `train.input`);
+        returns the rest of the call."""
+        how = "eager"
+        if not slot.eager:
+            key = graphs_lib.graph_key(state, batch.dev, gen,
+                                       state_lib.learning_rate(config, state.step))
+            if slot.graph is not None and key == slot.key and not slot.graph.holds(state):
+                slot.drop()  # the state's tensors were replaced: the key starts anew
+            how = slot.route(key)
+            why = graphs_lib.uncapturable(state) if how in ("warmup", "capture") else None
+            if why:
+                off(why)
+                how = "eager"
+            elif how == "capture" and (profiling.recording() or graphs_lib.unready(state)):
+                how = "warmup"  # no capture under a profiler, nor of Adam's first step
+        if how == "replay":
+            held = slot.graph
+            held.load(batch.dev)
+            return lambda: held.replay(state)
+        if how == "capture":
+            return lambda: capture(state, batch, gen)
+        dev = step_input(batch, af)
+        state.optimizer.zero_grad(set_to_none=True)
+        if how == "warmup":
+            return lambda: graphs_lib.on_side_stream(phases, device, state, dev, gen)
+        return lambda: phases(state, dev, gen)
 
     def train_step(state: state_lib.TrainState, batch, gen) -> dict:
         with profiling.span("train.step", step=state.step):
             with profiling.span("train.input"):
                 if not isinstance(batch, Placed):
                     batch = place(batch, device)
-                how, key = route(state, batch, gen) if cache is not None else ("eager", None)
-                if how == "replay":
-                    held = cache.graphs[key]
-                    held.load(batch.dev)
-                elif how != "capture":
-                    dev = step_input(batch, af)
-                    state.optimizer.zero_grad(set_to_none=True)
-            if how == "replay":
-                return held.replay(state)
-            if how == "capture":
-                return capture(state, batch, gen, key)
-            if how == "warmup":
-                return graphs_lib.on_side_stream(phases, device, state, dev, gen)
-            return phases(state, dev, gen)
+                rest = routed(state, batch, gen)
+            return rest()
 
-    train_step.graphs = cache
+    train_step.slot = slot
     return train_step
 
 
@@ -323,8 +335,8 @@ def _sharded_step(model, config: dict, stats: tuple, device, mesh: mesh_lib.Mesh
     dropout mask, each from a copy of `gen` at the step's start, and for
     batch norm the shards in lockstep), and the backward.  The gradients
     and the losses, summed over the shards by autograd, are summed over the
-    ranks in one `all_reduce`, then the optimizer updates the (possibly
-    model-sharded) leaves."""
+    ranks in one `all_reduce` (`_update`), then the optimizer updates the
+    (possibly model-sharded) leaves."""
     shard_devs = mesh.data_devices if mesh is not None else [torch.device(device)]
     stats_on = {d: _stats_on(stats, d) for d in set(shard_devs)}
     af = int(config["audio_feat_dim"])
@@ -365,15 +377,7 @@ def _sharded_step(model, config: dict, stats: tuple, device, mesh: mesh_lib.Mesh
             keys = list(results[0][1])
             losses = torch.stack([sum(ld[key].detach().to(device) for _, ld in results)
                                   for key in keys])
-            with profiling.span("train.optimizer"):  # with the gradients' all-reduce
-                leaves = [p for g in state.optimizer.param_groups for p in g["params"]]
-                for p in leaves:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                distributed.all_sum_tensors([p.grad for p in leaves] + [losses])
-                state_lib.apply_gradients(state, config)
-                if model.apply_aux_update is not None:
-                    model.apply_aux_update(state.params, results[0][0])
+            _update(model, config, state, results[0][0], (losses,))
             return dict(zip(keys, losses))
 
     return train_step

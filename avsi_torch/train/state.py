@@ -141,14 +141,23 @@ def create_train_state(params: dict, config: dict, trainable: dict | None = None
                       masked=trainable is not None)
 
 
-def apply_gradients(state: TrainState, config: dict) -> None:
-    """One optimizer update from the leaves' `.grad`, at this count's rate.
-    A leaf the loss did not reach gets a zero gradient, as in optax (its
-    moments and weight decay still move it)."""
+def fill_grads(state: TrainState) -> list:
+    """The leaves' gradients, in the optimizer's order, once the loss's
+    backward has run: a leaf the loss did not reach gets a zero gradient,
+    as in optax (its moments and weight decay still move it)."""
+    grads = []
     for group in state.optimizer.param_groups:
-        group["lr"] = learning_rate(config, state.step)
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    return grads
+
+
+def apply_gradients(state: TrainState, config: dict) -> None:
+    """One optimizer update from the leaves' `.grad` (`fill_grads` gives
+    every leaf one), at this count's rate."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = learning_rate(config, state.step)
     state.optimizer.step()
     state.step += 1

@@ -9,37 +9,28 @@ Phases, in order; any failure exits non-zero:
   1. card: torch version, device name, `nvidia-smi` name and power limit;
   2. build: the CUDA kernels from `avsi_torch/csrc/` (nvcc, sm_90a, one
      process per source, in parallel);
-  3. kernels vs their plain PyTorch versions at the flagship shapes, f32
-     and bf16, with stated tolerances, at every batch the kernel is timed
-     at (K1/K2 at B=8 and 32, serving and validation; K3/K4 at B=8, 32 and
+  3. each kernel against its plain PyTorch version at the flagship shapes,
+     f32 and bf16, with stated tolerances, at every batch it is timed at
+     (K1/K2 at B=8 and 32, serving and validation; K3/K4 at B=8, 32 and
      128, 32 being the training path's; K5 at the streaming window W=24
      for one stream, B=1, and a fleet, B=16, from random carries; K6 at
-     T=250, B=8 and 32); K3, K5 and K6 bit for bit equal where their
-     functions coincide (K5 from zero carries at W=250 is K3, K6 is K3's
-     h streams), B=8 and 32; K3 against K1's recurrence given the xw K1's
-     projection computes (one-hot input, so the projection is exact), on
-     one plan, B=8; K1, K3 and K5 at layers wider than a CTA holds whole
-     (f32 H=512, bf16 H=800: part of each wh slice read from global
-     memory), B=8, timed too, and K4 behind K3 there; and `BiLSTMLayer`'s
-     four gradients on the GPU against the same Function on the CPU, B=8
-     and 32;
-  4. times (CUDA events, after a warm-up) on the same inputs: each kernel,
+     T=250, B=8 and 32).  The `gpu` tests (`tests/test_torch_gpu.py`)
+     hold the kernels' other cases: K3/K5/K6 bit for bit where they
+     coincide, K3 against K1's recurrence, layers wider than a CTA holds
+     whole, `BiLSTMLayer`'s gradients against the CPU;
+  4. times on the same inputs (CUDA events, after a warm-up): the kernel,
      its plain version, its bound (the larger of bytes over memory
      bandwidth and operations over peak rate) and a cuDNN yardstick
      (`torch.nn.LSTM`, timed here only; the port never calls it), K1 and
-     K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed);
-     K1 under both cluster sizes at B=8 and 32, K1 and K3 under both batch
-     tiles at B=128, K4 with dWh's depth in the rule's chunks, half and
-     twice as many, at B=32 and 128; plus the 3-layer stack; K1 at the
-     input widths of the recognition and two-step paths (D = 80, 136, 216,
-     240 and 393 at T = 84 and 250, B=8, f32 and bf16), held against its
-     plain version and timed the same way; the CTC kernel (`csrc/ctc.cu`)
-     at the flagship's train step (B=8 and 32, T=250, 34 classes, labels
-     padded to 50) and the ASR's under frame_stack 3 (B=8, T=84): loss
-     and gradient on feasible rows against `F.ctc_loss` on the card, on
-     infeasible rows against the plain version (`_ctc_loss_optax`) in
-     float64 on the CPU, timed beside that plain version on the card,
-     `F.ctc_loss` and its bound;
+     K2 against it at B=8 and 32, f32 and bf16 (8 comparisons, printed); K1 at the input widths of the recognition and
+     two-step paths (D = 80, 136, 216, 240 and 393 at T = 84 and 250, B=8,
+     f32 and bf16), held against its plain version and timed the same way;
+     the CTC kernel (`csrc/ctc.cu`) at the flagship's train step (B=8 and
+     32, T=250, 34 classes, labels padded to 50) and the ASR's under
+     frame_stack 3 (B=8, T=84): loss and gradient on feasible rows against
+     `F.ctc_loss` on the card, on infeasible rows against the plain version
+     (`_ctc_loss_optax`) in float64 on the CPU, timed beside that plain
+     version on the card, `F.ctc_loss` and its bound;
   5. serving path: a flagship `av-blstm-ssnn-ctc` checkpoint (net_dim
      [250, 250, 250], random weights from a seed) served by
      `avsi_torch.serve.serve` on the GPU; 16 /enhance requests of 48,000
@@ -75,6 +66,15 @@ Phases, in order; any failure exits non-zero:
      own step, the stream opened before the reloads equal to a CPU stream of
      the first checkpoint; a `/reload` of another geometry answers 400 and
      serving goes on;
+ 8b. the data corpus, with the port alone, before the training phase
+     (whose ASR judge normalizes with its log-mel stats): `make_fixture`
+     writes a corpus of 3 s utterances of 2 speakers (512 training, 64
+     validation, 16 test), `group_tfrecords` groups the training split by
+     16, and `compute_mean_std_features` computes its 257-bin spec and
+     80-bin fbanks stats; the native loader's batches (the port's own
+     build of `native/avsi_loader.cc`) equal the Python codec's bit for
+     bit, on the single-record files and on 4 grouped ones, with the parse
+     rates;
   9. training path: a fixed-mode TFRecord corpus written with the port's
      codec (96 training + 32 validation utterances of 48,000 samples),
      `avsi_torch.train.loop.train` on the flagship at batch 32 for 2 epochs
@@ -87,7 +87,8 @@ Phases, in order; any failure exits non-zero:
      of 32.  Launch counts are of kernels run: a replay of the train
      step's CUDA graph (`train/graphs.py`) counts the kernels its capture
      recorded;
- 9b. the train step's CUDA graph: the flagship step (B=8, T=250) eagerly
+ 9b. the train step's CUDA graph (`step.slot.eager = True` makes the
+     eager twin): the flagship step (B=8, T=250) eagerly
      and replayed, 240 calls each in alternating blocks on the same
      batches from the same weights (ms a step, utterances/s, the host's ms
      a call in the blocks and alone on an idle card; both states bit for
@@ -143,30 +144,7 @@ Phases, in order; any failure exits non-zero:
      for `unet`, the card's int16 against the CPU's (relative L2 1e-3);
      then the generic U-Net's `Trainer` (8 iterations of 8 x 124 x 124)
      against the CPU;
- 11c. the data path, with the port alone, before the training phase (whose
-     ASR judge normalizes with its log-mel stats): `make_fixture` writes a
-     corpus of 3 s utterances of 2 speakers (512 training, 64 validation,
-     16 test), `group_tfrecords` groups the training split by 16, and
-     `compute_mean_std_features` computes its 257-bin spec and 80-bin
-     fbanks stats; the native loader's batches (the port's own build of
-     `native/avsi_loader.cc`) equal the Python codec's bit for bit, on the
-     single-record files and on 4 grouped ones, with the parse rates; the
-     flagship trains 3 epochs at B=32, f32, on the grouped corpus, three
-     runs from one seed: (a) the Python codec, (b) the native loader, (c)
-     the native loader with `device_cache_corpus = 1`.  (a) and (b) agree
-     throughout and (c)'s epoch 0 equals (a)'s, bit for bit where the
-     step is deterministic on the card, else within the spread of a second
-     run of (a), measured and printed; native parses none in (a), some in
-     (b) and (c); (c) logs its cache line, holds at least the bytes it
-     reports in device memory, and its cached batches equal, after epoch 2,
-     the epoch-0 batches placed anew from the same files (hashes); s/step
-     median and mean and each epoch's first step per run, the cache's MB
-     and its projection to GRID's 29k training utterances, a batch's
-     upload bytes and the host ms to place it, uncompacted and compacted.
-     Var mode: the test split's
-     sample directories as var-mode records (`create_dataset`), then
-     `mask_app(tfrecord_mode="var")`, its wavs equal to the fixed mode's;
- 11d. the command line, in-process through `avsi_torch.cli.main` after the
+ 11c. the command line, in-process through `avsi_torch.cli.main` after the
      U-Net phases: `fixture` (3 s utterances, 2 speakers, 16 / 4 / 8),
      `audio_preprocessing`, `training` of the flagship at 3 x 250, f32,
      batch 8, one epoch (K3 and K4 6 launches each, K1 1 and K2 2 for
@@ -178,7 +156,7 @@ Phases, in order; any failure exits non-zero:
      `evaluation_asr` CSVs equal; seconds per scored utterance), `python -m
      avsi_torch --help` in a subprocess and `import_tf` raising
      ImportError naming tensorflow where it is not installed;
- 11e. the parallel layer, after the command line, flagship 3 x 250, f32,
+ 11d. the parallel layer, after the command line, flagship 3 x 250, f32,
      on meshes that repeat the one card and ranks that share it ("parallel:"
      lines, the phase's wall): (1) 3 data-parallel train steps of 32 over
      [cuda:0, cuda:0] (2 x 16, dropout 0.3) against the one-device steps
@@ -196,22 +174,24 @@ Phases, in order; any failure exits non-zero:
      of the CPU's; seconds per step), then one NCCL rank through `python
      -m avsi_torch training --coordinator ... --num_processes 1
      --process_id 0`;
- 12. profiles, after every host-side figure above was timed (host time
-     reads slower after profiler sessions in the same process): one
-     serving step (3 projection GEMMs and 3 cluster recurrences), K1's and
-     K2's launch plans at B=8 and 32, f32 and bf16, and one K1 and one K2
-     call profiled at each (the projection GEMM and the cluster recurrence
-     apart), then the requests timed again after those 9 sessions; one
-     window step (the second of a whole fleet run) and one push of a live
-     stream that completes a window; one plain `infer()` run and each
-     lever's device work on a batch of 8; one train step (eager: no
-     capture under a profiler); one replayed train step; one LC train
-     step of 8; one K4 call at B=8, 32 and 128, f32 and bf16, its walk and
-     its dWh apart; one ASR train step; one siasr batch; one U-Net train
-     step of 32 and one U-Net `infer()` batch of 8, each model; each
-     data-path run's traced step (`profile_steps = 1`; (c) a second call
-     on its filled cache): the idle share, and no batch-sized
-     host-to-device copy in the cached step;
+ 12. the data path, last: the flagship trains 3 epochs at B=32, f32, on
+     the grouped data corpus (8b), three runs from one seed: (a) the Python
+     codec, (b) the native loader, (c) the native loader with
+     `device_cache_corpus = 1`.  (a) and (b) agree throughout and (c)'s
+     epoch 0 equals (a)'s, bit for bit where the step is deterministic on
+     the card, else within the spread of a second run of (a), measured and
+     printed; native parses none in (a), some in (b) and (c); (c) logs its
+     cache line, holds at least the bytes it reports in device memory, and
+     its cached batches equal, after epoch 2, the epoch-0 batches placed
+     anew from the same files (hashes); s/step median and mean and each
+     epoch's first step per run, the cache's MB and its projection to
+     GRID's 29k training utterances, a batch's upload bytes and the host ms
+     to place it, uncompacted and compacted.  Var mode: the test split's
+     sample directories as var-mode records (`create_dataset`), then
+     `mask_app(tfrecord_mode="var")`, its wavs equal to the fixed mode's.
+     Then a step from (c)'s filled cache traced (`profile_steps = 1`): no
+     host-to-device copy of more than an eighth of a compacted batch.  The
+     process's only profiler session: host time reads slower after one;
  13. one JSON line of kernel figures (K1-K6, each with its launches on its
      path; K6 is on no path of the system and shows 0), the `nvidia-smi`
      card line, and a last line `{"ok": true, "device": {...}}`.
@@ -224,7 +204,6 @@ from __future__ import annotations
 
 import contextlib
 import csv
-import dataclasses
 import functools
 import gc
 import hashlib
@@ -258,11 +237,11 @@ from avsi_torch.infer import inpaint, masking, siasr, streaming  # noqa: E402
 from avsi_torch.models import blstm, registry, unet_generic  # noqa: E402
 from avsi_torch.ops import _build, lstm_fused, lstm_train, lstm_window  # noqa: E402
 from avsi_torch.ops import ctc as ctc_ops  # noqa: E402
-from avsi_torch.ops import passthrough, postfilter, stft  # noqa: E402
-from avsi_torch.parallel import distributed  # noqa: E402
+from avsi_torch.ops import stft  # noqa: E402
 from avsi_torch.parallel import mesh as mesh_lib  # noqa: E402
 from avsi_torch.serve import InpaintingService, serve  # noqa: E402
 from avsi_torch.train import checkpoints  # noqa: E402
+from avsi_torch.train import graphs as train_graphs  # noqa: E402
 from avsi_torch.train import loop as train_loop  # noqa: E402
 from avsi_torch.train import state as train_state  # noqa: E402
 from avsi_torch.utils import wav as wavio  # noqa: E402
@@ -315,7 +294,6 @@ KERNELS = {  # name -> (tag, TPU kernel it replaces, source, batch of its main p
 SERVING, TRAINING = ("bilstm_fused_proj", "bilstm_fused_proj2"), (
     "bilstm_recurrence_train", "bilstm_recurrence_bwd")
 WINDOW = ("bilstm_recurrence_carry", "bilstm_recurrence")  # lstm_window's
-GATE_MAJOR = ("bilstm_recurrence_train", *WINDOW)  # the TPU layout of xw: no xw ring
 BATCHES = {"bilstm_fused_proj": (8, 32), "bilstm_fused_proj2": (8, 32),
            "bilstm_recurrence_train": (8, 32, 128), "bilstm_recurrence_bwd": (8, 32, 128),
            "bilstm_recurrence_carry": (1, FLEET), "bilstm_recurrence": (8, 32)}
@@ -488,30 +466,6 @@ def cudnn_ms(name: str, inp: dict, batch: int, dtype) -> float:
 
 # ------------------------------------------------------------ phases
 
-def check_layer_grads(batch: int) -> None:
-    """Phase 3: `BiLSTMLayer` (K3 + K4 + the products around them) on the
-    GPU against the same Function on the CPU (plain versions), f32, layer 1
-    of the flagship: each of the four gradients within relative L2 1e-4
-    (f32 sums in another order over 250 steps)."""
-    gen = torch.Generator().manual_seed(3)
-    p = {"wx": (torch.rand(2, D1, 4 * H, generator=gen) * 2 - 1) * H ** -0.5,
-         "wh": (torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5,
-         "b": 0.1 * torch.randn(2, 4 * H, generator=gen)}
-    x = torch.randn(batch, T, D1, generator=gen)
-    dy = torch.randn(batch, T, 2 * H, generator=gen)
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
-        xd = x.to(dev).requires_grad_()
-        (lstm_train.bilstm_layer_train(pd, xd) * dy.to(dev)).sum().backward()
-        grads[dev] = {"x": xd.grad.cpu(), **{k: pd[k].grad.cpu() for k in ("wx", "wh", "b")}}
-    rel = {k: ((grads["cuda"][k] - w).norm() / w.norm()).item() for k, w in grads["cpu"].items()}
-    print(f"check BiLSTMLayer grads, GPU vs CPU (B={batch}, f32): relative L2 "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (tol 1e-4)", flush=True)
-    if max(rel.values()) > 1e-4:
-        fail(f"BiLSTMLayer gradients on the GPU disagree with the CPU at B={batch}: {rel}")
-
-
 def check_and_time_kernels() -> tuple[dict, dict]:
     """Phases 3 and 4, per kernel, batch and dtype, on one set of inputs:
     the kernel against its plain version (fails on disagreement), then the
@@ -546,130 +500,6 @@ def check_and_time_kernels() -> tuple[dict, dict]:
                       f"cuDNN {library_ms:.3f} ms{note}", flush=True)
                 del inp, got
     return errs, rows
-
-
-def check_coincide() -> None:
-    """Phase 3: one body, three instances.  K5 from zero carries over a
-    whole utterance (W=T=250) writes K3's four outputs bit for bit, and K6
-    K3's two h streams, f32 and bf16, at B=8 and 32 (one plan per batch)."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for batch in (8, 32):
-            inp = kernel_inputs("bilstm_recurrence_train", batch, dtype, seed=9)
-            k3 = lstm_train.bilstm_recurrence_train(inp["xw"], inp["wh"])
-            k6 = lstm_window.bilstm_recurrence(inp["xw"], inp["wh"])
-            zero = torch.zeros(2, 2, batch, H, device="cuda")
-            k5 = lstm_window.bilstm_recurrence_carry(inp["xw"], inp["wh"], zero)
-            torch.cuda.synchronize()
-            same = (all(torch.equal(a, b) for a, b in zip(k3[:2], k6))
-                    and all(torch.equal(a, b) for a, b in zip(k3, k5)))
-            print(f"check K3/K5/K6 bit-equal where they coincide ({str(dtype)[6:]}, T=250, "
-                  f"B={batch}): {same}", flush=True)
-            if not same:
-                fail(f"K3, K5 and K6 differ where their functions coincide ({dtype}, B={batch})")
-
-
-def check_k3_against_k1(batch: int = 8) -> None:
-    """Phase 3: one body for K1 and K3.  K3 given the parity-cast xw that
-    K1's projection computes writes K1's h streams, T=250, f32 and bf16,
-    both on the plan of one batch.  K1's input is one-hot (row (t, b) picks
-    row t*B + b of wx, zero bias), so its projection is exact and K3's xw is
-    wx laid out in walk order.  Expected: 0 or the last bit; fails over
-    TOL."""
-    gen = torch.Generator().manual_seed(11)
-    for dtype in (torch.float32, torch.bfloat16):
-        d = T * batch
-        x = torch.eye(d, device="cuda").reshape(T, batch, d).to(dtype)
-        wx = ((torch.rand(2, d, 4 * H, generator=gen) * 2 - 1) * 1.5).cuda().to(dtype)
-        wh = ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * H ** -0.5).cuda().to(dtype)
-        k1 = lstm_fused.bilstm_fused_proj(x, wx, torch.zeros(2, 4 * H, device="cuda"), wh)
-        xw = torch.stack([wx[0].reshape(T, batch, 4 * H), wx[1].reshape(T, batch, 4 * H).flip(0)],
-                         dim=1).contiguous()
-        k3 = lstm_train.bilstm_recurrence_train(xw, wh)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(k3[:2], k1))
-        plan, plan_k3 = (lstm_fused.launch_plan(H, batch, dtype, lstm_fused.device_sm_count(0),
-                                                gate_major=gm) for gm in (False, True))
-        if plan.c_args() != plan_k3.c_args():
-            fail(f"K1 and K3 take different plans at B={batch} ({dtype}): {plan}, {plan_k3}")
-        print(f"check K3 vs K1's recurrence on K1's projection ({str(dtype)[6:]}, T=250, "
-              f"B={batch}, plan {plan.c_args()}): max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}; "
-              f"bit-equal {err == 0})", flush=True)
-        if err > TOL[dtype]:
-            fail(f"K3 disagrees with K1's recurrence ({dtype}): {err}")
-
-
-def check_wide_layers(batch: int = 8) -> None:
-    """Phase 3: layers wider than a CTA holds whole (f32 H=512, bf16
-    H=800), where the plan keeps the first depth rows of each wh slice in
-    shared memory and the kernels read the rest from global memory.  K1,
-    K3 (T=250), K5 (W=24, random carries) and K4 behind K3 (its walk keeps
-    fewer rows resident than K3) at B=8 against their plain versions within
-    TOL (K4's dWh relative to its scale), and timed."""
-    gen = torch.Generator().manual_seed(17)
-
-    def u(*shape, scale):
-        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
-
-    sms = lstm_fused.device_sm_count(0)
-    for dtype, h in ((torch.float32, 512), (torch.bfloat16, 800)):
-        wh = u(2, h, 4 * h, scale=h ** -0.5).to(dtype)
-        x, wx = u(T, batch, D1, scale=2.0).to(dtype), u(2, D1, 4 * h, scale=D1 ** -0.5).to(dtype)
-        b = u(2, 4 * h, scale=0.1)
-        xw, xw5 = (u(t, 2, batch, 4 * h, scale=1.5).to(dtype) for t in (T, W))
-        hc0 = torch.stack([torch.tanh(u(2, batch, h, scale=2.0)), u(2, batch, h, scale=2.0)])
-        *streams, gates = lstm_train.bilstm_recurrence_train(xw, wh)
-        k4_in = (gates, wh, *streams, *(u(T, batch, h, scale=1.0).to(dtype) for _ in range(2)))
-        k3_plan = lstm_fused.launch_plan(h, batch, dtype, sms, gate_major=True)
-        runs = {
-            "K1": (lambda: lstm_fused.bilstm_fused_proj(x, wx, b, wh),
-                   lambda: lstm_fused.bilstm_fused_proj_plain(x, wx, b, wh),
-                   lstm_fused.launch_plan(h, batch, dtype, sms), "bilstm_fused_proj"),
-            "K3": (lambda: lstm_train.bilstm_recurrence_train(xw, wh),
-                   lambda: lstm_train.bilstm_recurrence_train_plain(xw, wh), k3_plan,
-                   "bilstm_recurrence_train"),
-            "K5": (lambda: lstm_window.bilstm_recurrence_carry(xw5, wh, hc0),
-                   lambda: lstm_window.bilstm_recurrence_carry_plain(xw5, wh, hc0), k3_plan,
-                   "bilstm_recurrence_carry"),
-            "K4": (lambda: lstm_train.bilstm_recurrence_bwd(*k4_in),
-                   lambda: lstm_train.bilstm_recurrence_bwd_plain(*k4_in),
-                   lstm_train.bwd_plan(h, batch, dtype, sms), "bilstm_recurrence_bwd"),
-        }
-        for tag, (fn, plain, plan, name) in runs.items():
-            err = max_err(name, fn(), plain())
-            ms = time_ms(fn, reps=5)
-            print(f"check wide {tag} H={h} {str(dtype)[6:]} B={batch}: plan {plan.c_args()}, "
-                  f"{plan.resident} of {-(-h // 16) * 16} depth rows resident, max_abs_err "
-                  f"{err:.3e} (tol {TOL[dtype]:.0e}), {ms:.3f} ms", flush=True)
-            if plan.resident >= -(-h // 16) * 16:
-                fail(f"{tag} at H={h} ({dtype}) holds its whole slice: not a wide plan")
-            if err > TOL[dtype]:
-                fail(f"{tag} at H={h} ({dtype}) disagrees with its plain version: {err}")
-
-
-def time_stack() -> None:
-    """The 3-layer flagship stack through K1+K2 against a 3-layer cuDNN
-    LSTM with the same f32 weights (time, and agreement as a cross-check)."""
-    gen = torch.Generator().manual_seed(5)
-    w = H ** -0.5
-    layers = [
-        {"wx": ((torch.rand(2, d, 4 * H, generator=gen) * 2 - 1) * w).cuda(),
-         "wh": ((torch.rand(2, H, 4 * H, generator=gen) * 2 - 1) * w).cuda(),
-         "b": (0.1 * torch.randn(2, 4 * H, generator=gen)).cuda()}
-        for d in (D1, 2 * H, 2 * H)
-    ]
-    lstm = cudnn_lstm(layers, D1)
-    for batch in (8, 32):
-        x = torch.randn(batch, T, D1, generator=gen).cuda()
-        xt = x.transpose(0, 1).contiguous()
-        with torch.no_grad():
-            ours = lstm_fused.blstm_stack_fused(layers, x)
-            ref = lstm(xt)[0].transpose(0, 1)
-            err = (ours - ref).abs().max().item()
-            ms = time_ms(lambda: lstm_fused.blstm_stack_fused(layers, x), reps=5)
-            ms_bf16 = time_ms(lambda: lstm_fused.blstm_stack_fused(layers, x, torch.bfloat16), reps=5)
-            lib = time_ms(lambda: lstm(xt), reps=10)
-        print(f"stack 3x250 B={batch}: K1+2xK2 f32 {ms:.3f} ms, bf16 {ms_bf16:.3f} ms; "
-              f"cuDNN nn.LSTM f32 {lib:.3f} ms; max_abs_err vs cuDNN {err:.2e}", flush=True)
 
 
 def write_checkpoint(d: str, seed: int = 0, net_dim=None) -> None:
@@ -733,8 +563,7 @@ def stop_server(server) -> None:
 
 def main_path(d: str, device: str = "cuda") -> dict:
     """Phase 5: serve the flagship on the GPU and answer /enhance requests;
-    time the request loop and the step behind it (this process has run no
-    profiler yet; `serving_profiles` profiles later).  Returns the launch
+    time the request loop and the step behind it.  Returns the launch
     counts of this path."""
     # defaults: micro_batch 8, phase_recon "gl", gl_iters 30
     server, url = start_server(d, device)
@@ -780,210 +609,6 @@ def main_path(d: str, device: str = "cuda") -> dict:
     finally:
         stop_server(server)
     return counts
-
-
-def serving_profiles(d: str) -> None:
-    """Phase 11 (the process's first profiler sessions): one serving step
-    profiled (3 projection GEMMs and 3 cluster recurrences), K1 and K2
-    calls profiled at each batch and dtype (`fused_plans_and_profiles`),
-    then the requests timed again, to show what profiler sessions leave
-    behind in the process's host time."""
-    server, url = start_server(d)
-    service = server.service
-    rng = np.random.RandomState(1)
-    waves = np.stack([request(rng)[0] for _ in range(service.micro_batch)]).astype(np.float32)
-    masks = np.ones((service.micro_batch, T_FRAMES), np.float32)
-    masks[:, GAP] = 0
-    try:
-        service.enhance_batch(waves, masks)
-        for attempt in (1, 2):
-            names = profile(f"one serving step of {service.micro_batch}",
-                            lambda: service.enhance_batch(waves, masks))
-            if fused_kernel_launches(names) == (3, 3):
-                break
-            # the trace has been seen to hold a single GEMM and recurrence
-            # record for the step; main_path's launch counters show all ran
-            print(f"profile: {fused_kernel_launches(names)} GEMM and recurrence records, not "
-                  f"(3, 3){'; profiling again' if attempt == 1 else ''}", flush=True)
-        else:
-            fail(f"the serving step ran {fused_kernel_launches(names)} projection GEMMs "
-                 "and cluster recurrences, not 3 and 3 (K1 + 2 x K2)")
-        fused_plans_and_profiles()
-        after = time_requests(url, rng, N_REQUESTS)[1]
-        print(f"serving path: after 9 profiler sessions (the step, then K1 and K2 at 2 "
-              f"batches x 2 dtypes), {N_REQUESTS / sum(after):.2f} requests/s (request "
-              f"wall {spread_ms(after)})", flush=True)
-    finally:
-        stop_server(server)
-
-
-def profile(label: str, fn, top: int = 12, cpu: bool = True) -> dict:
-    """Where one step's time goes: torch.profiler's device time per kernel
-    name, and the device's busy share of the step's wall time.  Returns the
-    launches per kernel name.  cpu=False records the device alone (a step
-    of tens of thousands of launches takes far less to trace)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch_profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    print(f"profile: {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * (1 - busy_ms / wall_ms):.0f}% idle), "
-          f"{sum(r[1] for r in rows)} kernel launches", flush=True)
-    for ms, count, key in rows[:top]:
-        print(f"profile:   {ms:8.2f} ms {count:6d}x  {key[:100]}", flush=True)
-    return {key: count for _, count, key in rows}
-
-
-def fused_kernel_launches(counts: dict) -> tuple[int, int]:
-    """Launches of K1/K2's projection GEMM and cluster recurrence among a
-    profile's kernel names."""
-    return (sum(n for k, n in counts.items() if "proj_gemm" in k),
-            sum(n for k, n in counts.items() if "rec_cluster" in k))
-
-
-def plans_compared(name: str, batch: int, other_plan, field: str, reps: int) -> None:
-    """Phase 4: kernel `name` at `batch`, f32 and bf16, under the plan
-    `launch_plan` takes on this card and under `other_plan(plan, dtype, batch)`,
-    timed here: the times behind the plan's rule, keyed by the plan `field`
-    that differs.  Each run is held against the plain version."""
-    tag, launch_plan = KERNELS[name][0], lstm_fused.launch_plan
-    sms = lstm_fused.device_sm_count(0)
-    try:
-        for dtype in (torch.float32, torch.bfloat16):
-            inp = kernel_inputs(name, batch, dtype)
-            want = run_kernel(name, inp, plain=True)
-            plan = launch_plan(H, batch, dtype, sms, gate_major=name in GATE_MAJOR)
-            times = {}
-            for p in (plan, other_plan(plan, dtype, batch)):
-                lstm_fused.launch_plan = lambda *args, p=p, **kw: p
-                err = max_err(name, run_kernel(name, inp), want)
-                if err > TOL[dtype]:
-                    fail(f"{tag} under {p} disagrees with its plain version: {err}")
-                times[(getattr(p, field), p.ctas, p.threads)] = time_ms(
-                    lambda: run_kernel(name, inp), reps=reps)
-            lstm_fused.launch_plan = launch_plan
-            print(f"plans compared {tag} B={batch} {str(dtype)[6:]}: "
-                  + ", ".join(f"{field} {v} ({ctas} CTAs of {threads} threads) {ms:.3f} ms"
-                              for (v, ctas, threads), ms in times.items())
-                  + " (the first is this card's plan)", flush=True)
-            del inp, want
-    finally:
-        lstm_fused.launch_plan = launch_plan
-
-
-def other_batch_tile(plan, dtype, batch: int, gate_major: bool):
-    """`plan` with the other batch tile and the deepest depth split that
-    fits a CTA there (16 rows: the split halves until the partial gates
-    fit; 8 rows: the plan of a card with an SM for every CTA of them)."""
-    if plan.btile == 16:
-        sms = 2 * -(-batch // 8) * plan.cluster
-        return lstm_fused.launch_plan(H, batch, dtype, sm_count=sms, gate_major=gate_major)
-    bf16, ksplit = dtype == torch.bfloat16, plan.ksplit
-
-    def smem(k):
-        return lstm_fused.rec_smem_bytes(H, plan.units, 16, k, bf16, plan.resident,
-                                         not gate_major)
-
-    while smem(ksplit) > lstm_fused.SMEM_PER_CTA:
-        ksplit //= 2
-    return dataclasses.replace(
-        plan, btile=16, ksplit=ksplit, threads=plan.threads // plan.ksplit * ksplit,
-        smem_bytes=smem(ksplit), clusters=2 * -(-batch // 16))
-
-
-def plan_rules_compared() -> None:
-    """Phase 4: K1 at B=8 and 32 under the cluster size its plan takes on
-    this card and under the other one, which the plan takes for a card of
-    another SM count (60: clusters of 8 at B=8; 256: clusters of 16 at
-    B=32); and K1 and K3 at B=128 under both batch tiles (a tile of 16 fits
-    the card in one wave of 128 CTAs; f32 K1 has room there only for half
-    the depth split, K3, with no xw ring, for all of it; a tile of 8 takes
-    256 CTAs, more than one wave)."""
-    for batch, other in ((8, 60), (32, 256)):
-        plans_compared("bilstm_fused_proj", batch,
-                       lambda plan, dtype, b, o=other: lstm_fused.launch_plan(H, b, dtype, o),
-                       "cluster", reps=20)
-    for name in ("bilstm_fused_proj", "bilstm_recurrence_train"):
-        plans_compared(name, 128, lambda plan, dtype, b, gm=name in GATE_MAJOR:
-                       other_batch_tile(plan, dtype, b, gm), "btile", reps=5)
-
-
-def dwh_splits_compared() -> None:
-    """Phase 4: K4 at B=32 and 128, f32 and bf16, with dWh's depth of T x B
-    rows cut into the chunks `lstm_train.dwh_splits` takes on this card and
-    into half and twice as many, each held against the plain version and
-    timed: the run behind the one rule K4 adds at these shapes (its walk
-    takes K3's plan as it is)."""
-    name, rule = "bilstm_recurrence_bwd", lstm_train.dwh_splits
-    sms = lstm_fused.device_sm_count(0)
-    try:
-        for batch in (32, 128):
-            for dtype in (torch.float32, torch.bfloat16):
-                inp = kernel_inputs(name, batch, dtype)
-                want = run_kernel(name, inp, plain=True)
-                rows, step = T * batch, lstm_train.DWH_ROWS
-                first = rule(T, batch, H, sms)[0]
-                times = {}
-                for n in (first, max(1, first // 2), 2 * first):
-                    rows_per = -(-(-(-rows // n)) // step) * step
-                    chunks = (-(-rows // rows_per), rows_per)
-                    lstm_train.dwh_splits = lambda *args, c=chunks: c
-                    err = max_err(name, run_kernel(name, inp), want)
-                    if err > TOL[dtype]:
-                        fail(f"K4 with dWh in {chunks} chunks disagrees with its plain version: {err}")
-                    times[chunks] = time_ms(lambda: run_kernel(name, inp), reps=5)
-                lstm_train.dwh_splits = rule
-                print(f"dWh chunks compared K4 B={batch} {str(dtype)[6:]}: "
-                      + ", ".join(f"{n} chunks of {r} rows {ms:.3f} ms"
-                                  for (n, r), ms in times.items())
-                      + " (the first is this card's rule)", flush=True)
-                del inp, want
-    finally:
-        lstm_train.dwh_splits = rule
-
-
-def k4_profiles() -> None:
-    """Phase 11: one K4 call profiled at each timed batch and dtype, so that
-    its walk (`rec_cluster_bwd`) and its dWh (the chunks' products and their
-    sum) show apart."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    name = "bilstm_recurrence_bwd"
-    for batch in BATCHES[name]:
-        for dtype in (torch.float32, torch.bfloat16):
-            inp = kernel_inputs(name, batch, dtype)
-            run_kernel(name, inp)
-            for attempt in range(3):
-                torch.cuda.synchronize()
-                with torch_profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
-                    run_kernel(name, inp)
-                    torch.cuda.synchronize()
-                rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-                        for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA]
-                walk = [r for r in rows if "rec_cluster_bwd" in r[0]]
-                dwh = [r for r in rows if "dwh_" in r[0]]
-                if walk and dwh:
-                    break
-            if not (walk and dwh):
-                print(f"profile: K4 B={batch} {str(dtype)[6:]}: the trace holds no walk or dWh "
-                      "record in 3 sessions; not measured", flush=True)
-                continue
-            print(f"profile: K4 B={batch} {str(dtype)[6:]}: walk {sum(r[2] for r in walk):.3f} ms "
-                  f"({sum(r[1] for r in walk)} launch), dWh {sum(r[2] for r in dwh):.3f} ms "
-                  f"(" + " + ".join(f"{'chunks' if 'partial' in r[0] else 'sum'} {r[2]:.3f}"
-                                    for r in dwh) + ")", flush=True)
-            del inp
 
 
 WALK_CALLS = 10  # profiled K3 + K4 calls per batch and dtype in `walk_record`
@@ -1057,15 +682,17 @@ def walk_record() -> dict:
                     break
             row.update({k: sum(v) / WALK_CALLS if v else None for k, v in times.items()})
             rows[f"{str(dtype)[6:]} B={batch}"] = row
-    ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4)
+    ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4, ("graph",))
     state, step = ways["graph"]
-    for k in range(train_loop.graphs_lib.WARMUP + 4):
+    for k in range(train_graphs.WARMUP + 4):
         step(state, placed[k % len(placed)], None)
     torch.cuda.synchronize()
     leaves = checkpoints.named_leaves(state.params)
     slots = [state.optimizer.state[leaves[k]][n] for k in sorted(leaves)
              for n in ("exp_avg", "exp_avg_sq", "step")]
-    return {"kernels": rows, "graphs": len(step.graphs.graphs),
+    one = getattr(step, "slot", None)  # None: a checkout from before the step's one slot
+    held = int(one.graph is not None) if one else len(step.graphs.graphs)
+    return {"kernels": rows, "graphs": held,
             "state": _digest(*(leaves[k] for k in sorted(leaves)), *slots)}
 
 
@@ -1113,35 +740,6 @@ def walk_ab(parent: str) -> None:
           flush=True)
     if not all(same.values()):
         fail(f"the change's K4 or train state differs from the parent's: {same}")
-
-
-def fused_plans_and_profiles() -> None:
-    """Phase 11: the launch plan K1 and K2 take at each timed batch and
-    dtype, and one K1 and one K2 call profiled at each, so the
-    projection's and the recurrence's device times show apart."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for batch in BATCHES["bilstm_fused_proj"]:
-        for dtype in (torch.float32, torch.bfloat16):
-            plan = lstm_fused.launch_plan(H, batch, dtype, sms)
-            print(f"plan K1/K2 H={H} B={batch} {str(dtype)[6:]}: {plan}, {plan.ctas} CTAs "
-                  f"of {sms} SMs", flush=True)
-            for name in SERVING:
-                inp = kernel_inputs(name, batch, dtype)
-                run_kernel(name, inp)
-                for attempt in (1, 2):
-                    names = profile(f"one {KERNELS[name][0]} {name} call, B={batch} "
-                                    f"{str(dtype)[6:]}", lambda: run_kernel(name, inp), top=2)
-                    if fused_kernel_launches(names) == (1, 1):
-                        break
-                    # the trace has been seen to fold the GEMM's record into the
-                    # recurrence's (one record, the two kernels' time); the launch
-                    # counters show both ran
-                    print(f"profile: {fused_kernel_launches(names)} GEMM and recurrence "
-                          f"records, not (1, 1){'; profiling again' if attempt == 1 else ''}",
-                          flush=True)
-                else:
-                    fail(f"{name} ran {names}, not one projection GEMM and one cluster "
-                         "recurrence")
 
 
 def cudnn_comparisons(rows: dict) -> None:
@@ -1326,29 +924,6 @@ def fleet_inputs(rng):
     return waves, masks, videos
 
 
-def profile_window_step(run, label: str, k: int = 1) -> None:
-    """Profile the k-th window step (from 0) of a whole `run` of the fleet:
-    `streaming._window_step_raw` is wrapped for that run, so the step has
-    the state and the planes the earlier steps left on the device."""
-    step, calls = streaming._window_step_raw, []
-
-    def wrapped(*args):
-        calls.append(None)
-        if len(calls) != k + 1:
-            return step(*args)
-        out = []
-        profile(label, lambda: out.append(step(*args)))
-        return out[0]
-
-    streaming._window_step_raw = wrapped
-    try:
-        run()
-    finally:
-        streaming._window_step_raw = step
-    if len(calls) <= k:
-        fail(f"the fleet run made {len(calls)} window steps; none profiled")
-
-
 def fleet_runner(d: str):
     """(run(device, params) -> the lockstep fleet's (waves, transcripts),
     the bundle's (config, stats, params on the GPU), the fleet's inputs)."""
@@ -1399,21 +974,6 @@ def fleet_path(d: str) -> dict:
     return counts
 
 
-def fleet_profiles(d: str) -> None:
-    """Phase 11: one window step inside a whole fleet run (the second of its
-    32), and one push of a live stream that completes exactly one window."""
-    run, (config, stats, params), (waves, masks, videos) = fleet_runner(d)
-    profile_window_step(lambda: run("cuda"), f"window step 2 of {N_WINDOWS} inside a "
-                        f"lockstep run of {FLEET} streams (W={W}; its fetch not included)")
-    inp = streaming.StreamingInpainter(config, stats, params, CHUNK, LOOK, transcript=True,
-                                       device="cuda")
-    n0 = (W - 1) * 192 + 384
-    inp.push(waves[0, :n0], masks[0, :W], videos[0, :W])
-    profile("one single-stream push completing one window (W=24)",
-            lambda: inp.push(waves[0, n0 : n0 + PUSH], masks[0, W : W + CHUNK],
-                             videos[0, W : W + CHUNK]))
-
-
 # ------------------------------------------------------------ offline path and levers
 
 def write_test_set(root: str) -> tuple[str, np.ndarray, np.ndarray]:
@@ -1444,12 +1004,12 @@ def read_wavs(out_dir: str, prefix: str) -> list[np.ndarray]:
                                               prefix + ".wav"))[1] for i in range(N_TEST)]
 
 
-def infer_path(d: str, root: str) -> tuple[np.ndarray, list]:
+def infer_path(d: str, root: str) -> None:
     """Phase 7: `inpaint.infer()` on the GPU plain, with passthrough and with
     gap attenuation, each against the same `infer()` on the CPU.
     Tolerances: mean losses rel err 1e-4, each int16 wav relative L2 1e-2
     (50 Griffin-Lim iterations carry f32 differences of the two devices'
-    sums, as `reference_check`).  Returns the test set's waves and gaps."""
+    sums, as `reference_check`)."""
     test_dir, waves, _ = write_test_set(root)
     gaps = [GAP if i % 2 == 0 else LONG_GAP for i in range(N_TEST)]
     out_dir = os.path.join(root, "enhanced")
@@ -1493,28 +1053,6 @@ def infer_path(d: str, root: str) -> tuple[np.ndarray, list]:
           f"133-frame gaps at most {quieter:.3f} of the plain rms", flush=True)
     if not kept or short > 1e-6 or quieter > 0.8:
         fail("the offline levers do not act as they should")
-    return waves, gaps
-
-
-def lever_profiles(waves: np.ndarray, gaps: list) -> None:
-    """Phase 11: the device time each lever adds to a batch of INFER_BATCH,
-    profiled: the gap attenuation of the predicted log-magnitude and the
-    passthrough blend of the waveform."""
-    masks = np.ones((INFER_BATCH, T_FRAMES, 257), np.float32)
-    for i in range(INFER_BATCH):
-        masks[i, gaps[i]] = 0.0
-    masks = torch.from_numpy(masks).cuda()
-    gen = torch.Generator().manual_seed(16)
-    out = {"prediction": torch.randn(INFER_BATCH, T_FRAMES, 257, generator=gen).cuda()}
-    stats = (torch.zeros(257).cuda(), (1 + torch.rand(257, generator=gen)).cuda())
-    wav = (3000 * torch.randn(INFER_BATCH, AUDIO_LEN, generator=gen)).cuda()
-    orig = torch.from_numpy(waves[:INFER_BATCH].astype(np.float32)).cuda()
-    postfilter.apply_gap_attenuation(out, {"masks": masks}, stats, alpha=0.5)
-    passthrough.known_region_passthrough(wav, orig, masks, 192)
-    profile(f"gap attenuation of a batch of {INFER_BATCH}", lambda: postfilter.apply_gap_attenuation(
-        out, {"masks": masks}, stats, alpha=0.5), top=4)
-    profile(f"passthrough blend of a batch of {INFER_BATCH}",
-            lambda: passthrough.known_region_passthrough(wav, orig, masks, 192), top=4)
 
 
 def levers_service_path(d: str, root: str) -> None:
@@ -1679,21 +1217,6 @@ def _train_step_setup(config: dict, device: str, params: dict, is_asr: bool = Fa
     return state, train_loop.make_train_step(model, config, stats, device)
 
 
-def profile_train_step(root: str, config: dict, label: str = "train step",
-                       cpu: bool = True, is_asr: bool = False) -> None:
-    """Where one train step at the config's batch goes (after one warm-up
-    step)."""
-    dm = DataManager(seed=0)
-    config = config_lib.check_trainconfiguration(config)
-    batch_size = int(config["batch_size"])
-    batch = next(iter(dm.batches(tfrecord.list_tfrecord_files(
-        os.path.join(root, "training-set")), batch_size)))
-    params = get_model(config, is_asr).init(torch.Generator().manual_seed(0), config)
-    state, step = _train_step_setup(config, "cuda", params, is_asr)
-    step(state, batch, None)
-    profile(f"one {label} of {batch_size}", lambda: step(state, batch, None), top=14, cpu=cpu)
-
-
 def train_reference_check(config: dict, batch_size: int, label: str = "flagship",
                           is_asr: bool = False) -> None:
     """One train step from the same params and batch (full width) on the
@@ -1731,9 +1254,9 @@ LC_STREAM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scr
 LC_GRAPH_REPEATS = 3
 
 
-def _graph_twins(config: dict, n_batches: int, seed: int = 0):
-    """A train state and step each way from the same weights: eager
-    (`step.graphs.limit = 0`) and graphed (`train/graphs.py`), over the
+def _graph_twins(config: dict, n_batches: int, ways=("eager", "graph")):
+    """A train state and step each of `ways` from the same weights: eager
+    (`step.slot.eager = True`) and graphed (`train/graphs.py`), over the
     same placed synthetic batches at the config's batch; the stats are the
     identity."""
     config = config_lib.check_trainconfiguration(dict(
@@ -1743,16 +1266,17 @@ def _graph_twins(config: dict, n_batches: int, seed: int = 0):
     model = registry.get_model(config["model"])
     stats = (np.zeros(config["audio_feat_dim"], np.float32),
              np.ones(config["audio_feat_dim"], np.float32))
-    flat = checkpoints.params_to_flat(model.init(torch.Generator().manual_seed(seed), config))
+    flat = checkpoints.params_to_flat(model.init(torch.Generator().manual_seed(0), config))
     b = int(config["batch_size"])
-    placed = [train_loop.place(synthetic_batch(config, b, seed=seed + k), "cuda")
+    placed = [train_loop.place(synthetic_batch(config, b, seed=k), "cuda")
               for k in range(n_batches)]
-    ways = {}
-    for way in ("eager", "graph"):
+    out = {}
+    for way in ways:
         state = train_state.create_train_state(checkpoints.params_from_flat(flat, "cuda"), config)
-        ways[way] = state, train_loop.make_train_step(model, config, stats, "cuda")
-    ways["eager"][1].graphs.limit = 0
-    return ways, placed, b
+        out[way] = state, train_loop.make_train_step(model, config, stats, "cuda")
+        if way == "eager":
+            out[way][1].slot.eager = True
+    return out, placed, b
 
 
 def _same_states(a, b) -> bool:
@@ -1788,9 +1312,9 @@ def train_graph_timed() -> None:
     ways, placed, b = _graph_twins(flagship_config(batch_size=8), 16)
     done = {}
     for way, (state, step) in ways.items():  # warm-ups and the capture
-        for k in range(train_loop.graphs_lib.WARMUP + 1):
+        for k in range(train_graphs.WARMUP + 1):
             step(state, placed[k], None)
-        done[way] = train_loop.graphs_lib.WARMUP + 1
+        done[way] = train_graphs.WARMUP + 1
     wall, host = {w: 0.0 for w in ways}, {w: 0.0 for w in ways}
     per = GRAPH_CALLS // GRAPH_BLOCKS
     for block in range(GRAPH_BLOCKS):
@@ -1817,7 +1341,7 @@ def train_graph_timed() -> None:
           f"eager {hms['eager'][0]:.3f} / {hms['eager'][1]:.3f}, replayed {hms['graph'][0]:.3f} / "
           f"{hms['graph'][1]:.3f}; states bit for bit equal: {same}; card {card_line()}",
           flush=True)
-    if not same or len(stepg.graphs.graphs) != 1:
+    if not same or stepg.slot.graph is None:
         fail("the replayed flagship train step disagrees with the eager one, or held no graph")
 
 
@@ -1830,7 +1354,7 @@ def lc_graph_measured() -> None:
     must end bit for bit equal."""
     config = config_lib.load_configfile(LC_STREAM_CONFIG)
     ways, placed, b = _graph_twins(config, 4)
-    first = train_loop.graphs_lib.WARMUP + 1
+    first = train_graphs.WARMUP + 1
     for way, (state, step) in ways.items():
         t0 = time.perf_counter()
         for k in range(first):
@@ -1839,7 +1363,7 @@ def lc_graph_measured() -> None:
         what = " (warm-ups, capture)" if way == "graph" else ""
         print(f"LC train step graph: {way} {first} calls{what} {time.perf_counter() - t0:.1f} s",
               flush=True)
-    captured = len(ways["graph"][1].graphs.graphs) == 1
+    captured = ways["graph"][1].slot.graph is not None
     n = 4
     rates = {w: [] for w in ways}
     for r in range(LC_GRAPH_REPEATS):
@@ -1859,16 +1383,6 @@ def lc_graph_measured() -> None:
           f"bit for bit equal: {same}; card {card_line()}", flush=True)
     if not same:
         fail("the replayed LC train step disagrees with the eager one")
-
-
-def profile_replayed_train_step() -> None:
-    """Where one replayed flagship train step (B=8) goes on the card: the
-    graph's kernels as the profiler sees them."""
-    ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4)
-    state, step = ways["graph"]
-    for k in range(train_loop.graphs_lib.WARMUP + 2):
-        step(state, placed[k], None)
-    profile("one replayed flagship train step of 8", lambda: step(state, placed[0], None), top=14)
 
 
 # ------------------------------------------------------------ LC training
@@ -2467,22 +1981,6 @@ def griffin_lim_divergence(netmodel: str, test_dir: str, label: str = "two-step"
         fail(f"the {label} infer step on the GPU disagrees with the CPU")
 
 
-def profile_siasr_batch(d: str, root: str, asr_dir: str) -> None:
-    """Where one siasr batch of INFER_BATCH goes (device work of the fused
-    step, Griffin-Lim 50, after a warm-up call)."""
-    si = inpaint.load_model_bundle(d, device="cuda")
-    asr_cfg, asr_stats, _, asr_params = inpaint.load_model_bundle(asr_dir, device="cuda",
-                                                                  is_asr=True)
-    step = siasr.make_siasr_step(si[2], si[0], si[1], asr_cfg, asr_stats, False, "gl", INFER_GL,
-                                 use_beam=True, device="cuda")
-    batch = next(iter(DataManager(seed=0).batches(
-        tfrecord.list_tfrecord_files(os.path.join(root, "test-set")), INFER_BATCH)))
-    cb = mesh_lib.compact_batch(batch)
-    step(si[3], asr_params, cb)
-    profile(f"one siasr batch of {INFER_BATCH} (SI + Griffin-Lim {INFER_GL} + ASR)",
-            lambda: step(si[3], asr_params, cb), top=12)
-
-
 # ------------------------------------------------------------ U-Net slice
 
 def unet_waves(rng, n: int) -> np.ndarray:
@@ -2834,7 +2332,8 @@ def unet_serve_path(netmodel: str, model: str) -> None:
     same step's float32 forward on its device (`unet_serving_step`), held
     in two parts.  The network: the prediction against the float64 forward
     of the bundle on the CPU, the card's relative L2 at most 2x the CPU's
-    (`unet_serving_study.py` read 1.21-1.33x over 24 bundles).  The
+    (a study of 24 bundles on an H100 read 1.21-1.33x;
+    `tests/test_torch_pconv_conditioning.py` holds its finding).  The
     resynthesis (exp, the inverse STFT): each device's wave within relative
     L2 1e-5 of the float64 resynthesis of its own prediction and phase (the
     study: at most 2.7e-6); the int16 cast of that wave is the services'
@@ -2898,29 +2397,6 @@ def unet_serve_path(netmodel: str, model: str) -> None:
             or not dist["cuda"] <= 2 * dist["cpu"] or not max(resyn.values()) <= 1e-5
             or (pair_held and not pair <= 1e-3)):
         fail(f"{model} serving misbehaves")
-
-
-def unet_profiles(base: str, bundles: dict) -> None:
-    """Where one U-Net train step (B=32) and one `infer()` batch of 8
-    (Griffin-Lim 50) go on the card, each after a warm-up call."""
-    for model, netmodel in bundles.items():
-        config = config_lib.check_trainconfiguration(unet_train_config(base, model))
-        stats = stats_lib.load_stats(config["audio_feat_mean"], config["audio_feat_std"],
-                                     feat_dim=UNET_BINS)
-        tmodel = registry.get_model(model)
-        state = train_state.create_train_state(
-            tmodel.init(torch.Generator().manual_seed(0), config, device="cuda"), config)
-        step = train_loop.make_train_step(tmodel, config, stats, "cuda")
-        batch = unet_batch(base, "training-set", UNET_BATCH)
-        step(state, batch, None)
-        profile(f"one {model} train step of {UNET_BATCH}", lambda: step(state, batch, None), top=10)
-        b_config, b_stats, b_model, params = inpaint.load_model_bundle(netmodel, device="cuda")
-        infer_step = inpaint.make_infer_step(b_model, b_config, b_stats, False, "gl", INFER_GL,
-                                             device="cuda")
-        cb = mesh_lib.compact_batch(unet_batch(base, "test-set", INFER_BATCH))
-        infer_step(params, cb)[0].cpu()
-        profile(f"one {model} infer() batch of {INFER_BATCH} (Griffin-Lim {INFER_GL})",
-                lambda: infer_step(params, cb)[0].cpu(), top=8)
 
 
 def generic_provider(seed: int):
@@ -3380,11 +2856,10 @@ def var_mode_check(corpus: dict) -> None:
         fail("var-mode mask_app disagrees with the fixed mode")
 
 
-def data_path(corpus: dict) -> dict:
+def data_path(corpus: dict) -> None:
     """Runs (a) Python codec, (b) native loader, (c) native loader with
     `device_cache_corpus`, each 3 epochs of the flagship at B=32 from one
-    seed, with the checks of the module docstring.  Returns the cache of
-    (c), for the profiles."""
+    seed, with the checks of the module docstring."""
     before, after = upload_bytes(corpus)
     up_ms = upload_ms(corpus)
     res = {run: data_run(corpus, run, f"exp_data_{run}") for run in ("a", "b")}
@@ -3422,52 +2897,33 @@ def data_path(corpus: dict) -> dict:
              f"(c) {res['c']['parsed']}; want none in (a) and some in (b) and (c)")
     cache_check(corpus, cache, res["c"], mem0)
     var_mode_check(corpus)
-    return cache
+    cached_step_check(corpus, cache)
 
 
-def trace_idle(path: str) -> tuple[float, float, int]:
-    """From a `profile_steps` Chrome trace: the device's idle share of the
-    traced window, its busy ms, and the largest host-to-device copy in bytes
-    (the memcpy events' "bytes")."""
+def cached_step_check(corpus: dict, cache: dict) -> None:
+    """A step from run (c)'s filled cache traced (a second `train()` on the
+    shared cache with `profile_steps = 1`): its largest host-to-device copy
+    (the trace's memcpy events, each with its "bytes") must be far below a
+    compacted batch's bytes."""
+    exp = "exp_data_c_traced"
+    cfg = data_config(corpus, exp, max_n_epochs=1, profile_steps=1)
+    config_file = os.path.join(corpus["base"], f"{exp}.config")
+    config_lib.save_configfile(cfg, config_file)
+    with reader_of("c"):
+        train_loop.train(config_file, corpus_cache=cache)
+    path = os.path.join(cfg["exp_folder"], "profile", "trace.json")
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    lo = min(e["ts"] for e in events)
-    hi = max(e["ts"] + e.get("dur", 0) for e in events)
-    device = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, -math.inf
-    for s, t in device:
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+        h2d = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+               and e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
     missing = [e for e in h2d if "bytes" not in e.get("args", {})]
     if missing:
         fail(f"a host-to-device copy in {path} has no byte count: {missing[0]}")
     largest = max((int(e["args"]["bytes"]) for e in h2d), default=0)
-    return 1 - busy / (hi - lo), busy / 1e3, largest
-
-
-def data_profiles(corpus: dict, cache: dict) -> None:
-    """Each run's traced step (`profile_steps = 1`: step 3, one epoch): (a)
-    and (b) in their streamed epoch 0, (c) from the shared cache that run
-    (c) filled (a second call, every epoch cached).  The device's idle share
-    of the step, and the cached step's largest host-to-device copy, which
-    must be far below a batch's."""
     compact = upload_bytes(corpus)[1]
-    for run in DATA_RUNS:
-        exp = f"exp_data_{run}_profile"
-        cfg = data_config(corpus, exp, max_n_epochs=1, profile_steps=1)
-        config_file = os.path.join(corpus["base"], f"{exp}.config")
-        config_lib.save_configfile(cfg, config_file)
-        with reader_of(run):
-            train_loop.train(config_file, corpus_cache=cache if run == "c" else None)
-        idle, busy_ms, largest = trace_idle(os.path.join(cfg["exp_folder"], "profile",
-                                                         "trace.json"))
-        print(f"profile: data path run ({run}) traced step: device busy {busy_ms:.1f} ms, "
-              f"{100 * idle:.0f}% idle; largest host-to-device copy {largest} bytes "
-              f"(a compacted batch: {compact})", flush=True)
-        if run == "c" and largest * 8 > compact:
-            fail(f"a cached step copied {largest} bytes to the card (a batch is {compact})")
+    print(f"data path: a traced step from the cache copies at most {largest} bytes to the "
+          f"card (a compacted batch: {compact})", flush=True)
+    if largest * 8 > compact:
+        fail(f"a cached step copied {largest} bytes to the card (a batch is {compact})")
 
 
 # ------------------------------------------------------------ parallel
@@ -3865,35 +3321,22 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
     resolve_device()  # float32 products in full float32 (no TF32)
     errs, rows = phase("kernels checked and timed", check_and_time_kernels)
     cudnn_comparisons(rows)
-    phase("plan rules", plan_rules_compared)
-    phase("dWh chunks", dwh_splits_compared)
-    phase("coincide", check_coincide)
-    phase("K3 vs K1", check_k3_against_k1)
-    phase("wide layers", check_wide_layers)
-    for batch in (8, TRAIN_BATCH):
-        phase(f"layer grads B={batch}", check_layer_grads, batch)
-    phase("stack", time_stack)
     phase("K1 at the recognition widths", recognition_k1_widths)
     ctc_rows = phase("CTC kernel", check_and_time_ctc)
 
     with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as root:
         os.symlink(data_dir, os.path.join(root, "data"))  # the ASR phase's stats
         write_checkpoint(d)
-        # every path's host-side figures (requests/s, push latency, fleet
-        # stream-s per s, utterances/s, train step wall) before the process
-        # first runs the profiler: host time reads slower after profiler
-        # sessions
         counts = phase("serving", main_path, d)
         phase("serving reference", reference_check, d)
         counts["bilstm_recurrence_carry"] = phase("stream", stream_path, d)[
             "bilstm_recurrence_carry"]
         phase("full window", full_window_check, d)
         phase("fleet", fleet_path, d)
-        test_set = phase("offline infer()", infer_path, d, root)
+        phase("offline infer()", infer_path, d, root)
         phase("levers service and /reload", levers_service_path, d, root)
         corpus = phase("data corpus", data_corpus, data_dir, corpus_child)
         phase("reader", reader_check, corpus)
-        cache = phase("data path", data_path, corpus)
         counts.update({k: v for k, v in phase("training", train_path, root).items()
                        if k in (*TRAINING, "ctc_loss")})
         for batch in (8, TRAIN_BATCH):
@@ -3916,32 +3359,17 @@ def run(kind: str, card: str, data_dir: str, corpus_child: subprocess.Popen) -> 
         phase("two-step training reference", train_reference_check,
               twosteps_config(root, "av-blstm-twosteps", "exp_2s_ref"), 8, "two-step 3 x 250")
         unet_base = phase("U-Net corpus", unet_corpus, root)
-        unet_bundles = {}
         for model in UNET_MODELS:
-            unet_bundles[model] = phase(f"{model} training", unet_train_path, unet_base, model)
+            netmodel = phase(f"{model} training", unet_train_path, unet_base, model)
             phase(f"{model} training reference", unet_step_reference, unet_base, model)
-            phase(f"{model} infer()", unet_infer_path, unet_base, unet_bundles[model], model)
-            phase(f"{model} serving", unet_serve_path, unet_bundles[model], model)
+            phase(f"{model} infer()", unet_infer_path, unet_base, netmodel, model)
+            phase(f"{model} serving", unet_serve_path, netmodel, model)
         phase("generic U-Net Trainer", generic_trainer_check, root)
         phase("command line", cli_path, root)
         phase("parallel", parallel_path, d, root)
-        phase("serving profiles", serving_profiles, d)
-        phase("fleet profiles", fleet_profiles, d)
-        phase("offline profile", profile, f"one plain infer() over {N_TEST} utterances "
-              f"(device activity only)", lambda: inpaint.infer(
-                  d, os.path.join(root, "test-set"), os.path.join(root, "enhanced"), "profiled",
-                  batch_size=INFER_BATCH, gl_iters=INFER_GL), 12, False)
-        phase("lever profiles", lever_profiles, *test_set)
-        phase("train step profile", profile_train_step, root, train_config(root))
-        phase("replayed train step profile", profile_replayed_train_step)
-        phase("LC train step profile", profile_train_step, root, lc_train_config(root),
-              "LC train step", False)
-        phase("ASR train step profile", profile_train_step, root, asr_train_config(root),
-              "ASR train step", True, True)
-        phase("siasr profile", profile_siasr_batch, d, root, asr_dir)
-        phase("U-Net profiles", unet_profiles, unet_base, unet_bundles)
-        phase("data path profiles", data_profiles, corpus, cache)
-    phase("K4 profiles", k4_profiles)
+        # last: its cached step's trace is the only profiler session, and
+        # host time reads slower after one in the same process
+        phase("data path", data_path, corpus)
 
     kernels = []
     for name, (_, replaces, source, batch) in KERNELS.items():

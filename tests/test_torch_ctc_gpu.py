@@ -269,11 +269,11 @@ def test_flagship_train_step_makes_no_host_sync():
     stats = (np.zeros(flagship.AUDIO_FEAT_DIM, np.float32),
              np.ones(flagship.AUDIO_FEAT_DIM, np.float32))
     placed = [loop.place(flagship.synthetic_batch(config, 8, seed=s), device) for s in (0, 1)]
-    for limit, before_calls in ((0, 1), (graphs.LIMIT, graphs.WARMUP + 1)):
+    for eager, before_calls in ((True, 1), (False, graphs.WARMUP + 1)):
         params = model.init(torch.Generator().manual_seed(0), config, device=device)
         state = state_lib.create_train_state(params, config)
         step = loop.make_train_step(model, config, stats, device)
-        step.graphs.limit = limit  # 0: the eager step
+        step.slot.eager = eager
         for k in range(before_calls):
             step(state, placed[k % 2], None)
         torch.cuda.synchronize()
@@ -285,4 +285,4 @@ def test_flagship_train_step_makes_no_host_sync():
             torch.cuda.set_sync_debug_mode(0)
         assert _build.launch_counts["ctc_loss"] == before + 1
         assert torch.isfinite(torch.stack(list(losses.values()))).all()
-        assert len(step.graphs.graphs) == min(limit, 1)
+        assert (step.slot.graph is None) == eager

@@ -9,8 +9,8 @@ repo conftest imports JAX, which the GPU machine need not have).
 Tolerances: f32 atol 1e-4 (f32 sums over up to ~850 terms in another
 order, carried over 250 steps); bf16 atol 2e-2 (a one-ulp flip of a
 parity-cast gate input).  K3 against K1's recurrence is held to the same
-tolerances, though one body on one plan should agree bit for bit
-(`chip_smoke.py` prints the difference).
+tolerances, though one body on one plan (asserted) should agree bit for
+bit.
 """
 
 import pytest
@@ -385,6 +385,9 @@ def test_k3_matches_k1_recurrence(dtype, shape):
     gen = torch.Generator().manual_seed(10)
     x, wx, bias, xw = one_hot_projection(gen, t, b, h, dtype)
     wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
+    sms = lstm_fused.device_sm_count(0)
+    assert (lstm_fused.launch_plan(h, b, dtype, sms).c_args()
+            == lstm_fused.launch_plan(h, b, dtype, sms, gate_major=True).c_args())
     k1 = lstm_fused.bilstm_fused_proj(x, wx, bias, wh)
     k3 = lstm_train.bilstm_recurrence_train(xw, wh)
     torch.cuda.synchronize()
@@ -409,10 +412,12 @@ def test_k3_k5_k6_refuse_a_width_without_a_plan():
 # keeps the first depth rows of each wh slice in shared memory and the
 # kernel reads the rest from global memory every step.  (dtype, T, B, H):
 # just past each limit, odd and ragged batches, up to the widest with a
-# plan (f32 2048, bf16 1024).
+# plan (f32 2048, bf16 1024), and a whole utterance (K1 there on the
+# flagship's 593-wide input).
 WIDE = [(torch.float32, 20, 3, 418), (torch.float32, 20, 8, 512), (torch.float32, 12, 13, 1000),
         (torch.float32, 6, 8, 2048), (torch.bfloat16, 20, 3, 626), (torch.bfloat16, 20, 8, 800),
-        (torch.bfloat16, 12, 13, 1024)]
+        (torch.bfloat16, 12, 13, 1024), (torch.float32, 250, 8, 512),
+        (torch.bfloat16, 250, 8, 800)]
 
 
 def _spills(hidden, batch, dtype, gate_major):
@@ -426,9 +431,10 @@ def test_wide_k1_k2_read_the_rest_of_wh_from_global_memory(wide):
     _need_cuda()
     dtype, t, b, h = wide
     assert _spills(h, b, dtype, gate_major=False)
+    d = 593 if t == 250 else 64
     gen = torch.Generator().manual_seed(12)
-    x = _w(gen, t, b, 64, scale=2.0).to(dtype)
-    wx = _w(gen, 2, 64, 4 * h, scale=0.125).to(dtype)
+    x = _w(gen, t, b, d, scale=2.0).to(dtype)
+    wx = _w(gen, 2, d, 4 * h, scale=d ** -0.5).to(dtype)
     wh = _w(gen, 2, h, 4 * h, scale=h ** -0.5).to(dtype)
     bias = _w(gen, 2, 4 * h, scale=0.1)
     before = dict(_build.launch_counts)

@@ -1,6 +1,7 @@
 """The CUDA-graph train step's parts that run on the CPU
-(`avsi_torch/train/graphs.py`, `train/state.py`): the key, the cache's
-routes and its bound; `CapturableAdam` (the Adam of every device) against
+(`avsi_torch/train/graphs.py`, `train/state.py`): the key, the slot's
+routes and its eager switch; the zero gradient of a leaf the loss misses,
+on one device and over two data shards; `CapturableAdam` (the Adam of every device) against
 torch's Adam, and its count through the checkpoint sidecar (against optax:
 `tests/test_torch_train.py::test_optimizer_matches_optax`); and the CPU
 step, which takes no graph, unchanged: it equals the step written out
@@ -47,26 +48,39 @@ def test_graph_key_holds_names_shapes_dtypes_state_and_generator():
 
 
 def test_cache_warms_up_captures_then_replays():
-    cache = graphs.GraphCache(limit=2, warmup=2)
-    assert [cache.route("a") for _ in range(3)] == ["warmup", "warmup", "capture"]
-    assert cache.route("a") == "capture"  # until a graph is added
-    cache.add("a", "graph a")
-    assert [cache.route("a") for _ in range(2)] == ["replay", "replay"]
-    # another key warms up on its own count
-    assert [cache.route("b") for _ in range(3)] == ["warmup", "warmup", "capture"]
-    cache.drop("a")  # a stale graph: the key starts anew
-    assert cache.route("a") == "warmup"
+    """The slot: warm-ups, a capture, replays; a dropped graph restarts its
+    key."""
+    slot = graphs.Slot()
+    warm = ["warmup"] * graphs.WARMUP
+    assert [slot.route("a") for _ in range(graphs.WARMUP + 1)] == warm + ["capture"]
+    assert slot.route("a") == "capture"  # until a graph is held
+    slot.graph = "graph a"
+    assert [slot.route("a") for _ in range(2)] == ["replay", "replay"]
+    slot.drop()  # a stale graph: the key starts anew
+    assert slot.graph is None
+    assert [slot.route("a") for _ in range(graphs.WARMUP + 1)] == warm + ["capture"]
+    # before a capture, a call of another key starts the warm-ups over
+    assert [slot.route("b"), slot.route("a")] == ["warmup", "warmup"]
 
 
 def test_cache_bound_sends_new_keys_eager():
-    cache = graphs.GraphCache(limit=1, warmup=1)
-    assert [cache.route("a"), cache.route("a")] == ["warmup", "capture"]
-    cache.add("a", "graph a")
-    assert [cache.route("b") for _ in range(4)] == ["eager"] * 4
-    assert cache.route("a") == "replay"
-    assert list(cache.graphs) == ["a"]
-    off = graphs.GraphCache(limit=0)
-    assert off.route("a") == "eager"
+    """The slot holds one graph: once it holds one, a second key runs
+    eagerly; the eager switch sends every call eager."""
+    slot = graphs.Slot()
+    for _ in range(graphs.WARMUP + 1):
+        slot.route("a")
+    slot.graph = "graph a"
+    assert [slot.route("b") for _ in range(4)] == ["eager"] * 4
+    assert slot.route("a") == "replay"
+    assert slot.key == "a" and slot.graph == "graph a"
+    slot.eager = True
+    assert [slot.route("a"), slot.route("b")] == ["eager", "eager"]
+    off = graphs.Slot()
+    off.eager = True
+    assert [off.route("a") for _ in range(graphs.WARMUP + 2)] == ["eager"] * (graphs.WARMUP + 2)
+    assert off.key is None and off.graph is None
+    assert tloop.make_train_step(registry.get_model("av-blstm-ssnn-ctc"), {"audio_feat_dim": 257},
+                                 (np.zeros(257), np.ones(257)), "cpu").slot.eager
 
 
 def test_cpu_adam_keeps_a_python_rate_and_a_host_count(tmp_path):
@@ -134,6 +148,43 @@ def test_cpu_step_is_the_eager_step_unchanged(dropout):
         sa, sb = states[0].optimizer.state[a[key]], states[1].optimizer.state[b[key]]
         assert all(torch.equal(sa[n], sb[n]) for n in ("exp_avg", "exp_avg_sq", "step")), key
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_a_leaf_the_loss_misses_gets_one_zero_gradient(monkeypatch, shards):
+    """A leaf that no loss reads (one added to the flagship's params) gets
+    one zero gradient a step, from `state.fill_grads`, called once, on the
+    single-device step and on a step over two data shards (whose all-reduce
+    needs it); with l2 > 0 Adam still moves it, as optax does."""
+    from avsi_torch.parallel import mesh as tmesh
+
+    config = flagship.flagship_config(4, net_dim=[8, 8], audio_len=4800)
+    config.update(lstm_impl="plain", l2=0.01)
+    model = registry.get_model(config["model"])
+    params = model.init(torch.Generator().manual_seed(0), config)
+    params["unread"] = {"w": torch.tensor([-1.0, -0.5, 0.25, 0.5, 1.0])}
+    state = tstate.create_train_state(params, config)
+    unread = params["unread"]["w"]
+    before = unread.detach().clone()
+    filled = []
+    inner = tstate.fill_grads
+
+    def fill(st):
+        missing = [p for g in st.optimizer.param_groups for p in g["params"] if p.grad is None]
+        filled.append(missing)
+        return inner(st)
+
+    monkeypatch.setattr(tstate, "fill_grads", fill)
+    mesh = tmesh.get_mesh(2, ["cpu"] * 2) if shards == 2 else None
+    step = tloop.make_train_step(model, config, (np.zeros(257), np.ones(257)), "cpu", mesh=mesh)
+    for seed in range(2):
+        step(state, tloop.place(flagship.synthetic_batch(config, 4, seed=seed), "cpu"), None)
+        assert len(filled) == seed + 1 and len(filled[-1]) == 1 and filled[-1][0] is unread
+        assert torch.equal(unread.grad, torch.zeros(5))
+    assert state.step == 2
+    moments = state.optimizer.state[unread]
+    assert float(moments["step"]) == 2 and moments["exp_avg"].abs().min() > 0
+    assert (unread.detach() - before).abs().min() > 0
 
 
 def _adam_steps(opt_of, wd: float, steps: int = 3) -> tuple:

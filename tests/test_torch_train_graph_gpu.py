@@ -6,7 +6,7 @@ skips without it.  On a GPU machine:
 
 Each test runs two train states from the same weights through the same
 batches: one through `make_train_step` (warm-ups, a capture, replays), one
-through its eager twin (`step.graphs.limit = 0`), both under the same
+through its eager twin (`step.slot.eager = True`), both under the same
 capturable Adam.  The kernels are the same, so everything is held bit for bit: every
 call's losses (read after the last call, so a replay that overwrote an
 earlier call's losses fails), every parameter, Adam's `exp_avg`,
@@ -97,15 +97,15 @@ def _case(name: str, device, batch: int | None = None):
     return config, model, stats, lambda seed: make(config, int(config["batch_size"]), seed=seed)
 
 
-def _twins(name: str, device, limit: int = graphs.LIMIT):
-    """Two train states from the same weights; the graphed step (room for
-    `limit` graphs) and the eager one; a generator each, seeded alike."""
+def _twins(name: str, device):
+    """Two train states from the same weights; the graphed step and the
+    eager one; a generator each, seeded alike."""
     config, model, stats, make = _case(name, device)
     flat = checkpoints.params_to_flat(model.init(torch.Generator().manual_seed(0), config))
     states = [state_lib.create_train_state(checkpoints.params_from_flat(flat, device), config)
               for _ in range(2)]
     steps = [loop.make_train_step(model, config, stats, device) for _ in range(2)]
-    steps[0].graphs.limit, steps[1].graphs.limit = limit, 0
+    steps[1].slot.eager = True
     gens = [torch.Generator(device=device).manual_seed(7) for _ in range(2)]
     return config, model, stats, make, states, steps, gens
 
@@ -157,7 +157,7 @@ def test_replayed_step_equals_eager_step_bit_for_bit(name):
         got, got_counts = _run(steps[0], states[0], placed, gens[0],
                                no_sync_from=graphs.WARMUP + 1)
         want, want_counts = _run(steps[1], states[1], placed, gens[1])
-    assert len(steps[0].graphs.graphs) == 1 and not steps[1].graphs.graphs
+    assert steps[0].slot.graph is not None and steps[1].slot.graph is None
     _assert_same_losses(got, want)
     _assert_same_state(states[0], states[1])
     assert states[0].step == STEPS
@@ -172,20 +172,20 @@ def test_replayed_step_equals_eager_step_bit_for_bit(name):
         assert torch.equal(ga[key].grad, gb[key].grad), key
 
 
-@pytest.mark.parametrize("limit", [1, 2])
-def test_a_batch_of_a_new_key_is_captured_anew_or_runs_eagerly(limit):
-    """Batches of 8 and of 4 rows in turns: with room for one graph the
-    second key runs eagerly, with room for two it gets its own capture;
-    either way every call equals the eager twin's."""
+def test_a_batch_of_a_new_key_is_captured_anew_or_runs_eagerly():
+    """Batches of 8 and of 4 rows in turns: the step holds the graph of the
+    first key, the second key runs eagerly, and every call equals the eager
+    twin's."""
     device = _need_cuda()
-    _, _, _, make, states, steps, gens = _twins("flagship", device, limit)
+    _, _, _, make, states, steps, gens = _twins("flagship", device)
     small = _case("flagship", device, batch=4)[3]
     hosts = [make(0), make(1), make(2), small(3), make(4), small(5), small(6), small(7),
              make(8), small(9)]
     placed = [loop.place(h, device) for h in hosts]
     got, got_counts = _run(steps[0], states[0], placed, gens[0])
     want, want_counts = _run(steps[1], states[1], placed, gens[1])
-    assert len(steps[0].graphs.graphs) == limit
+    held = steps[0].slot.graph
+    assert held is not None and held.inputs["target_sources"].shape[0] == 8
     _assert_same_losses(got, want)
     _assert_same_state(states[0], states[1])
     assert got_counts == want_counts
@@ -200,14 +200,14 @@ def test_a_reloaded_optimizer_state_drops_the_graph():
     placed = [loop.place(make(seed), device) for seed in range(2 * STEPS)]
     got, _ = _run(steps[0], states[0], placed[:STEPS], gens[0])
     want, _ = _run(steps[1], states[1], placed[:STEPS], gens[1])
-    (held,) = steps[0].graphs.graphs.values()
+    held = steps[0].slot.graph
     for state in states:
         checkpoints.load_opt_state(state, checkpoints.opt_state_to_flat(state))
     assert not held.holds(states[0])
     more, _ = _run(steps[0], states[0], placed[STEPS:], gens[0])
     more_want, _ = _run(steps[1], states[1], placed[STEPS:], gens[1])
-    (again,) = steps[0].graphs.graphs.values()
-    assert again is not held and again.holds(states[0])
+    again = steps[0].slot.graph
+    assert again is not None and again is not held and again.holds(states[0])
     _assert_same_losses(got + more, want + more_want)
     _assert_same_state(states[0], states[1])
 
@@ -230,13 +230,13 @@ def test_a_step_that_reads_the_host_runs_eagerly(capsys):
     states = [state_lib.create_train_state(checkpoints.params_from_flat(flat, device), config)
               for _ in range(2)]
     steps = [loop.make_train_step(reading, config, stats, device) for _ in range(2)]
-    steps[1].graphs.limit = 0
+    steps[1].slot.eager = True
     placed = [loop.place(make(seed), device) for seed in range(STEPS)]
     got, got_counts = _run(steps[0], states[0], placed, None)
     want, want_counts = _run(steps[1], states[1], placed, None)
     said = capsys.readouterr().out
     assert said.count("CUDA graphs off") == 1 and "capture failed" in said
-    assert not steps[0].graphs.graphs
+    assert steps[0].slot.eager and steps[0].slot.graph is None
     _assert_same_losses(got, want)
     _assert_same_state(states[0], states[1])
     assert got_counts == want_counts
@@ -253,4 +253,4 @@ def test_sgd_runs_eagerly_and_says_why(capsys):
         step(state, loop.place(make(seed), device), None)
     said = capsys.readouterr().out
     assert said.count("CUDA graphs off") == 1 and "SGD is not capturable" in said
-    assert not step.graphs.graphs and state.step == 4
+    assert step.slot.eager and step.slot.graph is None and state.step == 4
