@@ -27,10 +27,12 @@
 //   columns and the tile's rows in registers and reads each wh element once
 //   per step.  The depth is split over thread groups and summed in shared
 //   memory, in a fixed order.
-// - Per step: product, cell (c stays in the CTA), round_cd(h) of the CTA's
-//   units written into every peer's h buffer through distributed shared
-//   memory (double-buffered by step parity), one cluster barrier
-//   (arrive.release, then h and c written out, then wait.acquire).
+// - Per step: wait for the h buffer of this step's parity, product, cell
+//   (c stays in the CTA), round_cd(h) of the CTA's units written into every
+//   peer's buffer of the next parity through distributed shared memory by
+//   st.async, which completes the peer's mbarrier of that buffer (the
+//   exchange, below: no cluster barrier in the step loop), then h and c
+//   written out and one block barrier.
 // The launch plan (N, U, batch tile, depth split) comes from
 // avsi_torch/ops/lstm_fused.py:launch_plan; the launcher lays out the shared
 // memory (rec_layout, which the plan mirrors to choose a layout that fits),
@@ -51,7 +53,7 @@
 //     lie H apart, and in bf16 a 2-byte element is below cp.async's 4-byte
 //     minimum, so each thread loads the gates of its own cells into
 //     registers: one step ahead, issued after the cell has read the current
-//     ones, so the loads fly during the barrier and the next product.
+//     ones, so the loads fly during the wait and the next product.
 //     Consecutive threads take consecutive units: the loads coalesce.  No
 //     ring in shared memory (rec_layout leaves it out).
 // - kCarry: start from hc0 (2=h|c, 2=dir, B, H) f32 (K5).  Every CTA fills
@@ -66,8 +68,9 @@
 //   consecutive units.  The cell leaves its sums in its own columns of the
 //   partial gates' plane 0 as soon as it has made them, so no register
 //   lives on across the cell, and they go out with h and c after the
-//   barrier's arrive: stored before it, the release waits for them (K3 bf16
-//   ran up to 35% slower so on the H100).  Compile-time, like the others.
+//   exchange (stored before a cluster barrier's release, they made K3 bf16
+//   up to 35% slower on the H100), read before the step's closing block
+//   barrier, after which the next product overwrites the plane.
 // - kSpill: the plan keeps only the slice's first `resident` depth rows in
 //   shared memory (tiles of 8 only); the product reads the rest from wh.
 //   Its own instances, so that whole plans run the single resident loop
@@ -132,11 +135,108 @@ __device__ __forceinline__ void cp_async_wait_one() {  // all but the newest gro
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+// ------------------------------------------------------------ the exchange
+//
+// Each step ends with the CTA's results written into its peers' shared
+// memory (K3: round_cd(h); the walk: dh_rec partials) by st.async, which
+// completes `bytes` of the transaction count of the receiving CTA's
+// mbarrier for that parity buffer.  The receiver's one local arrival per
+// phase (mbarrier.arrive.expect_tx, the bytes the step brings) may come
+// before or after the peers' stores: the phase completes when both have,
+// and every reading thread waits on it with try_wait.parity.  No cluster
+// barrier in the step loop: see the reuse argument at rec_cluster.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+// The shared::cluster address of the same location in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// Both parity barriers with one arrival a phase, visible to the cluster
+// after its next barrier.
+__device__ __forceinline__ void mbar_init_pair(uint32_t bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "mbarrier.init.shared::cta.b64 [%1], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(bar), "r"(bar + 8)
+      : "memory");
+}
+// The local arrival of a phase, which then waits for `bytes` of stores.
+__device__ __forceinline__ void mbar_arm(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Until the phase of parity `parity` has completed; the peers' stores are
+// then visible to this thread.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// 16, 4 or 8 (bf16, packed pairs) bytes into a peer's shared memory at
+// `dst`, completing that many bytes on the peer's barrier `bar`.
+__device__ __forceinline__ void st_async(uint32_t dst, uint32_t bar, const float (&v)[4]) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(dst), "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])),
+      "r"(__float_as_uint(v[2])), "r"(__float_as_uint(v[3])), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, uint32_t bar, float v) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(dst), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t dst, uint32_t bar, uint32_t lo, uint32_t hi) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(dst), "r"(lo), "r"(hi), "r"(bar)
+      : "memory");
+}
+// The phase parity of the parity buffer read at step s >= 1 (buffer s & 1),
+// filled at step s - 1: its ((s - 1) >> 1)-th fill.
+__device__ __forceinline__ uint32_t fill_parity(int s) { return ((s - 1) >> 1) & 1; }
+
+// The four lanes m = 0..3 of a group (m's bits at lane bits 3 and 2, the
+// other lane bits alike) each hold row m of a 4 x 4 matrix M; afterwards
+// lane m holds column m: a[j] = M[j][m].  Two exchange stages, two
+// shuffles each; the whole warp takes part.
+__device__ __forceinline__ void transpose4(float (&a)[4], int lane) {
+  constexpr int hi = 8, lo = 4;
+  constexpr unsigned mask = 0xFFFFFFFFu;
+  const bool up = lane & hi, right = lane & lo;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // across bit 1: trade columns {2,3} of m < 2 for {0,1} of m >= 2
+    const float got = __shfl_xor_sync(mask, up ? a[j] : a[j + 2], hi);
+    if (up) {
+      a[j] = got;
+    } else {
+      a[j + 2] = got;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; j += 2) {  // across bit 0: the odd column of even m for the even of odd
+    const float got = __shfl_xor_sync(mask, right ? a[j] : a[j + 1], lo);
+    if (right) {
+      a[j] = got;
+    } else {
+      a[j + 1] = got;
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_sync_exit() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Four consecutive values (16-byte aligned f32, 8-byte aligned bf16) as f32.
@@ -175,8 +275,10 @@ struct Plan {
 // Byte offsets of the recurrence's shared buffers (16-byte aligned each);
 // avsi_torch/ops/lstm_fused.py:rec_smem_bytes mirrors the total for the plan.
 struct RecLayout {
-  size_t wh, hs, ring, gs, cs, total;
+  size_t wh, hs, ring, gs, cs, bar, total;
 };
+
+constexpr size_t kBarBytes = 16;  // the two parity buffers' mbarriers, 8 bytes each
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 __host__ __device__ inline int padded_depth(int hidden) { return (hidden + 15) / 16 * 16; }
@@ -195,7 +297,8 @@ __host__ __device__ inline RecLayout rec_layout(int hidden, int units, int bt, i
   l.ring = l.hs + align16(2 * bt * (kp + 8) * sizeof(T));
   l.gs = l.ring + (ring ? align16(2 * bt * g * sizeof(T)) : 0);  // xw ring [2][bt][4U]
   l.cs = l.gs + align16((size_t)ksplit * bt * g * 4);  // partial gates [ksplit][bt][4U]
-  l.total = l.cs + align16((size_t)bt * units * 4);    // c [bt][U]
+  l.bar = l.cs + align16((size_t)bt * units * 4);      // c [bt][U]
+  l.total = l.bar + kBarBytes;                         // an mbarrier per h buffer
   return l;
 }
 
@@ -224,7 +327,7 @@ __host__ __device__ inline int bwd_slice_stride(int units) {
 // Byte offsets of the walk's shared buffers (16-byte aligned each);
 // avsi_torch/ops/lstm_train.py:bwd_smem_bytes mirrors the total.
 struct BwdLayout {
-  size_t wh, dg, recv, total;
+  size_t wh, dg, recv, bar, total;
 };
 
 template <typename T>
@@ -235,7 +338,8 @@ __host__ __device__ inline BwdLayout bwd_layout(int units, int cluster, int bt, 
   l.wh = 0;  // f32: [resident][4U + 4]; bf16: mma A fragments of [4U][resident]
   l.dg = l.wh + align16((bf16 ? g : (size_t)bwd_slice_stride<T>(units)) * resident * sizeof(T));
   l.recv = l.dg + align16(bf16 ? bt * (g + 8) * 2 : bt * g * 4);  // dgates: bf16 rows padded by 8
-  l.total = l.recv + align16(2 * (size_t)cluster * bt * units * 4);  // [2][N][bt][U] f32
+  l.bar = l.recv + align16(2 * (size_t)cluster * bt * units * 4);  // [2][N][bt][U] f32
+  l.total = l.bar + kBarBytes;  // an mbarrier per slot plane
   return l;
 }
 
@@ -406,6 +510,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
   T* ring = reinterpret_cast<T*>(rec_smem + lay.ring);
   float* gs = reinterpret_cast<float*>(rec_smem + lay.gs);
   float* cs = reinterpret_cast<float*>(rec_smem + lay.cs);
+  const uint32_t bar0 = smem_addr(rec_smem + lay.bar);  // buffer b's barrier at bar0 + 8 b
   const Slice<T> sl{static_cast<const T*>(p.wh) + (size_t)dir * H * g4, H, u0, nu};
   // kUnitMajor: rows (t, b) of direction dir; kGateMajor: rows (s, dir, b)
   const T* xw = static_cast<const T*>(p.xw) +
@@ -466,13 +571,33 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
       }
     }
   };
+  // The exchange writes h for H units and the pad to the last group of
+  // four (zeros), in every row of the tile: the bytes each buffer's fill
+  // brings, from all CTAs together.
+  const int h4 = (H + 3) & ~3;
+  const uint32_t fill_bytes = (uint32_t)(BT * h4 * sizeof(T));
+  if (tid == 0) {
+    mbar_init_pair(bar0);
+    if (p.t_len > 1) mbar_arm(bar0 + 8, fill_bytes);  // buffer 1's first fill, read at step 1
+    if (p.t_len > 2) mbar_arm(bar0, fill_bytes);      // buffer 0's, read at step 2
+  }
   if constexpr (kGateMajor) {
     if (p.t_len > 0) fetch(0);
   } else {
     prefetch(0);
   }
-  cluster.sync();  // every CTA runs and has filled its h buffers before any peer writes
+  cluster.sync();  // every CTA runs, has filled its h buffers and set up its barriers
 
+  // Reuse of a parity buffer without a cluster barrier: a peer writes
+  // buffer b for step s + 2 in its step s + 1, after its own wait there,
+  // which needs this CTA's h of step s; this CTA sends that only after the
+  // block barrier that ends its product of step s, the last read of buffer
+  // b's previous fill.  The st.async's completion is a release at cluster
+  // scope, and the wait an acquire, so those reads come before the
+  // peer's writes.  The same holds for the barrier's phases: the next
+  // fill's bytes cannot arrive before this CTA's wait on the last one.
+  const int lane = tid % kWarp;
+  const unsigned quad = 0xFu << (lane & 28);  // the four lanes of one group of units
   for (int s = 0; s < p.t_len; ++s) {
     const int t = dir == 0 ? s : p.t_len - 1 - s;
     if constexpr (!kGateMajor) {
@@ -483,22 +608,33 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
       }
     }
     const T* h_cur = hs + (s & 1) * h_buf;
-    T* h_next = hs + ((s + 1) & 1) * h_buf;
+    if (s > 0) {  // (a) the peers' h of step s - 1 has landed in buffer s & 1
+      const uint32_t bar = bar0 + 8 * (s & 1);
+      mbar_wait(bar, fill_parity(s));
+      if (tid == 0 && s + 2 < p.t_len) mbar_arm(bar, fill_bytes);  // its next fill
+    }
 
     // (b) partial gates over depth slice ks
     partial_gates<T, BT, kSpill>(whs, sl, h_cur, hrow, gs, G, p.ksplit, kres, tid, nthr);
     if constexpr (!kGateMajor) cp_async_wait_one();  // (a) this step's xw rows have landed
-    __syncthreads();  // every partial gate is in gs
+    __syncthreads();  // every partial gate is in gs, and buffer s & 1 is read
 
-    // (c) the cell in f32, (d) round_cd(h) into every peer; a warp's lanes
-    // are consecutive units of one row, so its DSMEM stores are contiguous
+    // (c) the cell in f32, (d) round_cd(h) into every peer's buffer of the
+    // next parity: the four lanes of a group of four units (one row; items
+    // and threads are multiples of 4) gather the group's h by shuffles, and
+    // each sends it, one 16-byte (bf16: 8-byte) st.async, to a quarter of
+    // the peers (a 4-byte store a peer from every lane ran f32 K3 6-8%
+    // slower on the H100).  The last step's h is read by no step: not sent.
+    const bool send = s + 1 < p.t_len;
+    const uint32_t h_next = smem_addr(hs + ((s + 1) & 1) * h_buf);
+    const uint32_t bar_next = bar0 + 8 * ((s + 1) & 1);
     float h_out[kRecItemsMax], c_new[kRecItemsMax];
 #pragma unroll
     for (int j = 0; j < kRecItemsMax; ++j) {
       const int i = tid + j * nthr, lu = i % U, r = i / U, b = b0 + r;
-      if (i >= items || lu >= nu) continue;
-      float h = 0.0f;  // rows past the batch carry h = 0
-      if (b < p.batch) {
+      if (i >= items) continue;  // the whole group of four
+      float h = 0.0f;  // rows past the batch, and units past H, carry h = 0
+      if (lu < nu && b < p.batch) {
         float gate[4], prod[4];
         if constexpr (kGateMajor) {
 #pragma unroll
@@ -506,6 +642,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
         } else {
           load4(gate, ring + (s & 1) * BT * G + r * G + lu * 4);  // xw, parity-cast
         }
+#pragma unroll 4  // loads in flight four at a time; the sum's order stays 0 .. ksplit-1
         for (int ks = 0; ks < p.ksplit; ++ks) {
           float part[4];
           load4(part, gs + (ks * BT + r) * G + lu * 4);
@@ -524,21 +661,32 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
         c_new[j] = c;
       }
       h_out[j] = h;
-      const T hv = from_f32<T>(h);
-      for (int q = 0; q < n_cta; ++q) cluster.map_shared_rank(h_next, q)[r * hrow + u0 + lu] = hv;
+      if (send) {
+        float v[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) v[x] = __shfl_sync(quad, h, (lane & 28) | x);
+        const int lg = lu & ~3;
+        if (u0 + lg < H) {
+          const uint32_t at = h_next + (uint32_t)((r * hrow + u0 + lg) * sizeof(T));
+          for (int q = lane & 3; q < n_cta; q += 4) {
+            if constexpr (sizeof(T) == 2) {
+              st_async(peer_addr(at, q), peer_addr(bar_next, q),
+                       pack_bf16(from_f32<T>(v[0]), from_f32<T>(v[1])),
+                       pack_bf16(from_f32<T>(v[2]), from_f32<T>(v[3])));
+            } else {
+              st_async(peer_addr(at, q), peer_addr(bar_next, q), v);
+            }
+          }
+        }
+      }
     }
     // the next step's gate input is read now that the cell is done with
-    // this one's: its loads are in flight during the barrier and the product
+    // this one's: its loads are in flight during the wait and the product
     if constexpr (kGateMajor) {
       if (s + 1 < p.t_len) fetch(s + 1);
     }
-    // (f) one cluster barrier per step: arrive releases the DSMEM stores; the
-    // peers' h is visible, and nobody reads this step's buffers, after wait.
-    // (e) h (and c, and the gate sums) go out to global memory between the
-    // two, off the release, which would wait for them.  After the last step
-    // the barrier is the cluster sync before exit: no peer writes into this
-    // CTA's shared memory after it.
-    cluster_arrive();
+    // (e) h (and c, and the gate sums) go out to global memory after the
+    // exchange, off its critical path
 #pragma unroll
     for (int j = 0; j < kRecItemsMax; ++j) {
       const int i = tid + j * nthr, lu = i % U, r = i / U, b = b0 + r;
@@ -553,8 +701,10 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
         }
       }
     }
-    cluster_wait();
+    __syncthreads();  // gs and this step's ring slot are read: the next product and prefetch may write
   }
+  // no CTA leaves while a peer may still write into its shared memory
+  cluster_sync_exit();
 }
 
 // ------------------------------------------------------------ the reverse walk
@@ -580,8 +730,8 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
 //     registers, from the gates, c, c_prev and dout loaded into registers a
 //     step ahead (one float4 of gates a cell, consecutive threads on
 //     consecutive units); round_cd(dgates) kept for dxw, which goes out
-//     gate-major between the cluster barrier's arrive and wait, and into a
-//     shared [BT][4U] buffer (bf16: rows padded by 8); one block barrier.
+//     gate-major after the exchange, and into a shared [BT][4U] buffer
+//     (bf16: rows padded by 8); one block barrier.
 //  2. the partial dh_rec over the CTA's 4U columns for all H units:
 //     P[r][k] = sum_c dg[r][c] slice[k][c].  f32: a thread per depth row k
 //     and all BT rows, the slice's rows padded by 4 floats so that a warp's
@@ -591,12 +741,22 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster(RecArgs p) {
 //     fragment, so the slice is held once in the forward's fragment order
 //     and costs no resident rows; B = dgates^T.
 //  3. reduce-scatter through DSMEM: P[:, units of q] goes into CTA q's
-//     receive buffer, slot `rank`, double-buffered by step parity.  After the
-//     step's one cluster barrier each CTA sums its N slots in rank order 0 ..
-//     N-1 (in the next step's cell), so dh_rec is the same from run to run.
-//     Only a unit's owner needs its dh_rec: nothing is all-gathered.  The
-//     cluster barrier also ends every thread's reads of the dgates buffer
-//     before the next step's cell writes it.
+//     receive buffer, slot `rank` ([N][BT][U], double-buffered by step
+//     parity), by st.async on q's mbarrier of that parity (the exchange,
+//     above).  f32: a thread sends its depth row's BT partials, one 4-byte
+//     st.async a row (gathering 16-byte rows of four units by shuffles ran
+//     4-5% slower on the H100).  bf16: the four lanes holding four
+//     consecutive depth rows of an mma tile transpose them by shuffles into
+//     rows of four units, one 16-byte store each (4-byte stores ran 1-5%
+//     slower).  After its wait each CTA sums its N slots in rank
+//     order 0 .. N-1 (in the next step's cell), so dh_rec is the same from
+//     run to run.  Only a unit's owner needs its dh_rec: nothing is
+//     all-gathered.  A block barrier at the end of the step ends every
+//     thread's reads of the dgates buffer before the next step's cell
+//     writes it.  A slot plane is reused as K3's h buffers are: a peer
+//     writes plane b for step n + 2 after its wait at step n + 1, which
+//     needs this CTA's partials of step n, sent after this CTA's cell of
+//     step n has read plane b.
 // The last step (s = 0) has no dh_rec to pass on, so it ends after its cell.
 // The plan's depth split sets only the thread count (K3's).
 template <typename T, int BT, bool kSpill>
@@ -616,6 +776,7 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
   float* dgf = reinterpret_cast<float*>(rec_smem + lay.dg);  // f32 dgates [BT][4U]
   T* dgs = reinterpret_cast<T*>(rec_smem + lay.dg);  // bf16 dgates [BT][4U + 8]
   float* recv = reinterpret_cast<float*>(rec_smem + lay.recv);  // [2][N][BT][U]
+  const uint32_t bar0 = smem_addr(rec_smem + lay.bar);  // plane b's barrier at bar0 + 8 b
   const Slice<T> sl{static_cast<const T*>(p.wh) + (size_t)dir * H * g4, H, u0, nu};
   const float* gates = p.gates + (size_t)dir * p.batch * g4;  // rows (s, dir, b) of H float4s
   T* dxw = static_cast<T*>(p.dxw) + (size_t)dir * p.batch * g4;
@@ -650,11 +811,25 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
 #pragma unroll
   for (int j = 0; j < kRecItemsMax; ++j) dc[j] = 0.0f;
   if (p.t_len > 0) fetch(p.t_len - 1);
-  cluster.sync();  // every CTA runs and has zeroed its receive slots before any peer writes
+  // Each of the N CTAs writes this CTA's slot columns for its units and the
+  // pad to the last group of four (zeros), in every row: a plane's bytes.
+  const int h4 = (H + 3) & ~3, nw = max(0, min(U, h4 - u0));
+  const uint32_t fill_bytes = (uint32_t)(n_cta * BT * nw * 4);
+  if (tid == 0) {
+    mbar_init_pair(bar0);
+    if (p.t_len > 1) mbar_arm(bar0 + 8, fill_bytes);  // plane 1's first fill, read at step 1
+    if (p.t_len > 2) mbar_arm(bar0, fill_bytes);      // plane 0's, read at step 2
+  }
+  cluster.sync();  // every CTA runs, has zeroed its receive slots and set up its barriers
 
   for (int s = p.t_len - 1, n = 0; s >= 0; --s, ++n) {
     // (1) the cell backward; dh_rec = the N slots of parity n, in rank order
     const float* rin = recv + (n & 1) * slots;
+    if (n > 0) {  // the peers' partials of step n - 1 have landed in plane n & 1
+      const uint32_t bar = bar0 + 8 * (n & 1);
+      mbar_wait(bar, fill_parity(n));
+      if (tid == 0 && n + 2 < p.t_len) mbar_arm(bar, fill_bytes);  // its next fill
+    }
     T dq[kRecItemsMax][4];  // round_cd(dgates) of this thread's cells, for dxw
 #pragma unroll
     for (int j = 0; j < kRecItemsMax; ++j) {
@@ -705,15 +880,13 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
       store_dxw();
       break;
     }
-    fetch(s - 1);  // the next step's inputs fly during the product and the barrier
-    __syncthreads();  // every dgate is staged
+    fetch(s - 1);  // the next step's inputs fly during the product and the wait
+    __syncthreads();  // every dgate is staged, and plane n & 1 is read
 
-    // (2, 3) P[r][k] for all H units k, into the slot `rank` of k's owner
-    float* rout = recv + ((n + 1) & 1) * slots + rank * BT * U;
-    auto slot = [&](int k) {  // unit k's column of this CTA's slot in its owner
-      const int q = k / U;
-      return cluster.map_shared_rank(rout, q) + k - q * U;
-    };
+    // (2, 3) P[r][k] for all H units k (and zeros to the last group of
+    // four), into the slot `rank` of k's owner
+    const uint32_t rout = smem_addr(recv + ((n + 1) & 1) * slots + rank * BT * U);
+    const uint32_t rbar = bar0 + 8 * ((n + 1) & 1);
     if constexpr (kBf16) {
       const int ksteps = kp / 16, ks_res = kres / 16, mt_n = G / 16;
       const int lane = tid % kWarp, g = lane / 4, tg = lane % 4;
@@ -736,21 +909,25 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
             mma_bf16(acc[nt], a, ld_u32(dr), ld_u32(dr + 8));
           }
         }
+        // D[k][r] of this lane: k = mk * 16 + g (+ 8), r = nt * 8 + 2 tg (+ 1).
+        // The lanes g = 4c + m, m = 0..3 (lane bits 2 and 3), hold units
+        // 4c + m (and 8 + 4c + m): transposed, lane m = x holds units k0 ..
+        // k0 + 3 (one owner's: U is a multiple of 4) of row r, x >> 1 the
+        // unit half and x & 1 the row.  Zero past H.
+        const int x = g & 3, k0 = mk * 16 + 8 * (x >> 1) + 4 * (g >> 2), q = k0 / U;
 #pragma unroll
         for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {  // D[k][r]: rows g and g + 8
-            const int k = mk * 16 + g + 8 * half, r = nt * 8 + 2 * tg;
-            if (k < H) {
-              float* to = slot(k);
-              to[r * U] = acc[nt][2 * half];
-              to[(r + 1) * U] = acc[nt][2 * half + 1];
-            }
+          transpose4(acc[nt], lane);
+          const int r = nt * 8 + 2 * tg + (x & 1);
+          if (k0 < H) {
+            st_async(peer_addr(rout + (uint32_t)((r * U + k0 - q * U) * 4), q), peer_addr(rbar, q),
+                     acc[nt]);
           }
         }
       }
     } else {
-      for (int k = tid; k < H; k += nthr) {
+      // a thread per depth row k; rows past H to the group's end are zeros
+      for (int k = tid; k < h4; k += nthr) {
         float acc[BT] = {};
         auto fma_rows = [&](const float (&wv)[4], int c) {
 #pragma unroll
@@ -774,19 +951,18 @@ __global__ void __launch_bounds__(rec_threads_max<T>()) rec_cluster_bwd(BwdArgs 
             fma_rows(wv, c);
           }
         }
-        float* to = slot(k);
+        const int q = k / U;
+        const uint32_t to = peer_addr(rout + (uint32_t)((k - q * U) * 4), q);
+        const uint32_t bar = peer_addr(rbar, q);
 #pragma unroll
-        for (int r = 0; r < BT; ++r) to[r * U] = acc[r];
+        for (int r = 0; r < BT; ++r) st_async(to + (uint32_t)(r * U * 4), bar, acc[r]);
       }
     }
-    // one cluster barrier per step: arrive releases the DSMEM stores, the
-    // peers' partials are visible after wait, and nobody writes this
-    // parity's slots again before every CTA has read them (next step).
-    // dxw goes out between the two, off the release.
-    cluster_arrive();
-    store_dxw();
-    cluster_wait();
+    store_dxw();  // off the exchange's critical path
+    __syncthreads();  // dgates are read: the next step's cell may write them
   }
+  // no CTA leaves while a peer may still write into its shared memory
+  cluster_sync_exit();
 }
 
 // ------------------------------------------------------------ launchers

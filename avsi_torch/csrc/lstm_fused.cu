@@ -54,8 +54,9 @@
 //      bf16, four gate columns x the tile's rows per thread in f32.
 //    - each step re-staged x: the step's xw rows for the next step arrive in a
 //      two-stage ring by cp.async while this step's product runs.
-//    h crosses SMs through distributed shared memory, one cluster barrier
-//    per step; no trip through global memory.
+//    h crosses SMs through distributed shared memory (st.async on each
+//    receiver's mbarriers, no cluster barrier a step); no trip through
+//    global memory.
 
 #include <cstdint>
 

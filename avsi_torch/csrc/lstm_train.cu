@@ -41,8 +41,9 @@
 // the plan of avsi_torch/ops/lstm_fused.py:launch_plan at the call's batch:
 // a cluster of 8 or 16 CTAs per (direction, batch tile of 8 or 16 rows)
 // splits H, each CTA keeps its slice of wh in shared memory for the whole
-// walk, and h crosses SMs through distributed shared memory with one cluster
-// barrier per step.  One launch per call.  Its limits are the plan's: a CTA's
+// walk, and h crosses SMs through distributed shared memory by st.async on
+// each receiver's mbarriers (no cluster barrier in the step loop).  One
+// launch per call.  Its limits are the plan's: a CTA's
 // slice of wh fits 227 KB whole up to f32 H = 416 and bf16 H = 624; wider,
 // the plan keeps its first depth rows in shared memory and the product reads
 // the rest from L2 every step, up to f32 H = 2048 and bf16 H = 1024 (beyond,
@@ -62,8 +63,8 @@
 //        (K3's plan, with fewer resident depth rows where the walk's buffers
 //        need the room).  Each CTA reads its units' gates from K3's saved
 //        sums, runs their cell backward, and sends its partial dh_rec =
-//        dgates . slice^T for every unit to the unit's owner through DSMEM;
-//        one cluster barrier per step, and no read of the whole wh from L2.
+//        dgates . slice^T for every unit to the unit's owner through DSMEM,
+//        on the owner's mbarriers as K3's h; no read of the whole wh from L2.
 //        The first design (one 1,024-thread block per direction and batch
 //        row) read all of wh from L2 twice a step; the second recomputed
 //        the gates with K3's product every step.
@@ -78,7 +79,7 @@
 // What bounds them: not the work.  The bound (bytes once at 3.35 TB/s, or the
 // products at peak) is far below a chain of 250 dependent steps: K3 and K4a
 // are set by their per-step latency (a product, the cell, the DSMEM
-// exchange, the barrier).  K4b is a plain product, bound by the f32 FMA rate
+// exchange and its wait).  K4b is a plain product, bound by the f32 FMA rate
 // or, in bf16, by staging its operands.
 
 #include <algorithm>

@@ -109,6 +109,7 @@ SMEM_PER_CTA = 232_448  # dynamic shared memory one Hopper block can use (227 KB
 REC_THREADS_MAX = 512   # `kRecThreadsMax` in lstm_cluster.cuh (bf16; f32 half)
 REC_ITEMS_MAX = 4       # `kRecItemsMax`: cell (row, unit) pairs per thread
 CLUSTER_SIZES = (8, 16)  # 8 is portable; 16 needs the non-portable opt-in
+BAR_BYTES = 16          # `kBarBytes`: the exchange's mbarrier per parity buffer
 BATCH_TILES = (8, 16)    # rows per cluster: one or two mma n-tiles of 8
 
 
@@ -155,13 +156,15 @@ def rec_smem_bytes(hidden: int, units: int, btile: int, ksplit: int, bf16: bool,
     lstm_cluster.cuh lays them out at launch: `resident` depth rows of the
     wh slice (default: all, padded to 16), two parity buffers of h for the
     whole layer, the xw ring of two steps (K1/K2's layout; `ring=False` for
-    K3/K5/K6's, which read xw into registers), the partial gates and c.
-    The plan uses it to choose a layout that fits."""
+    K3/K5/K6's, which read xw into registers), the partial gates, c, and
+    the exchange's two mbarriers.  The plan uses it to choose a layout that
+    fits."""
     g, kp, size = 4 * units, _align16(hidden), 2 if bf16 else 4
     wh = g * (kp if resident is None else resident) * size
     hs = 2 * btile * (kp + 8) * size  # rows padded by 8
     xw = 2 * btile * g * size if ring else 0
-    return sum(map(_align16, (wh, hs, xw, ksplit * btile * g * 4, btile * units * 4)))
+    return sum(map(_align16, (wh, hs, xw, ksplit * btile * g * 4, btile * units * 4,
+                              BAR_BYTES)))
 
 
 def launch_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132, *,

@@ -112,14 +112,14 @@ def bwd_smem_bytes(units: int, cluster: int, btile: int, bf16: bool, resident: i
     """Shared bytes of one CTA of K4's walk, as `bwd_layout` in
     lstm_cluster.cuh lays them out: `resident` depth rows of the wh slice
     (f32 rows of 4U + 4 floats; bf16 the forward's fragments), dgates (f32
-    [btile][4U], bf16 [btile][4U + 8]) and the dh_rec receive slots
-    ([2][cluster][btile][U] f32).  The gates and the dc carry live in
-    registers."""
+    [btile][4U], bf16 [btile][4U + 8]), the dh_rec receive slots
+    ([2][cluster][btile][U] f32) and their two mbarriers.  The gates and
+    the dc carry live in registers."""
     g = 4 * units
     wh = (g * 2 if bf16 else (g + 4) * 4) * resident
     dg = btile * (g + 8) * 2 if bf16 else btile * g * 4
     recv = 2 * cluster * btile * units * 4
-    return sum(map(lstm_fused._align16, (wh, dg, recv)))
+    return sum(map(lstm_fused._align16, (wh, dg, recv, lstm_fused.BAR_BYTES)))
 
 
 def bwd_plan(hidden: int, batch: int, compute_dtype, sm_count: int = 132) -> LaunchPlan:

@@ -633,11 +633,16 @@ def _digest(*tensors) -> str:
 def walk_record() -> dict:
     """K3 then K4 at the flagship width (T=250, H=250) at each of K4's
     timed batches, f32 and bf16, on kernel_inputs' seeded xw and wh and
-    seeded upstream gradients: the sha256 of K4's dxw and dWh; the device
-    ms a launch of K3's `rec_cluster`, K4's walk `rec_cluster_bwd` and its
-    dWh (`dwh_*`), each the mean over WALK_CALLS profiled calls, and of K3
-    and K4 whole by CUDA events.  Then the flagship train step (B=8) made
-    and replayed from its CUDA graph as `train_graph_timed` does: the
+    seeded upstream gradients: the sha256 of K3's five outputs (h, c, the
+    gate sums) and of K4's dxw and dWh; the device ms a launch of K3's
+    `rec_cluster`, K4's walk `rec_cluster_bwd` and its dWh (`dwh_*`), each
+    the mean over WALK_CALLS profiled calls, and of K3 and K4 whole by CUDA
+    events.  The other instances of the recurrence's body (K1, K2, K5 from
+    kernel_inputs' random carries, K6) at their timed batches, f32 and
+    bf16: the sha256 of their outputs and their device ms a call (all their
+    kernels, the mean over WALK_CALLS profiled calls: K5's launch is
+    shorter than the host's call).  Then the flagship train step (B=8)
+    made and replayed from its CUDA graph as `train_graph_timed` does: the
     sha256 of the train state after its two eager warm-ups, the capture
     and three replays.  A checkout whose K3 returns no gate sums (four
     tensors) has a K4 that takes xw, and gets xw."""
@@ -661,7 +666,8 @@ def walk_record() -> dict:
                 return lstm_train.bilstm_recurrence_bwd(saved, wh, *out[:4], *dout)
 
             dxw, dwh = k4()
-            row = {"digest": _digest(dxw, dwh), "k3_events_ms": time_ms(k3, reps=WALK_CALLS),
+            row = {"digest": _digest(dxw, dwh), "k3_digest": _digest(*out),
+                   "k3_events_ms": time_ms(k3, reps=WALK_CALLS),
                    "k4_events_ms": time_ms(k4, reps=WALK_CALLS)}
             for attempt in range(3):
                 torch.cuda.synchronize()
@@ -682,6 +688,20 @@ def walk_record() -> dict:
                     break
             row.update({k: sum(v) / WALK_CALLS if v else None for k, v in times.items()})
             rows[f"{str(dtype)[6:]} B={batch}"] = row
+    for name in (*SERVING, *WINDOW):
+        for batch in BATCHES[name]:
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = kernel_inputs(name, batch, dtype)
+                got = run_kernel(name, inp)
+                time_ms(lambda: run_kernel(name, inp), reps=2)  # warm
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(WALK_CALLS):
+                        run_kernel(name, inp)
+                    torch.cuda.synchronize()
+                device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA)
+                rows[f"{KERNELS[name][0]} {str(dtype)[6:]} B={batch}"] = {
+                    "digest": _digest(*got), "device_ms": device_us / 1e3 / WALK_CALLS}
     ways, placed, _ = _graph_twins(flagship_config(batch_size=8), 4, ("graph",))
     state, step = ways["graph"]
     for k in range(train_graphs.WARMUP + 4):
@@ -697,13 +717,15 @@ def walk_record() -> dict:
 
 
 def walk_ab(parent: str) -> None:
-    """K4's walk and K3, and the replayed train step, in this checkout and
-    in `parent` (another checkout of the repo, e.g. unpacked by `git
-    archive` under build/), in child processes in the order parent,
-    change, change, parent (`walk_record` in each): every digest equal
-    across all four (dxw and dWh at every batch and dtype, the train state
-    after three replays), and the device ms a launch of each side, the
-    mean of its two runs.  Fails on any digest that differs."""
+    """K4's walk and K3, the body's other instances (K1, K2, K5, K6), and
+    the replayed train step, in this checkout and in `parent` (another
+    checkout of the repo, e.g. unpacked by `git archive` under build/), in
+    child processes in the order parent, change, change, parent
+    (`walk_record` in each): every digest equal across all four (K3's
+    outputs, dxw and dWh, and K1, K2, K5 and K6's outputs at every batch
+    and dtype, the train state after three replays), and the ms a launch of
+    each side, the mean of its two runs.  Fails on any digest that
+    differs."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(parent), "change": here}
     runs = {name: [] for name in trees}
@@ -718,8 +740,9 @@ def walk_ab(parent: str) -> None:
             print(f"walk A/B: {name} run in {time.perf_counter() - t0:.1f} s", flush=True)
     records = runs["parent"] + runs["change"]
     first = records[0]
-    same = {key: all(r["kernels"][key]["digest"] == first["kernels"][key]["digest"]
-                     for r in records) for key in first["kernels"]}
+    same = {key: all(r["kernels"][key].get(d) == first["kernels"][key].get(d)
+                     for r in records for d in ("digest", "k3_digest"))
+            for key in first["kernels"]}
     same["train state after 3 replays"] = all(r["state"] == first["state"] for r in records)
 
     def mean(name, key, field):
@@ -727,13 +750,18 @@ def walk_ab(parent: str) -> None:
         return None if None in vals else sum(vals) / len(vals)
 
     for key in first["kernels"]:
+        if "device_ms" in first["kernels"][key]:  # K1, K2, K5, K6
+            a, b = mean("parent", key, "device_ms"), mean("change", key, "device_ms")
+            print(f"walk A/B {key}: device {a:.4f} -> {b:.4f} ms (x{b / a:.3f}); outputs "
+                  f"bit-equal {same[key]}", flush=True)
+            continue
         cells = []
         for field in ("walk_ms", "k3_ms", "dwh_ms", "k4_events_ms", "k3_events_ms"):
             a, b = mean("parent", key, field), mean("change", key, field)
             cells.append(f"{field[:-3]} {a:.4f} -> {b:.4f} ms (x{b / a:.3f})" if a and b
                          else f"{field[:-3]} not measured")
-        print(f"walk A/B {key}: " + "; ".join(cells) + f"; dxw and dWh bit-equal {same[key]}",
-              flush=True)
+        print(f"walk A/B {key}: " + "; ".join(cells) + f"; K3's outputs, dxw and dWh bit-equal "
+              f"{same[key]}", flush=True)
     graphs = {name: [r["graphs"] for r in runs[name]] for name in runs}
     print(f"walk A/B: train state after 3 replayed flagship steps bit-equal "
           f"{same['train state after 3 replays']} (graphs held: {graphs}); card {card_line()}",

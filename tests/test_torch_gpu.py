@@ -239,17 +239,43 @@ def test_k4_cluster_of_16_matches_plain(dtype):
     _k4_check(*_k4_inputs(15, 250, 8, 250, dtype), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [8, 32])
-def test_k4_repeated_calls_bit_equal(dtype, b):
+# Race guard of the recurrence's exchange (st.async on the receivers'
+# mbarriers, no cluster barrier in the step loop): (dtype, T, B, H) at the
+# flagship shapes, then T = 1, 2, 3 (the parity buffers and their barriers'
+# phases flip every step) on clusters of 16 (B=8) and 8 (B=32), a bf16 tile
+# of 16 (B=128), and widths whose wh slices spill; each kernel called
+# REPEATS times must give the first call's bits every time.
+REPEATS = 20
+DTYPES = [torch.float32, torch.bfloat16]
+RACE_SHAPES = ([(d, 250, b, 250) for d in DTYPES for b in (8, 32)]
+               + [(d, t, b, 250) for d in DTYPES for t in (1, 2, 3) for b in (8, 32)]
+               + [(torch.bfloat16, t, 128, 250) for t in (2, 250)])
+
+
+def _race_id(case):
+    return "{}-T{}-B{}-H{}".format(str(case[0])[6:], *case[1:])
+
+
+def _repeated(fn, first):
+    """`fn()` REPEATS times: every call's outputs equal `first` bit for bit."""
+    for _ in range(REPEATS):
+        again = fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("case", RACE_SHAPES + [(torch.float32, 3, 8, 424),
+                                                (torch.bfloat16, 250, 8, 624)], ids=_race_id)
+def test_k4_repeated_calls_bit_equal(case):
     """dh_rec is summed over the cluster in rank order and dWh's chunks in
-    chunk order: two calls on the same inputs give the same bits."""
+    chunk order: REPEATS calls on the same inputs give the first call's
+    bits, which are the plain version's within tolerance (the last two
+    cases: widths where the walk spills)."""
     _need_cuda()
-    inputs = _k4_inputs(16, 250, b, 250, dtype)
+    dtype, t, b, h = case
+    inputs = _k4_inputs(16, t, b, h, dtype)
     first = _k4_check(*inputs, dtype)
-    second = _k4(*inputs)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    _repeated(lambda: _k4(*inputs), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -344,22 +370,45 @@ def test_k6_kernel_matches_plain(dtype, b):
         assert (g - w).abs().max().item() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [8, 32])
-def test_k3_k5_k6_kernels_bit_equal(dtype, b):
+@pytest.mark.parametrize("case", RACE_SHAPES + [(torch.float32, 2, 8, 512),
+                                                (torch.bfloat16, 250, 8, 800)], ids=_race_id)
+def test_k3_k5_k6_kernels_bit_equal(case):
     """One body, three instances: K5 from zero carries writes K3's four
-    outputs bit for bit, and K6 K3's h streams (one plan at one batch)."""
+    outputs bit for bit, and K6 K3's h streams (one plan at one batch).
+    Then K1, K3 (its gate sums too), K5 from random carries and K6, each
+    called REPEATS times, give their first call's bits every time, and the
+    first calls are the plain versions' within tolerance (the last two
+    cases: widths whose wh slices spill)."""
     _need_cuda()
+    dtype, t, b, h = case
     gen = torch.Generator().manual_seed(6)
-    xw, wh = _train_inputs(gen, 250, b, 250, dtype)
+    xw, wh = _train_inputs(gen, t, b, h, dtype)
     k3 = lstm_train.bilstm_recurrence_train(xw, wh)
-    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, b, 250, device="cuda"))
+    k5 = lstm_window.bilstm_recurrence_carry(xw, wh, torch.zeros(2, 2, b, h, device="cuda"))
     k6 = lstm_window.bilstm_recurrence(xw, wh)
     torch.cuda.synchronize()
-    for a, b in zip(k3, k5):
-        assert torch.equal(a, b)
-    for a, b in zip(k3[:2], k6):
-        assert torch.equal(a, b)
+    for x, y in zip(k3, k5):
+        assert torch.equal(x, y)
+    for x, y in zip(k3[:2], k6):
+        assert torch.equal(x, y)
+    hc0 = _carry(gen, b, h)
+    x1 = _w(gen, t, b, 64, scale=2.0).to(dtype)
+    wx = _w(gen, 2, 64, 4 * h, scale=0.125).to(dtype)
+    bias = _w(gen, 2, 4 * h, scale=0.1)
+    runs = [(lambda: lstm_train.bilstm_recurrence_train(xw, wh),
+             lambda: lstm_train.bilstm_recurrence_train_plain(xw, wh)),
+            (lambda: lstm_window.bilstm_recurrence_carry(xw, wh, hc0),
+             lambda: lstm_window.bilstm_recurrence_carry_plain(xw, wh, hc0)),
+            (lambda: lstm_window.bilstm_recurrence(xw, wh),
+             lambda: lstm_window.bilstm_recurrence_plain(xw, wh)),
+            (lambda: lstm_fused.bilstm_fused_proj(x1, wx, bias, wh),
+             lambda: lstm_fused.bilstm_fused_proj_plain(x1, wx, bias, wh))]
+    for kernel, plain in runs:
+        first = kernel()
+        torch.cuda.synchronize()
+        for g, w in zip(first, plain()):
+            assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+        _repeated(kernel, first)
 
 
 def one_hot_projection(gen, t, b, h, dtype):

@@ -33,11 +33,11 @@ def _buffers(plan, bf16, resident):
     """The walk's shared buffers, each rounded up to 16 bytes: the wh slice's
     resident depth rows (f32 rows of 4U + 4 floats, bf16 fragments of 4U
     columns), dgates (f32 [btile][4U], bf16 [btile][4U + 8]), the receive
-    slots [2][cluster][btile][U] f32."""
+    slots [2][cluster][btile][U] f32, and their two 8-byte mbarriers."""
     g, size = 4 * plan.units, 2 if bf16 else 4
     parts = [(g if bf16 else g + 4) * resident * size,
              plan.btile * (g + 8) * 2 if bf16 else plan.btile * g * 4,
-             2 * plan.cluster * plan.btile * plan.units * 4]
+             2 * plan.cluster * plan.btile * plan.units * 4, 2 * 8]
     return sum(-(-b // 16) * 16 for b in parts)
 
 
@@ -122,13 +122,15 @@ def test_bwd_threads_in_bounds(hidden, dtype, batch):
 def test_flagship_walk_holds_the_whole_slice():
     """H=250 at the training batches: K3's plan as it is, the whole slice
     resident (f32 B=32: 256 x 132 x 4 bytes of slice, 8 x 128 x 4 of
-    dgates, 2 x 8 x 8 x 32 x 4 of slots)."""
-    for batch in (8, 32, 128):
+    dgates, 2 x 8 x 8 x 32 x 4 of slots, 2 x 8 of the slots' mbarriers)."""
+    for batch in (1, 8, 32, 128):
         for dtype in DTYPES:
             k3 = launch_plan(250, batch, dtype, gate_major=True)
-            assert bwd_plan(250, batch, dtype).c_args() == k3.c_args()
+            plan = bwd_plan(250, batch, dtype)
+            assert plan.c_args() == k3.c_args()
+            assert plan.resident == 256 and plan.smem_bytes <= SMEM_PER_CTA
     plan = bwd_plan(250, 32, torch.float32)
-    assert plan.smem_bytes == 135_168 + 4_096 + 16_384
+    assert plan.smem_bytes == 135_168 + 4_096 + 16_384 + 16
 
 
 @pytest.mark.parametrize("hidden,dtype", [(2050, torch.float32), (4096, torch.float32),

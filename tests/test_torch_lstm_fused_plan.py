@@ -46,14 +46,33 @@ def test_plan_covers_units_and_rows_once(hidden, batch, dtype):
     assert plan.clusters == 2 * len(batch_ranges(plan, batch))
 
 
+def _rec_parts(plan, hidden, bf16, ring):
+    """`rec_layout`'s buffers in lstm_cluster.cuh, in order, each rounded
+    up to 16 bytes: the wh slice's resident rows, h's two parity buffers
+    [btile][kp + 8], the xw ring (K1/K2), the partial gates, c, and the two
+    mbarriers of the exchange (one per h buffer, 8 bytes each)."""
+    g, kp, size = 4 * plan.units, -(-hidden // 16) * 16, 2 if bf16 else 4
+    parts = [g * plan.resident * size, 2 * plan.btile * (kp + 8) * size,
+             2 * plan.btile * g * size if ring else 0, plan.ksplit * plan.btile * g * 4,
+             plan.btile * plan.units * 4, 2 * 8]
+    return [-(-b // 16) * 16 for b in parts]
+
+
+@pytest.mark.parametrize("gate_major", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("batch", [1, 8, 32, 128])
 @pytest.mark.parametrize("hidden", [24, 250, 256, 400])
-def test_plan_fits_a_cta(hidden, batch, dtype):
-    plan = launch_plan(hidden, batch, dtype)
+def test_plan_fits_a_cta(hidden, batch, dtype, gate_major):
+    """Both xw layouts: the plan's bytes are its buffers and, last, the
+    exchange's two mbarriers (16 bytes, 16-byte aligned), within a CTA."""
+    bf16 = dtype == torch.bfloat16
+    plan = launch_plan(hidden, batch, dtype, gate_major=gate_major)
     assert plan.smem_bytes <= SMEM_PER_CTA == 227 * 1024
     assert plan.smem_bytes == rec_smem_bytes(
-        hidden, plan.units, plan.btile, plan.ksplit, dtype == torch.bfloat16)
+        hidden, plan.units, plan.btile, plan.ksplit, bf16, ring=not gate_major)
+    parts = _rec_parts(plan, hidden, bf16, not gate_major)
+    assert plan.smem_bytes == sum(parts) and parts[-1] == lstm_fused.BAR_BYTES == 16
+    assert plan.resident == -(-hidden // 16) * 16  # the whole slice: all fit
     assert plan.threads <= lstm_fused.REC_THREADS_MAX
     assert plan.units * plan.btile <= lstm_fused.REC_ITEMS_MAX * plan.threads  # cells per thread
     assert plan.units % 4 == 0  # whole 16-row mma tiles of gate columns
@@ -77,11 +96,12 @@ def test_flagship_plan_fits_the_h100(batch, dtype):
 def test_flagship_f32_shared_bytes():
     """The f32 slice is 256 x 128 x 4 = 131,072 bytes (depth padded to 256
     with zero rows), beside h (2 x 8 rows of 264), the xw ring (2 x 8 x 128
-    x 4), eight partial gate planes (8 x 8 x 128 x 4) and c (8 x 32 x 4);
-    a thread per 4 columns and depth slice of 32 (the cluster of 8 at B=32)."""
+    x 4), eight partial gate planes (8 x 8 x 128 x 4), c (8 x 32 x 4) and
+    the exchange's two 8-byte mbarriers; a thread per 4 columns and depth
+    slice of 32 (the cluster of 8 at B=32)."""
     plan = launch_plan(250, 32, torch.float32)
     assert plan.ksplit == 8 and plan.threads == 256
-    assert plan.smem_bytes == 131_072 + 16_896 + 8_192 + 32_768 + 1_024
+    assert plan.smem_bytes == 131_072 + 16_896 + 8_192 + 32_768 + 1_024 + 16
 
 
 def test_large_batch_takes_a_wider_tile():
